@@ -1,0 +1,4 @@
+"""Architecture configs ported so far.  Importing this package registers
+them into the registry (``repro_torch.config.get_arch``)."""
+
+from repro_torch.configs import gemma_2b  # noqa: F401

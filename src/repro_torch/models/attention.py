@@ -1,0 +1,230 @@
+"""Attention: causal GQA/MQA, prefill into a KV cache, and one-token
+decode against a contiguous or a paged cache.
+
+The PyTorch twin of ``repro/models/attention.py``.  Every public function
+keeps the JAX layout ``(B, S, H, hd)``.  Implementations (``impl``):
+
+* ``dense``  — materialize the (Sq, Sk) scores; the plain model path.
+* ``kernel`` — the hand-written CUDA flash kernel (``kernels/ops.py``),
+  which takes any S >= 1.  ``pallas``, the JAX package's name for its
+  kernel path, is accepted as an alias.
+
+KV caches are updated in place (``index_put_``) where the JAX package
+donated its buffers: the functions return the cache they were given.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope, softcap
+
+Params = Dict[str, Any]
+
+NEG_INF = -1e30
+IMPLS = ("dense", "kernel", "pallas")
+
+
+def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                 positions: torch.Tensor):
+    """x (B,S,D) -> q (B,S,Hq,hd), k, v (B,S,Hkv,hd), with RoPE applied."""
+    if cfg.qkv_bias:
+        raise NotImplementedError(
+            "qkv biases are not ported yet (ROADMAP Queue 1, item 11: the "
+            "other model families)")
+    b, s, d = x.shape
+    dtype = x.dtype
+
+    def proj(w):
+        h, e = w.shape[1], w.shape[2]
+        return (x @ w.reshape(d, h * e).to(dtype)).view(b, s, h, e)
+
+    q = apply_rope(cfg, proj(p["wq"]), positions)
+    k = apply_rope(cfg, proj(p["wk"]), positions)
+    return q, k, proj(p["wv"])
+
+
+def _out_proj(p: Params, out: torch.Tensor) -> torch.Tensor:
+    """(B,S,Hq,hd) -> (B,S,D) through ``wo`` (Hq, hd, D)."""
+    b, s, h, e = out.shape
+    wo = p["wo"]
+    return out.reshape(b, s, h * e) @ wo.reshape(h * e, wo.shape[2]).to(out.dtype)
+
+
+def _group(cfg: ModelConfig, q: torch.Tensor) -> torch.Tensor:
+    """(B,S,Hq,hd) -> (B,S,Hkv,G,hd)."""
+    b, s, hq, hd = q.shape
+    return q.view(b, s, cfg.num_kv_heads, hq // cfg.num_kv_heads, hd)
+
+
+def _scale(cfg: ModelConfig) -> float:
+    return cfg.query_scale or 1.0 / math.sqrt(cfg.head_dim)
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attn impl {impl!r}; the port has {IMPLS}")
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence implementations
+# ---------------------------------------------------------------------------
+
+
+def _attn_dense(cfg: ModelConfig, q, k, v, q_pos, k_pos) -> torch.Tensor:
+    qg = _group(cfg, q)                                   # (B,Sq,K,G,hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k) * _scale(cfg)
+    s = softcap(s, cfg.attn_logit_softcap)
+    mask = k_pos[:, None, None, None, :] <= q_pos[:, None, None, :, None]
+    s = s.masked_fill(~mask, NEG_INF)
+    pr = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", pr, v)
+    return out.reshape(q.shape)
+
+
+def _attn_kernel(cfg: ModelConfig, q, k, v) -> torch.Tensor:
+    """The flash kernel path (positions are ``arange(S)`` from 0)."""
+    return ops.flash_attention(q, k, v, causal=True, scale=_scale(cfg),
+                               logit_softcap=cfg.attn_logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# KV cache (prefill + decode)
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                  device=None) -> Params:
+    """Full-length KV of a global-attention layer; ``pos`` holds each
+    entry's absolute position per row (-1 = empty).  (Local layers' ring
+    caches come with local attention, ROADMAP Queue 1 item 11.)"""
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def cache_write(cache: Params, k: torch.Tensor, v: torch.Tensor,
+                pos) -> Params:
+    """Write S new KV entries starting at absolute position ``pos``, in
+    place.  ``pos`` is an int (all rows at the same position: prefill) or
+    a ``(B,)`` tensor of per-row positions (single-token decode writes,
+    which wrap modulo the cache length: an empty slot's garbage decode
+    runs past it)."""
+    b, s = k.shape[0], k.shape[1]
+    if isinstance(pos, torch.Tensor):
+        if s != 1:
+            raise ValueError("per-row cache writes are single-token only")
+        rows = torch.arange(b, device=k.device)
+        idx = (pos % cache["k"].shape[1]).long()
+        cache["k"][rows, idx] = k[:, 0]
+        cache["v"][rows, idx] = v[:, 0]
+        cache["pos"][rows, idx] = pos.to(torch.int32)
+        return cache
+    if pos + s > cache["k"].shape[1]:
+        raise ValueError(f"{s} entries at position {pos} overflow the cache")
+    cache["k"][:, pos:pos + s] = k
+    cache["v"][:, pos:pos + s] = v
+    cache["pos"][:, pos:pos + s] = pos + torch.arange(
+        s, dtype=torch.int32, device=k.device)
+    return cache
+
+
+def prefill_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                      positions: torch.Tensor, cache: Params, *,
+                      impl: str = "dense") -> Tuple[torch.Tensor, Params]:
+    """Full-sequence causal attention that also fills the KV cache (in
+    place).  Positions start at 0, as every prefill does."""
+    _check_impl(impl)
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    if impl == "dense":
+        out = _attn_dense(cfg, q, k, v, positions, positions)
+    else:
+        out = _attn_kernel(cfg, q, k, v)
+    cache = cache_write(cache, k, v, 0)
+    return _out_proj(p, out), cache
+
+
+def init_paged_kv_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
+                        dtype, device=None) -> Params:
+    """Pooled (paged) KV storage for global-attention layers: ``num_blocks``
+    blocks of ``block_size`` entries shared by every slot, with ``ppos``
+    the absolute position of each entry (-1 = empty)."""
+    shape = (num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "pk": torch.zeros(shape, dtype=dtype, device=device),
+        "pv": torch.zeros(shape, dtype=dtype, device=device),
+        "ppos": torch.full((num_blocks, block_size), -1, dtype=torch.int32,
+                           device=device),
+    }
+
+
+def paged_decode_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                           cache: Params, pos: torch.Tensor,
+                           table: torch.Tensor, *,
+                           kernel: bool = False) -> Tuple[torch.Tensor, Params]:
+    """One-token attention against a paged (pooled) global KV cache.
+
+    ``table`` is ``(B, nb)`` int32 mapping each row's logical blocks to pool
+    blocks, in logical order.  The new token's K/V are written into the
+    pool in place first.  ``kernel=False`` gathers the logical
+    ``(B, nb * bs)`` view and runs the masked softmax (the plain path);
+    ``kernel=True`` runs the CUDA block-table kernel straight off the pool
+    (``kernels/ops.py``; the plain version on a CPU tensor)."""
+    b = x.shape[0]
+    pos_b = pos.to(torch.int32).expand(b)
+    q, k, v = _project_qkv(cfg, p, x, pos_b[:, None])
+    bs = cache["pk"].shape[1]
+    nb = table.shape[1]
+    rows = torch.arange(b, device=x.device)
+    # physical write target: distinct across live rows
+    phys = table[rows, (pos_b // bs) % nb].long()
+    off = (pos_b % bs).long()
+    cache["pk"][phys, off] = k[:, 0]
+    cache["pv"][phys, off] = v[:, 0]
+    cache["ppos"][phys, off] = pos_b
+    if kernel:
+        out = ops.paged_decode_attention(
+            q[:, 0].contiguous(), cache["pk"], cache["pv"], cache["ppos"],
+            table, pos_b.contiguous(), scale=_scale(cfg),
+            logit_softcap=cfg.attn_logit_softcap)
+        return _out_proj(p, out[:, None]), cache
+    # gather the logical view: entry (b, l) holds absolute position l
+    tab = table.long()
+    kc = cache["pk"][tab].reshape(b, nb * bs, cfg.num_kv_heads, cfg.head_dim)
+    vc = cache["pv"][tab].reshape(b, nb * bs, cfg.num_kv_heads, cfg.head_dim)
+    pc = cache["ppos"][tab].reshape(b, nb * bs)
+    valid = (pc >= 0) & (pc <= pos_b[:, None])
+    return _out_proj(p, _attend_one(cfg, q, kc, vc, valid)), cache
+
+
+def _attend_one(cfg: ModelConfig, q, kc, vc, valid) -> torch.Tensor:
+    """Masked softmax of one query token per row over a cache view."""
+    qg = _group(cfg, q)                                   # (B,1,K,G,hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kc) * _scale(cfg)
+    s = softcap(s, cfg.attn_logit_softcap)
+    s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    pr = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bkgqs,bskd->bqkgd", pr, vc).reshape(q.shape)
+
+
+def decode_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                     cache: Params, pos: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Params]:
+    """One-token attention against a contiguous cache.  x: (B,1,D); ``pos``
+    is a ``(B,)`` tensor of per-row absolute positions (or a scalar one)."""
+    b = x.shape[0]
+    pos_b = pos.to(torch.int32).expand(b)
+    q, k, v = _project_qkv(cfg, p, x, pos_b[:, None])
+    cache = cache_write(cache, k, v, pos_b)
+    pc = cache["pos"]
+    valid = (pc >= 0) & (pc <= pos_b[:, None])
+    return _out_proj(p, _attend_one(cfg, q, cache["k"], cache["v"], valid)), cache

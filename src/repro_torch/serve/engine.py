@@ -1,0 +1,313 @@
+"""The decode engine: prefill one request into a slot, then advance every
+slot a chunk of tokens at a time.
+
+The PyTorch twin of ``repro/serve/engine.py``.  The JAX engine compiles
+one ``lax.scan`` executable per shape; here the chunk is a Python loop of
+``decode_step`` calls (CUDA graphs for the chunk are later work), and the
+compile counters count the distinct shape keys the engine has run, which
+is what the JAX counters pin.  The engine is params-free: parameters are
+an argument of every call, so replicas share one engine.
+
+Caches are updated in place where the JAX engine donated its buffers.
+Speculative decode (``spec_chunk``) and split mode (``cuts``) are not
+ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers import resolve_device
+
+Params = Any
+
+
+@dataclasses.dataclass
+class BatchState:
+    """Mutable per-replica decode state: the batched cache plus each slot's
+    current token and next absolute position.
+
+    In paged mode (``block_size > 0``) the KV lives in a shared block pool
+    and ``table`` maps each slot's logical blocks to pool blocks.  The table
+    is host-side numpy; whoever rewrites a row calls
+    :meth:`mark_table_dirty`, and :meth:`device_table` re-uploads only
+    then."""
+
+    cache: Params
+    tok: torch.Tensor   # (B, 1) int32 — last token per slot
+    pos: torch.Tensor   # (B,)   int32 — next absolute position per slot
+    max_len: int
+    table: Optional[np.ndarray] = None   # (B, nb) int32 block table
+    block_size: int = 0
+    _table_dev: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False)
+    _table_dirty: bool = True
+
+    def mark_table_dirty(self) -> None:
+        """Host-side ``table`` rows changed; the next chunk re-uploads."""
+        self._table_dirty = True
+
+    def device_table(self) -> Optional[torch.Tensor]:
+        if self.table is None:
+            return None
+        if self._table_dev is None or self._table_dirty:
+            self._table_dev = torch.as_tensor(self.table, dtype=torch.int32,
+                                              device=self.pos.device)
+            self._table_dirty = False
+        return self._table_dev
+
+
+def _layer_caches(cache: Params):
+    """(stacked, layer cache dict) for every cache entry of the tree:
+    stacked entries carry the leading layer axis (batch at axis 1)."""
+    for d in cache["stack"]:
+        yield True, d
+    for d in cache["rem"]:
+        yield False, d
+
+
+def _scatter_slot(dst: Params, src: Params, slot: int) -> None:
+    """Write a batch-1 contiguous cache into row ``slot`` of a batched one,
+    in place.  The whole row is replaced, which also wipes any stale
+    validity from the slot's previous occupant."""
+    for (stacked, d), (_, s) in zip(_layer_caches(dst), _layer_caches(src)):
+        for key in d:
+            if stacked:
+                d[key][:, slot] = s[key][:, 0]
+            else:
+                d[key][slot] = s[key][0]
+
+
+def _scatter_slot_paged(dst: Params, src: Params, slot: int,
+                        blocks: Sequence[int], block_size: int) -> None:
+    """Paged admission, in place: reshape the batch-1 contiguous prefill
+    cache into blocks and write ONLY the ``len(blocks)`` reserved pool
+    blocks (the tail blocks of the reservation carry fresh -1 entries,
+    wiping their previous owner).  The slot's scratch block gets its
+    ``ppos`` row wiped to -1: its stale K/V is never read, but a stale
+    position from the slot's empty-phase garbage decode would pass the
+    validity mask."""
+    nr = len(blocks)
+    for (stacked, d), (_, s) in zip(_layer_caches(dst), _layer_caches(src)):
+        idx = torch.as_tensor(np.asarray(blocks), dtype=torch.long,
+                              device=d["pk"].device)
+        lead = 1 if stacked else 0
+
+        def resh(a):   # ([L,] 1, max_len, ...) -> ([L,] nr, bs, ...)
+            a = a.select(lead, 0)
+            nb = a.shape[lead] // block_size
+            return a.reshape(a.shape[:lead] + (nb, block_size)
+                             + a.shape[lead + 1:]).narrow(lead, 0, nr)
+
+        for pool, key in (("pk", "k"), ("pv", "v"), ("ppos", "pos")):
+            if stacked:
+                d[pool][:, idx] = resh(s[key])
+            else:
+                d[pool][idx] = resh(s[key])
+        if stacked:
+            d["ppos"][:, slot] = -1
+        else:
+            d["ppos"][slot] = -1
+
+
+class DecodeEngine:
+    """Decode engine for one architecture on one device.
+
+    ``impl`` picks the prefill attention ("dense" or "kernel"; "pallas" is
+    an alias of "kernel"); ``paged_kernel`` sends paged decode through the
+    CUDA block-table kernel instead of the gather.  ``device`` defaults to
+    the card and raises when there is none."""
+
+    def __init__(self, cfg: ModelConfig, *, impl: str = "dense",
+                 cuts: Optional[Sequence[int]] = None,
+                 paged_kernel: bool = False, device="cuda"):
+        attn._check_impl(impl)
+        if cuts:
+            raise NotImplementedError(
+                "split-mode serving (cuts) is not ported yet (ROADMAP "
+                "Queue 1, item 12)")
+        tf._superblock_layout(cfg)        # raises on an unported layer kind
+        self.cfg = cfg
+        self.impl = impl
+        self.paged_kernel = bool(paged_kernel)
+        self.device = resolve_device(device)
+        self._shape_keys = set()
+        self.decode_compiles = 0
+        self.prefill_compiles = 0
+
+    @property
+    def num_hops(self) -> int:
+        """Activation crossings per decode step (0 for the merged model)."""
+        return 0
+
+    def _count(self, kind: str, key: Tuple) -> None:
+        """Count a new shape key, as the JAX engine counts compilations."""
+        if (kind,) + key in self._shape_keys:
+            return
+        self._shape_keys.add((kind,) + key)
+        if kind == "prefill":
+            self.prefill_compiles += 1
+        else:
+            self.decode_compiles += 1
+
+    @staticmethod
+    def _cache_shapes(cache: Params) -> Tuple:
+        return tuple(tuple(t.shape) for _, d in _layer_caches(cache)
+                     for t in d.values())
+
+    def _prefill(self, params: Params, prompts: torch.Tensor,
+                 cache: Params) -> torch.Tensor:
+        """Prefill ``prompts`` into ``cache`` (in place) -> the greedy next
+        token (B, 1) int32."""
+        self._count("prefill", tuple(prompts.shape) + self._cache_shapes(cache))
+        logits, _ = tf.prefill(params, self.cfg, prompts, cache=cache,
+                               impl=self.impl, last_only=True)
+        return torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+
+    # -- cache / state -----------------------------------------------------
+
+    def init_cache(self, batch: int, max_len: int,
+                   paged: Optional[Tuple[int, int]] = None) -> Params:
+        return tf.init_cache(self.cfg, batch, max_len, paged=paged,
+                             device=self.device)
+
+    def new_batch_state(self, slots: int, max_len: int, *,
+                        block_size: int = 0,
+                        pool_blocks: int = 0) -> BatchState:
+        """Empty slots decode garbage in lockstep with the live ones — safely,
+        because decode writes each row's K/V before it masks, so even an
+        empty row attends to its own fresh entry.  Admission replaces the
+        row.
+
+        ``block_size > 0`` switches the KV to a paged pool of
+        ``pool_blocks`` blocks (default: every slot can hold ``max_len``,
+        plus one scratch block per slot).  Fresh table rows point every
+        logical block at the slot's scratch block."""
+        tok = torch.zeros((slots, 1), dtype=torch.int32, device=self.device)
+        pos = torch.ones((slots,), dtype=torch.int32, device=self.device)
+        if not block_size:
+            return BatchState(cache=self.init_cache(slots, max_len), tok=tok,
+                              pos=pos, max_len=max_len)
+        if max_len % block_size:
+            raise ValueError(
+                f"max_len {max_len} must be a multiple of block_size "
+                f"{block_size} (the table maps whole blocks)")
+        nb = max_len // block_size
+        if not pool_blocks:
+            pool_blocks = slots * (nb + 1)
+        if pool_blocks <= slots:
+            raise ValueError(
+                f"pool_blocks {pool_blocks} leaves no allocatable blocks "
+                f"after {slots} per-slot scratch blocks")
+        cache = self.init_cache(slots, max_len, paged=(pool_blocks, block_size))
+        table = np.repeat(np.arange(slots, dtype=np.int32)[:, None], nb, axis=1)
+        return BatchState(cache=cache, tok=tok, pos=pos, max_len=max_len,
+                          table=table, block_size=block_size)
+
+    # -- serving primitives ------------------------------------------------
+
+    def admit(self, state: BatchState, params: Params, prompt: np.ndarray,
+              slot: int, blocks: Optional[Sequence[int]] = None) -> int:
+        """Prefill one request at its exact prompt length into ``slot``;
+        returns its first generated token (greedy over the last prompt
+        position).
+
+        Paged mode: ``blocks`` are the pool blocks reserved for the request
+        (allocator order == logical order); the table row maps the rest of
+        the logical blocks to the slot's scratch block."""
+        prompt_t = torch.as_tensor(np.asarray(prompt), dtype=torch.int32,
+                                   device=self.device)[None]
+        length = prompt_t.shape[1]
+        if length >= state.max_len:
+            raise ValueError(
+                f"prompt of length {length} does not fit a max_len="
+                f"{state.max_len} cache with room to decode")
+        cache1 = self.init_cache(1, state.max_len)
+        tok = self._prefill(params, prompt_t, cache1)
+        if state.table is not None:
+            if blocks is None:
+                raise ValueError("paged admission needs the request's reserved "
+                                 "blocks (BlockAllocator.allocate)")
+            row = np.full((state.table.shape[1],), slot, np.int32)
+            row[:len(blocks)] = np.asarray(blocks, np.int32)
+            state.table[slot] = row
+            state.mark_table_dirty()
+            _scatter_slot_paged(state.cache, cache1, slot, blocks,
+                                state.block_size)
+        else:
+            _scatter_slot(state.cache, cache1, slot)
+        state.tok[slot] = tok[0]
+        state.pos[slot] = length
+        return int(tok[0, 0])
+
+    def decode_chunk(self, state: BatchState, params: Params,
+                     forced: np.ndarray, force_len: np.ndarray,
+                     generator: Optional[torch.Generator] = None,
+                     temperature: float = 0.0) -> np.ndarray:
+        """Advance every slot by ``forced.shape[1]`` tokens.  Slot ``b``
+        takes ``forced[b, t]`` for ``t < force_len[b]`` (replay), else the
+        greedy token, or one sampled at ``temperature`` from ``generator``.
+        Returns the (B, T) emitted tokens."""
+        if temperature > 0 and generator is None:
+            raise ValueError("temperature > 0 requires a torch.Generator")
+        forced_t = torch.as_tensor(np.asarray(forced), dtype=torch.int32,
+                                   device=self.device)
+        force_len_t = torch.as_tensor(np.asarray(force_len),
+                                      dtype=torch.int32, device=self.device)
+        b, t_chunk = forced_t.shape
+        table = state.device_table()
+        self._count("chunk", (b, t_chunk, table is not None)
+                    + self._cache_shapes(state.cache))
+        tok, pos = state.tok, state.pos
+        emitted = []
+        for t in range(t_chunk):
+            logits, _ = tf.decode_step(params, self.cfg, tok, state.cache,
+                                       pos, table=table,
+                                       paged_kernel=self.paged_kernel)
+            lg = logits[:, 0]
+            if temperature > 0:
+                probs = torch.softmax(lg / temperature, dim=-1)
+                nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            else:
+                nxt = torch.argmax(lg, dim=-1)
+            nxt = torch.where(t < force_len_t, forced_t[:, t],
+                              nxt.to(torch.int32))
+            emitted.append(nxt)
+            tok, pos = nxt[:, None], pos + 1
+        state.tok, state.pos = tok, pos
+        return torch.stack(emitted, dim=1).cpu().numpy()
+
+    def spec_chunk(self, state: BatchState, params: Params, draft_k: int):
+        raise NotImplementedError(
+            "speculative decode (draft / verify / spec_chunk) is not ported "
+            "yet (ROADMAP Queue 1, item 12)")
+
+    # -- one-shot batched generation --------------------------------------
+
+    def generate(self, params: Params, prompts, gen: int, *,
+                 temperature: float = 0.0,
+                 generator: Optional[torch.Generator] = None) -> np.ndarray:
+        """Batched generation of ``gen`` tokens per prompt row: prefill,
+        then one chunk of ``gen - 1`` decode steps.  Returns (B, gen)."""
+        prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int32,
+                                  device=self.device)
+        b, s0 = prompts.shape
+        cache = self.init_cache(b, s0 + gen)
+        tok = self._prefill(params, prompts, cache)
+        out = [tok.cpu().numpy()]
+        if gen > 1:
+            state = BatchState(cache=cache, tok=tok,
+                               pos=torch.full((b,), s0, dtype=torch.int32,
+                                              device=self.device),
+                               max_len=s0 + gen)
+            out.append(self.decode_chunk(
+                state, params, np.zeros((b, gen - 1), np.int32),
+                np.zeros((b,), np.int32), generator, temperature))
+        return np.concatenate(out, axis=1)

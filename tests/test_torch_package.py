@@ -1,0 +1,90 @@
+"""Package rules of the PyTorch port.
+
+* No module of ``src/repro_torch/``, and not ``chip_smoke.py``, imports
+  ``jax`` or anything of the JAX package ``repro`` (AST scan).
+* Entry points default to the card and raise when there is none; the port
+  never goes on on the CPU unless the caller passes ``device="cpu"``.
+* Layer kinds that are not ported yet raise ``NotImplementedError``.
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch._bridge import params_from_jax
+from repro_torch.config import ATTN_LOCAL, get_arch, reduced
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import transformer as tf
+from repro_torch.serve import DecodeEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = _port_files()
+    assert len(files) > 20 and all(f.exists() for f in files)
+    bad = []
+    for f in files:
+        for mod in _imported_modules(f):
+            top = mod.split(".")[0]
+            if top in ("jax", "jaxlib", "repro", "flax", "optax"):
+                bad.append(f"{f.relative_to(ROOT)}: {mod}")
+    assert not bad, bad
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card behaviour does not apply")
+
+
+def test_entry_points_raise_without_a_card():
+    _no_card()
+    cfg = reduced(get_arch("gemma-2b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DecodeEngine(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tf.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tf.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax({"x": {"scale": np.zeros(2, np.float32)}}, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.main(["--arch", "gemma-2b", "--reduced"])
+
+
+def test_unported_layer_kinds_raise():
+    cfg = reduced(get_arch("gemma-2b"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DecodeEngine(cfg.replace(pattern=(ATTN_LOCAL,), window=16),
+                     device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tf.init_params(cfg.replace(mlp_pattern=("moe",)), torch.Generator(),
+                       device="cpu")
+
+
+def test_cli_serves_requests_on_cpu(capsys):
+    launch_serve.main(["--arch", "gemma-2b", "--reduced", "--device", "cpu",
+                       "--requests", "3", "--replicas", "1", "--slots", "2",
+                       "--prompt-len", "12", "--gen", "6", "--block-size", "8",
+                       "--paged-kernel", "--impl", "kernel"])
+    out = capsys.readouterr().out
+    assert "device=cpu" in out and "tok/s" in out
+    assert "WARNING" not in out
