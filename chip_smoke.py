@@ -7,10 +7,15 @@ Phases, each printing its lines before the last:
 
 1. build   — compile the CUDA kernels of ``src/repro_torch/kernels/csrc``
              with nvcc for sm_90a.
-2. kernels — hold each kernel against its plain PyTorch version
+2. kernels — hold each serving kernel against its plain PyTorch version
              (``kernels/ref.py``) on the card, in bf16 and fp32, at the
              serving path's shapes and a few edge cases; time the kernel,
              the plain version and, as a yardstick only, one library call.
+2b. training kernels — the same for fused masked AdamW and the weighted
+             client average, at one full-size Gemma-2B client leaf (the
+             MLP gate of the 4-layer client stage, 2 clients: (2,
+             134217728)) in fp32 and bf16 params; fused AdamW must be
+             bit-exact in fp32 and keep the masked row.
 3. serve   — serve full Gemma-2B (18 layers, bf16, random weights from a
              seed) through the port's serving path: 16 requests, one
              replica of 8 slots, paged KV, both kernels; every kernel must
@@ -20,6 +25,22 @@ Phases, each printing its lines before the last:
              logits must agree within a band, and greedy tokens wherever the
              top-2 margin exceeds twice that band.
 5. card    — the card's name and power limit, as nvidia-smi gives them.
+6. train   — 3 synchronous WSSL rounds of full Gemma-2B (18 layers, fp32
+             params, bf16 activations, random weights from a seed) through
+             the port's training path (``launch/train.py``): 2 clients at
+             participation 0.5 (round 0 selects both, rounds 1-2 one, so
+             the mask freeze runs), cut at layer 4, seq 128, batch 2 per
+             client, fused AdamW; then the trained client stack is
+             aggregated through the weighted-average kernel and held
+             against the plain average.  Both kernels must have launched
+             in this run (21 fused-AdamW launches a round).  2 clients,
+             because p, m, v and g in fp32 are 16 B x 3,995,166,720
+             elements = 63.9 GB; 4 clients would need 94.8 GB.
+7. train parity — the same rounds at full width and 2 layers (cut 1),
+             once through the kernels and once with AdamW through its plain
+             version (``ops.fused_adamw_plain``) and the plain aggregate,
+             from the same seed and Gumbel draws: masks equal, losses and
+             params within stated bands.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
@@ -34,7 +55,10 @@ also writes the full record of every phase to that JSON file.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -54,13 +78,31 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # >= 60 keys and stay below 1, ulp 3.9e-3 in [0.5, 1).  Observed on the
 # H100: 1.95e-3 (flash) and 9.5e-7 (paged) in bf16.
 BANDS = {"flash_attention": {"bfloat16": 8e-3, "float32": 1e-4},
-         "paged_decode_attention": {"bfloat16": 4e-3, "float32": 1e-4}}
+         "paged_decode_attention": {"bfloat16": 4e-3, "float32": 1e-4},
+         # in ulps at the output's magnitude (check_wavg): the kernel sums
+         # the N products in index order with fmaf, cuBLAS in an order and
+         # with fusions of its own, a few roundings apart in fp32; the bf16
+         # outputs round once from those fp32 sums, one bf16 ulp apart
+         "weighted_average": {"float32": 4, "bfloat16": 1}}
 # prefill logits, kernel path vs plain path, bf16, max |diff|: the plain
 # path rounds scores and probabilities to bf16 where the kernel keeps fp32,
 # compounded over 18 layers; an 18-layer d_model-512 cut of the same model
 # differs by 0.066-0.086 on logits of std ~1 (CPU run of these plain ops),
 # so the band is 0.25.
 LOGIT_BAND = 0.25
+# train parity (phase 7), kernel path vs plain path, set from readings on
+# an H100 80GB HBM3 at 700 W.  The paths differ in the AdamW step (the
+# kernel vs its plain version, bit-exact in fp32: phase 2b) and in the
+# aggregate taken after training (the wavg kernel vs an fp32 product).
+# Read: losses and val losses equal (rel diff 0); params max |diff|
+# 5.8e-11, in the aggregate only.  Bands: losses rel 1e-6, a few fp32
+# ulps; the trained stages max |diff| 1e-8, 170x the reading and about
+# 1/13 of what a dropped weight decay would move them (lr * wd * |p| over
+# the 3 warm-up rounds: 6e-4 * 0.01 * 0.022 = 1.3e-7 at a typical
+# embedding entry) — a frozen row that stepped would move ~lr = 1e-4; the
+# aggregate within the wavg band of BANDS.
+TRAIN_LOSS_RTOL = 1e-6
+TRAIN_STAGE_BAND = 1e-8
 
 
 def _time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -185,10 +227,317 @@ def check_paged(torch, ops, ref, *, b, hq, hkv, hd, bs, nb, dtype,
     return rec
 
 
+def _ulps(torch, t, n, dtype):
+    """n units in the last place of ``dtype`` at the magnitude of max|t|."""
+    mag = t.float().abs().max().item()
+    return n * torch.finfo(getattr(torch, dtype)).eps * 2.0 ** math.floor(
+        math.log2(mag)) if mag > 0 else 0.0
+
+
+def check_fused_adamw(torch, ops, ref, *, rows, cols, dtype, seed=0):
+    """Fused AdamW kernel vs its plain version on one (N, M) leaf with the
+    freeze mask [1, 0, ...] (row 0 steps, the rest stay).  fp32 must be
+    bit-exact; bf16 within BANDS; the masked rows must keep p, m and v."""
+    from repro_torch.optim.optimizers import adam_scalars
+    dt = getattr(torch, dtype)
+    g_ = torch.Generator(device="cuda").manual_seed(seed)
+    p = (torch.randn((rows, cols), generator=g_, device="cuda") * 0.02).to(dt)
+    g = (torch.randn((rows, cols), generator=g_, device="cuda") * 1e-3).to(dt)
+    m = torch.randn((rows, cols), generator=g_, device="cuda") * 1e-4
+    v = torch.rand((rows, cols), generator=g_, device="cuda") * 1e-6
+    mask = torch.zeros((rows,), device="cuda")
+    mask[0] = 1.0
+    # the round's hypers at step 3: lr 1e-3, AdamW defaults, wd 0.01
+    scalars = adam_scalars(3, lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8,
+                           weight_decay=0.01)
+    want = ref.fused_adamw_2d(p, g, m, v, mask, scalars)
+    kp, km, kv = p.clone(), m.clone(), v.clone()
+    ops.fused_adamw(kp, g, km, kv, mask, scalars)
+    torch.cuda.synchronize()
+    errs = [(a.float() - b.float()).abs().max().item()
+            for a, b in zip((kp, km, kv), want)]
+    bits = lambda t: t.view(torch.int16 if t.element_size() == 2
+                            else torch.int32)
+    bitwise = all(torch.equal(bits(a), bits(b))
+                  for a, b in zip((kp, km, kv), want))
+    frozen = all(torch.equal(a[1:], b[1:]) for a, b in ((kp, p), (km, m),
+                                                        (kv, v)))
+    if not frozen:
+        raise AssertionError("fused_adamw: a masked row moved")
+    del want, kp, km, kv
+    band = 0.0 if dtype == "float32" else _ulps(torch, p, 1, dtype)
+    rec = {"kernel": "fused_adamw", "N": rows, "M": cols, "dtype": dtype,
+           "max_abs_err": max(errs), "bit_exact": bitwise, "band": band,
+           "mask": mask.tolist()}
+    if dtype == "float32" and not bitwise:
+        raise AssertionError(f"fused_adamw fp32 is not bit-exact: {errs}")
+    rec["ms"] = _time_ms(torch, lambda: ops.fused_adamw(p, g, m, v, mask,
+                                                        scalars), reps=10)
+    rec["plain_ms"] = _time_ms(torch, lambda: ref.fused_adamw_2d(
+        p, g, m, v, mask, scalars), reps=5, warmup=1)
+    # no single PyTorch call computes it: torch._fused_adamw_ applies the
+    # weight decay elsewhere and has no per-row freeze mask
+    rec["library_ms"] = None
+    n = rows * cols
+    isz = p.element_size()
+    nbytes = n * (2 * isz + g.element_size() + 16) + rows * 4
+    rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 20.0 * n, "float32")
+    return rec
+
+
+def check_wavg(torch, ops, ref, *, rows, cols, dtype, seed=0):
+    """Weighted-average kernel vs its plain version (an fp32 matrix
+    product) on one (N, M) stack; time beside cuBLAS's ``weights @
+    stacked`` in fp32 as the library yardstick."""
+    dt = getattr(torch, dtype)
+    g_ = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((rows, cols), generator=g_, device="cuda") * 0.02).to(dt)
+    w = torch.softmax(torch.randn((rows,), generator=g_, device="cuda"), 0)
+    out = ops.weighted_average(x, w)
+    torch.cuda.synchronize()
+    plain = ref.weighted_average_2d(x, w)
+    err = (out.float() - plain.float()).abs().max().item()
+    rec = {"kernel": "weighted_average", "N": rows, "M": cols, "dtype": dtype,
+           "max_abs_err": err,
+           "band": _ulps(torch, plain, BANDS["weighted_average"][dtype], dtype)}
+    del out, plain
+    rec["ms"] = _time_ms(torch, lambda: ops.weighted_average(x, w), reps=10)
+    rec["plain_ms"] = _time_ms(torch, lambda: ref.weighted_average_2d(x, w),
+                               reps=10)
+    if dtype == "float32":
+        rec["library_ms"] = _time_ms(torch, lambda: w @ x, reps=10)
+    else:
+        rec["library_ms"] = None
+    isz = x.element_size()
+    rec["bound_ms"], rec["bound_by"] = _bound(rows * cols * isz + cols * isz,
+                                              2.0 * rows * cols, "float32")
+    return rec
+
+
+# a Gemma-2B client leaf at the default cut (4 layers): the MLP gate,
+# 4 x 2048 x 16384 values per client
+CLIENT_WG_COLS = 4 * 2048 * 16384
+
+
+def _train_setup(num_layers=None):
+    """Full Gemma-2B (or its first ``num_layers`` layers) under the
+    launcher's defaults, 2 clients."""
+    from repro_torch.config import TrainConfig, WSSLConfig, get_arch
+    cfg = get_arch("gemma-2b")
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
+    wssl_cfg = WSSLConfig(num_clients=2, participation_fraction=0.5)
+    train_cfg = TrainConfig(rounds=3, learning_rate=1e-3, remat=True)
+    return cfg, wssl_cfg, train_cfg
+
+
+TRAIN_RUN = dict(rounds=3, batch_per_client=2, seq_len=128, val_batch=2,
+                 seed=0, device="cuda", impl="dense")
+
+
+def run_train(torch, ops):
+    """Phase 6: 3 rounds of full Gemma-2B through both training kernels,
+    the checks, then where a round's time goes."""
+    from repro_torch.core.aggregation import aggregate_clients
+    from repro_torch.core.protocol import tree_bytes
+    from repro_torch.launch.train import train
+    cfg, wssl_cfg, train_cfg = _train_setup()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, hist = train(cfg, wssl_cfg, train_cfg, **TRAIN_RUN,
+                        log=lambda line: print("  train " + line, flush=True))
+    everyone = torch.ones(2, device="cuda")
+    glob = aggregate_clients(state.client_stack, state.importance, everyone,
+                             wssl_cfg, use_kernel=True)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    plain = aggregate_clients(state.client_stack, state.importance, everyone,
+                              wssl_cfg)
+    # each leaf within 4 fp32 ulps at its own magnitude
+    errs = [((a.float() - b.float()).abs().max().item(),
+             _ulps(torch, b, BANDS["weighted_average"]["float32"], "float32"))
+            for a, b in zip(_leaves(glob), _leaves(plain))]
+    del glob, plain
+    agg_err, agg_band = max(e for e, _ in errs), max(b for _, b in errs)
+    stages = (state.client_stack, state.server_params)
+    leaves = len(_leaves(stages))
+    n_elems = sum(t.numel() for t in _leaves(stages))
+    want_adam = leaves * TRAIN_RUN["rounds"]
+    if counts["fused_adamw"] != want_adam or counts["weighted_average"] < 1:
+        raise AssertionError(f"train: launches {counts}, expected "
+                             f"{want_adam} fused_adamw and >= 1 wavg")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["mean_val_loss"])
+               for h in hist):
+        raise AssertionError(f"train: non-finite loss {hist}")
+    if [h["selected"] for h in hist] != [2, 1, 1]:
+        raise AssertionError(f"train: selected {[h['selected'] for h in hist]}"
+                             f", expected [2, 1, 1]")
+    if not all(e <= band for e, band in errs):
+        raise AssertionError(f"train: wavg aggregate outside its band, "
+                             f"(max|diff|, band) by leaf: {errs}")
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "clients": 2,
+           "cut": wssl_cfg.resolve_cuts(cfg)[0], "rounds": hist,
+           "round_s": [h["dt_s"] for h in hist],
+           "tokens_per_round": 2 * TRAIN_RUN["batch_per_client"]
+           * TRAIN_RUN["seq_len"], "peak_bytes": peak,
+           "stepped_elements": n_elems, "leaves": leaves,
+           "state_bytes": 3 * 4 * n_elems, "launches": counts,
+           "agg_max_abs_err": agg_err, "agg_band": agg_band,
+           "client_stage_bytes": tree_bytes(state.client_stack) // 2}
+    print(f"train: gemma-2b fp32 params, 2 clients, {leaves} leaves, "
+          f"{n_elems} elements stepped a round, rounds "
+          f"{', '.join(f'{t:.3f}' for t in rec['round_s'])} s, "
+          f"{rec['tokens_per_round']} tokens a round, losses "
+          f"{[round(h['loss'], 4) for h in hist]}, launches {counts}, "
+          f"aggregate max|diff| {agg_err:.3g} (band {agg_band:.3g}), peak "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+    rec.update(profile_train(torch, state, cfg, wssl_cfg, train_cfg))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = rec["profile"]
+    print(f"train: one fused-AdamW step of every leaf {rec['opt_step_ms']:.2f}"
+          f" ms (bound {rec['opt_step_bound_ms']:.2f} ms); a profiled round: "
+          f"{prof['wall_s']:.3f} s wall, device busy {prof['device_busy_s']:.3f}"
+          f" s (share {prof['device_busy_share']:.3f}), {prof['launches']} "
+          f"kernel launches; top: " + ", ".join(
+              f"{k['name'][:48]} {k['device_ms']:.1f} ms x{k['count']}"
+              for k in prof["kernels"][:6]), flush=True)
+    return rec, counts
+
+
+def profile_train(torch, state, cfg, wssl_cfg, train_cfg):
+    """Where a training round's time goes, after the main-path run (its
+    launches are not counted): one fused-AdamW step of every leaf alone,
+    timed with CUDA events against its bound, then one more round under
+    ``torch.profiler``.  Both move the state, which nothing reads after."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._pytree import tree_map
+    from repro_torch.core.round import make_round_fn
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch.train import round_batch
+    from repro_torch.optim import adamw_update
+    dev = state.importance.device
+    g_c = tree_map(torch.zeros_like, state.client_stack)
+    g_s = tree_map(torch.zeros_like, state.server_params)
+    mask = torch.tensor([1.0, 0.0], device=dev)
+
+    def step():
+        adamw_update(state.client_stack, g_c, state.opt_client, lr=1e-4,
+                     mask=mask)
+        adamw_update(state.server_params, g_s, state.opt_server, lr=1e-4)
+
+    n_elems = sum(t.numel() for t in _leaves((g_c, g_s)))
+    out = {"opt_step_ms": _time_ms(torch, step, reps=3, warmup=1),
+           "opt_step_bound_ms": _bound(28.0 * n_elems, 20.0 * n_elems,
+                                       "float32")[0]}
+    del g_c, g_s
+    torch.cuda.empty_cache()
+    s = TRAIN_RUN["seq_len"]
+    batch = round_batch(cfg, 2, TRAIN_RUN["batch_per_client"], s, 3, dev)
+    val = {k: torch.as_tensor(v, device=dev) for k, v in lm_batch(
+        TRAIN_RUN["val_batch"], s, cfg.vocab_size, seed=10_000).items()}
+    round_fn = make_round_fn(cfg, wssl_cfg, train_cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        round_fn(state, batch, val)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    out["profile"] = {
+        "wall_s": wall, "device_busy_s": busy,
+        "device_busy_share": busy / wall,
+        "launches": sum(e.count for e in kernels),
+        "kernels": [{"name": e.key, "count": e.count,
+                     "device_ms": e.self_device_time_total / 1e3}
+                    for e in kernels[:25]]}
+    return out
+
+
+def _leaves(tree):
+    from torch.utils._pytree import tree_leaves
+    return tree_leaves(tree)
+
+
+def run_train_parity(torch, ops):
+    """Phase 7: 3 rounds at full width and 2 layers, through the kernels
+    and then with AdamW through its plain version and the plain
+    aggregate."""
+    from unittest import mock
+    import numpy as np
+    from repro_torch.core.aggregation import aggregate_clients
+    from repro_torch.launch.train import train
+    rng = np.random.default_rng(7)
+    gumbels = [torch.as_tensor(rng.gumbel(size=2).astype(np.float32))
+               for _ in range(TRAIN_RUN["rounds"])]
+    runs = {}
+    for name, kernels in (("kernel", True), ("plain", False)):
+        cfg, wssl_cfg, train_cfg = _train_setup(num_layers=2)
+        ops.reset_launch_counts()
+        with mock.patch.object(ops, "fused_adamw", ops.fused_adamw if kernels
+                               else ops.fused_adamw_plain):
+            state, hist = train(cfg, wssl_cfg, train_cfg, **TRAIN_RUN,
+                                gumbels=gumbels, log=lambda line: print(
+                                    f"  parity {name} " + line, flush=True))
+        glob = aggregate_clients(state.client_stack, state.importance,
+                                 torch.ones(2, device="cuda"), wssl_cfg,
+                                 use_kernel=kernels)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        if kernels != (counts["fused_adamw"] > 0
+                       and counts["weighted_average"] > 0) or (
+                not kernels and any(counts.values())):
+            raise AssertionError(f"parity {name}: launches {counts}")
+        stages = [t.detach().cpu() for t in _leaves((
+            state.client_stack, state.server_params))]
+        runs[name] = (hist, stages, [t.cpu() for t in _leaves(glob)])
+        del state, glob
+        gc.collect()
+        torch.cuda.empty_cache()
+    (hk, sk, gk), (hp, sp, gp) = runs["kernel"], runs["plain"]
+    if [h["mask"] for h in hk] != [h["mask"] for h in hp]:
+        raise AssertionError(f"train parity: masks differ {hk} {hp}")
+    loss_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                   for a, b in zip(hk, hp) for k in ("loss", "mean_val_loss"))
+    stage_max = max((a - b).abs().max().item() for a, b in zip(sk, sp))
+    stage_mean = (sum((a - b).abs().sum().item() for a, b in zip(sk, sp))
+                  / sum(a.numel() for a in sk))
+    # each aggregate leaf within the wavg band at its own magnitude
+    agg = [((a - b).abs().max().item(),
+            _ulps(torch, b, BANDS["weighted_average"]["float32"], "float32"))
+           for a, b in zip(gk, gp)]
+    agg_max, agg_band = max(e for e, _ in agg), max(b for _, b in agg)
+    rec = {"layers": 2, "rounds": len(hk), "masks": [h["mask"] for h in hk],
+           "kernel_losses": [h["loss"] for h in hk],
+           "plain_losses": [h["loss"] for h in hp],
+           "loss_rel_err": loss_err, "stage_max_abs_err": stage_max,
+           "stage_mean_abs_err": stage_mean, "agg_max_abs_err": agg_max,
+           "bands": {"loss_rtol": TRAIN_LOSS_RTOL,
+                     "stage_max": TRAIN_STAGE_BAND, "agg_max": agg_band}}
+    print(f"train parity: gemma-2b width, 2 layers, masks "
+          f"{rec['masks']} equal; loss/val rel diff {loss_err:.3g} (band "
+          f"{TRAIN_LOSS_RTOL:g}); trained stages max|diff| {stage_max:.3g} "
+          f"(band {TRAIN_STAGE_BAND:g}), mean {stage_mean:.3g}; aggregate "
+          f"max|diff| {agg_max:.3g} (band {agg_band:.3g})", flush=True)
+    if not (loss_err <= TRAIN_LOSS_RTOL and stage_max <= TRAIN_STAGE_BAND
+            and all(e <= b for e, b in agg)):
+        raise AssertionError(f"train parity outside its bands: {rec}")
+    return rec
+
+
 def _check_band(rec):
     line = (f"  {rec['kernel']} " + " ".join(
         f"{k}={rec[k]}" for k in ("B", "S", "Hq", "Hkv", "hd", "bs", "nb",
-                                  "dtype", "window", "softcap") if k in rec)
+                                  "N", "M", "dtype", "window", "softcap")
+        if k in rec)
             + f": max|diff| {rec['max_abs_err']:.3g} (band {rec['band']:g}), "
             f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
             f"library {rec['library_ms'] if rec['library_ms'] is None else round(rec['library_ms'], 4)} ms, "
@@ -205,6 +554,9 @@ def main(argv=None) -> int:
                     help="also write the full record of the run to this "
                          "JSON file")
     record_path = ap.parse_args(argv).record
+    # phase 6 holds ~70 GB of one card; expandable segments keep the
+    # caching allocator from fragmenting it
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     try:
         import torch
     except ImportError:
@@ -265,6 +617,25 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     record["kernel_checks"] = checks
 
+    # -- 2b. training kernels against their plain versions ----------------
+    print("training kernels:", flush=True)
+    train_checks = []
+    for dtype in ("float32", "bfloat16"):
+        for rows, cols, seed in ((3, 100003, 11), (2, CLIENT_WG_COLS, 12)):
+            train_checks.append(check_fused_adamw(torch, ops, ref, rows=rows,
+                                                  cols=cols, dtype=dtype,
+                                                  seed=seed))
+            train_checks.append(check_wavg(torch, ops, ref, rows=rows,
+                                           cols=cols, dtype=dtype, seed=seed))
+    main_adam = [r for r in train_checks if r["kernel"] == "fused_adamw"
+                 and r["dtype"] == "float32" and r["M"] == CLIENT_WG_COLS][0]
+    main_wavg = [r for r in train_checks if r["kernel"] == "weighted_average"
+                 and r["dtype"] == "float32" and r["M"] == CLIENT_WG_COLS][0]
+    for rec in train_checks:
+        _check_band(rec)
+    record["train_kernel_checks"] = train_checks
+    torch.cuda.empty_cache()
+
     # -- 3. serve full Gemma-2B through the kernels -----------------------
     cfg = get_arch("gemma-2b")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -286,7 +657,8 @@ def main(argv=None) -> int:
             raise AssertionError(f"serve: request {r.rid} has "
                                  f"{len(report.outputs[r.rid])} tokens")
     chunks = len(report.log.ticks)      # one chunk per logged replica tick
-    want = {"flash_attention": cfg.num_layers * len(reqs),
+    want = {**{k: 0 for k in counts},
+            "flash_attention": cfg.num_layers * len(reqs),
             "paged_decode_attention": cfg.num_layers * chunks * sp.chunk}
     if counts != want:
         raise AssertionError(f"serve: launches {counts}, expected {want}")
@@ -346,6 +718,9 @@ def main(argv=None) -> int:
     print(f"parity: prefill logits max|diff| {worst:.4f} (band {LOGIT_BAND}); "
           f"{compared} greedy tokens compared, {len(diverged)} requests "
           f"diverged within 2x band; plain path {plain_secs:.2f} s", flush=True)
+    del params, engine, plain_engine
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- 5. the card ------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -354,15 +729,28 @@ def main(argv=None) -> int:
     record["nvidia_smi"] = smi
     print(smi.splitlines()[0], flush=True)
 
+    # -- 6. train full Gemma-2B through the kernels -----------------------
+    record["train"], train_counts = run_train(torch, ops)
+    # -- 7. train parity with the plain path -------------------------------
+    record["train_parity"] = run_train_parity(torch, ops)
+
     sources = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:74"),
                "paged_decode_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
-                                          "src/repro/kernels/paged_attention.py:91")}
+                                          "src/repro/kernels/paged_attention.py:91"),
+               "fused_adamw": ("src/repro_torch/kernels/csrc/fused_adam.cu",
+                               "src/repro/kernels/fused_adam.py:63"),
+               "weighted_average": ("src/repro_torch/kernels/csrc/wavg.cu",
+                                    "src/repro/kernels/wavg.py:30")}
+    # each kernel's launches on its own main path: serving for the
+    # attention kernels, the training run of phase 6 for the others
+    launches = {**counts, "fused_adamw": train_counts["fused_adamw"],
+                "weighted_average": train_counts["weighted_average"]}
     kernels = []
-    for rec in (main_flash, main_paged):
+    for rec in (main_flash, main_paged, main_adam, main_wavg):
         src, replaces = sources[rec["kernel"]]
         kernels.append({"name": rec["kernel"], "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": counts[rec["kernel"]],
+                        "replaces": replaces, "launches": launches[rec["kernel"]],
                         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"],

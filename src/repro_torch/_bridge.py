@@ -1,14 +1,17 @@
-"""Parameter bridge from the JAX package to the port.
+"""Bridge between the JAX package's trees and the port's.
 
 ``params_from_jax`` takes the JAX parameter tree as numpy arrays (for
 example ``jax.tree.map(np.asarray, params)``) and returns the port's tree:
-the same nesting of dicts and lists, each leaf a tensor on ``device``.  It
-needs only numpy on its input side.
+the same nesting of dicts and lists, each leaf a tensor on ``device``.
+``state_from_jax`` does the same for a whole training state, and
+``state_to_numpy`` goes back, for comparisons.  Only numpy is needed on
+the JAX side.
 
-Matrices are stored in ``dtype`` (the activation dtype): the JAX package
-keeps fp32 params and casts them with ``.astype(dtype)`` on every use, so
-the values the model computes with are the same.  Norm scales stay fp32,
-because the norm forms ``1 + scale`` in fp32 before it rounds.
+Matrices are stored in ``dtype``: serving passes the activation dtype (the
+JAX package keeps fp32 params and casts them on every use, so the values
+the model computes with are the same); training passes
+``torch.float32``, the JAX package's fp32 master params.  Norm scales stay
+fp32, because the norm forms ``1 + scale`` in fp32 before it rounds.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import resolve_device, torch_dtype
@@ -41,3 +45,65 @@ def params_from_jax(np_params: Any, cfg: ModelConfig, *, device="cuda",
         return t.to(device=device, dtype=leaf_dtype)
 
     return conv(np_params)
+
+
+def _opt_from_jax(np_opt: Any, device):
+    from repro_torch.optim import AdamState, SgdState
+    moments = lambda t: tree_map(
+        lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device),
+        t)
+    step = torch.tensor(int(np.asarray(np_opt.step)), dtype=torch.int32)
+    if hasattr(np_opt, "m"):
+        return AdamState(step=step, m=moments(np_opt.m), v=moments(np_opt.v))
+    return SgdState(step=step, mom=moments(np_opt.mom))
+
+
+def state_from_jax(np_state: Any, cfg: ModelConfig, *, device="cuda",
+                   dtype=torch.float32):
+    """The JAX package's ``WSSLState`` with numpy leaves (for example
+    ``jax.tree.map(np.asarray, state)``) -> the port's
+    :class:`~repro_torch.core.round.WSSLState`: params in ``dtype``,
+    optimizer moments fp32, the step and round index on the host.  The
+    selection generator is seeded from the JAX key's bits; a test that
+    needs the JAX selection injects the JAX Gumbel draw instead."""
+    from repro_torch.core.round import WSSLState
+    device = resolve_device(device)
+    conv = lambda t: params_from_jax(t, cfg, device=device, dtype=dtype)
+    key = np.asarray(np_state.rng).astype(np.uint32).tobytes()
+    return WSSLState(
+        client_stack=conv(np_state.client_stack),
+        server_params=conv(np_state.server_params),
+        edge_stages=tuple(conv(e) for e in np_state.edge_stages),
+        opt_client=_opt_from_jax(np_state.opt_client, device),
+        opt_server=_opt_from_jax(np_state.opt_server, device),
+        opt_edge=tuple(_opt_from_jax(o, device) for o in np_state.opt_edge),
+        importance=torch.from_numpy(
+            np.array(np_state.importance, dtype=np.float32)).to(device),
+        round_index=torch.tensor(int(np.asarray(np_state.round_index)),
+                                 dtype=torch.int32),
+        rng=torch.Generator().manual_seed(
+            int.from_bytes(key[:8], "little") % 2 ** 63))
+
+
+def state_to_numpy(state: Any) -> dict:
+    """The port's state as nested dicts and lists of fp32 numpy arrays, in
+    the JAX state's field and tree layout (``opt_*`` as
+    ``{"step", "m", "v"}`` or ``{"step", "mom"}``)."""
+    arr = lambda t: tree_map(lambda a: a.detach().float().cpu().numpy(), t)
+
+    def opt(o):
+        out = {"step": np.asarray(int(o.step), np.int32)}
+        if hasattr(o, "m"):
+            out.update(m=arr(o.m), v=arr(o.v))
+        else:
+            out.update(mom=arr(o.mom))
+        return out
+
+    return {"client_stack": arr(state.client_stack),
+            "server_params": arr(state.server_params),
+            "edge_stages": [arr(e) for e in state.edge_stages],
+            "opt_client": opt(state.opt_client),
+            "opt_server": opt(state.opt_server),
+            "opt_edge": [opt(o) for o in state.opt_edge],
+            "importance": arr(state.importance),
+            "round_index": np.asarray(int(state.round_index), np.int32)}

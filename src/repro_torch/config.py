@@ -1,7 +1,12 @@
 """Configuration for the PyTorch port: the model dataclasses, the
-architecture registry and the serving-side :class:`Scenario`.
+architecture registry, the serving-side :class:`Scenario`, and the
+training blocks (:class:`WSSLConfig`, :class:`TrainConfig`,
+:class:`AggregationConfig`, and the async and compression blocks).
 
-A copy of the parts of ``repro/config.py`` that the serving path reads.
+A copy of the parts of ``repro/config.py`` that the serving path and the
+synchronous training round read.  The async-round and compression blocks
+come in their default, off state: a value that turns either on raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 It is stdlib-only, like the original, and the port keeps its own copy so
 that it imports nothing of ``repro``.  Field names, defaults and
 ``reduced`` are the same, so a config built here and one built by the JAX
@@ -168,6 +173,227 @@ class Scenario:
                 and self.hop_dropout_prob == 0.0
                 and self.hop_latency_prob == 0.0
                 and self.skew_alpha is None)
+
+
+# ---------------------------------------------------------------------------
+# WSSL / train configs
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class AsyncRoundsConfig:
+    """Bounded-staleness asynchronous rounds.  Only the default
+    ``deadline = inf`` (the synchronous algorithm) is ported; a finite
+    deadline raises until ``core/async_round.py`` is ported."""
+
+    deadline: float = float("inf")
+    max_staleness: int = 4
+    staleness_weighting: str = "polynomial"
+    staleness_alpha: float = 0.5
+    buffer_size: Optional[int] = None
+
+    _WEIGHTINGS = ("constant", "polynomial", "exponential")
+
+    def __post_init__(self):
+        if self.staleness_weighting not in self._WEIGHTINGS:
+            raise ValueError(
+                f"staleness_weighting {self.staleness_weighting!r} not in "
+                f"{self._WEIGHTINGS}")
+        if self.deadline <= 0:
+            raise ValueError("deadline must be positive (inf = synchronous)")
+        if self.max_staleness < 1:
+            raise ValueError("max_staleness must be >= 1")
+        if self.buffer_size is not None and self.buffer_size < 1:
+            raise ValueError("buffer_size must be >= 1 (None = one slot "
+                             "per client)")
+        if math.isfinite(self.deadline):
+            raise NotImplementedError(
+                "async rounds (a finite deadline) are not ported yet "
+                "(ROADMAP Queue 1, item 10: core/async_round.py)")
+
+    @property
+    def enabled(self) -> bool:
+        return math.isfinite(self.deadline)
+
+    def replace(self, **kw) -> "AsyncRoundsConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class CompressionConfig:
+    """Update- and activation-path compression.  Only the default
+    ``scheme = "none"`` is ported; any other scheme raises until
+    ``compress.py`` and its kernels are ported."""
+
+    scheme: str = "none"          # none | topk | int8 | int4
+    rate: float = 0.05
+    error_feedback: bool = True
+    activations: bool = False
+
+    _SCHEMES = ("none", "topk", "int8", "int4")
+
+    def __post_init__(self):
+        if self.scheme not in self._SCHEMES:
+            raise ValueError(f"compression scheme {self.scheme!r} not in "
+                             f"{self._SCHEMES}")
+        if not 0.0 < self.rate <= 1.0:
+            raise ValueError("compression rate must be in (0, 1]")
+        if self.scheme != "none":
+            raise NotImplementedError(
+                f"compression scheme {self.scheme!r} is not ported yet "
+                f"(ROADMAP Queue 1, item 9: compress.py)")
+
+    @property
+    def enabled(self) -> bool:
+        return self.scheme != "none"
+
+    def replace(self, **kw) -> "CompressionConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class AggregationConfig:
+    """Algorithm 2 step 5 as a policy block: ``rule`` names an entry of the
+    aggregator registry (``core/aggregation.py``).  Every built-in rule of
+    the JAX package is a valid name; the robust ones raise when they run
+    until they are ported."""
+
+    rule: str = "importance"
+    trim_fraction: float = 0.1
+    byzantine_f: int = 1
+    multi_krum_m: Optional[int] = None
+    clip_factor: float = 1.0
+
+    _RULES = ("importance", "uniform", "trimmed_mean", "median", "krum",
+              "multi_krum", "geometric_median", "norm_clip")
+
+    def __post_init__(self):
+        if self.rule not in self._RULES and not self._registered(self.rule):
+            raise ValueError(f"aggregation rule {self.rule!r} not in "
+                             f"{self._RULES} and not registered")
+        if not 0.0 <= self.trim_fraction <= 0.5:
+            raise ValueError("trim_fraction must be in [0, 0.5]")
+        if self.byzantine_f < 0:
+            raise ValueError("byzantine_f must be >= 0")
+        if self.multi_krum_m is not None and self.multi_krum_m < 1:
+            raise ValueError("multi_krum_m must be >= 1 (None = s - f)")
+        if self.clip_factor <= 0.0:
+            raise ValueError("clip_factor must be > 0")
+
+    @staticmethod
+    def _registered(rule: str) -> bool:
+        # user rules registered with core.aggregation.register_aggregator
+        from repro_torch.core.aggregation import list_aggregators
+        return rule in list_aggregators()
+
+    def replace(self, **kw) -> "AggregationConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class WSSLConfig:
+    """Knobs of the paper's algorithm (Algorithms 1 & 2); the same fields,
+    defaults and resolution rules as the JAX package's."""
+
+    num_clients: int = 4
+    split_layer: Optional[int] = None
+    split_layers: Optional[Tuple[int, ...]] = None
+    hop_replicas: int = 1
+    selection_rule: str = "fraction"
+    participation_fraction: float = 0.5
+    importance_temp: float = 1.0
+    importance_ema: float = 0.5
+    aggregation: str = "importance"
+    trim_fraction: float = 0.1
+    agg: Optional[AggregationConfig] = None
+    select_staleness_beta: float = 0.0
+    async_rounds: AsyncRoundsConfig = AsyncRoundsConfig()
+    compression: CompressionConfig = CompressionConfig()
+    seed: int = 0
+
+    def resolve_aggregation(self) -> AggregationConfig:
+        """The ``agg`` block when set, else one built from the legacy
+        ``aggregation`` / ``trim_fraction`` fields."""
+        if self.agg is not None:
+            return self.agg
+        return AggregationConfig(rule=self.aggregation,
+                                 trim_fraction=self.trim_fraction)
+
+    def resolve_split(self, model: ModelConfig) -> int:
+        """Default cut: a thin client, at most 4 super-blocks and at most
+        L/4 layers."""
+        if self.split_layer is not None:
+            return self.split_layer
+        period = model.period
+        quarter = (model.num_layers // 4) // period * period
+        cut = max(period, min(4 * period, quarter))
+        return min(cut, model.num_layers - period)
+
+    def resolve_cuts(self, model: ModelConfig) -> Tuple[int, ...]:
+        """The pipeline's cut layers as a strictly increasing tuple, each on
+        a super-block boundary in [0, num_layers]."""
+        if self.split_layers is None:
+            return (self.resolve_split(model),)
+        cuts = tuple(int(c) for c in self.split_layers)
+        if not cuts:
+            raise ValueError("split_layers must name at least one cut")
+        prev = -1
+        for c in cuts:
+            if c % model.period:
+                raise ValueError(f"cut {c} must align to the super-block "
+                                 f"period {model.period}")
+            if not prev < c:
+                raise ValueError(f"cuts must be strictly increasing: {cuts}")
+            prev = c
+        if cuts[-1] > model.num_layers:
+            raise ValueError(
+                f"last cut {cuts[-1]} exceeds num_layers "
+                f"({model.num_layers})")
+        return cuts
+
+    def num_selected(self, norm_weights=None) -> int:
+        if self.selection_rule == "literal":
+            # alpha' = max(alpha * mean(gamma), 1); mean(gamma) == 1/alpha
+            return 1
+        return max(int(round(self.num_clients * self.participation_fraction)),
+                   1)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 100
+    rounds: int = 20
+    steps_per_round: int = 10
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 10
+    schedule: str = "cosine"          # cosine | linear | constant
+    optimizer: str = "adamw"          # adamw | sgd
+    remat: bool = True
+    # recompute every `remat_span` super-blocks in the backward
+    remat_span: int = 4
+    # per-client fwd/bwd in chunks of this many clients (ROADMAP Queue 1,
+    # item 7); None = all clients, the only value the port runs so far
+    client_chunk: Optional[int] = None
+    # accepted for parity with the JAX config and changes nothing: the
+    # port's AdamW always steps through kernels/ops.fused_adamw (the CUDA
+    # kernel on the card, its plain version on the CPU)
+    fused_adam: bool = False
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.client_chunk is not None and self.client_chunk < 1:
+            raise ValueError(
+                f"client_chunk must be a positive client count or None, "
+                f"got {self.client_chunk}")
+        if self.fused_adam and self.optimizer != "adamw":
+            raise ValueError(
+                f"fused_adam requires optimizer='adamw' (the kernel fuses "
+                f"the Adam moment update), got optimizer={self.optimizer!r}")
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
-"""Serving accounting: the per-tick serving log and its byte counts.
+"""Byte accounting: the serving log and its byte counts, and the sync
+bytes of a training round.
 
 A copy of the serving part of ``repro/core/protocol.py`` (``ServeTick``,
-``ServeLog``, ``serve_hop_bytes``, ``reroute_sync_bytes``), numpy-only.
+``ServeLog``, ``serve_hop_bytes``, ``reroute_sync_bytes``) and of its
+``tree_bytes`` and ``sync_round_bytes``.
 Every crossing is recorded per tick; split mode counts per-hop activation
 bytes, and fault recovery (re-prefill after a replica drop) lands in the
 sync column.
@@ -104,3 +106,22 @@ def reroute_sync_bytes(prompt_len: int, replay_len: int,
     drop: the prompt plus the already-credited tokens are re-shipped to the
     new replica for re-prefill + replay."""
     return (int(prompt_len) + int(replay_len)) * token_bytes
+
+
+# ---------------------------------------------------------------------------
+# Training accounting
+# ---------------------------------------------------------------------------
+
+
+def tree_bytes(tree) -> int:
+    """Total bytes of a tree's tensor leaves, from shape and dtype metadata
+    only (no device-to-host copy)."""
+    from torch.utils._pytree import tree_leaves
+    return sum(l.numel() * l.element_size() for l in tree_leaves(tree))
+
+
+def sync_round_bytes(selected, num_clients, client_stage_bytes):
+    """Client-stage sync traffic of a round: the ``selected`` participants
+    upload their stage for aggregation and the aggregated stage goes back
+    to all N clients.  Works on tensors (the round passes its mask sum)."""
+    return (selected + num_clients) * client_stage_bytes

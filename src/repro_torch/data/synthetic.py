@@ -1,10 +1,12 @@
 """Deterministic synthetic token streams (numpy only).
 
-A copy of ``repro/data/synthetic.py::make_token_stream``: the same seed
-gives bit-identical streams in both packages.
+A copy of ``repro/data/synthetic.py::make_token_stream`` and ``lm_batch``:
+the same seed gives bit-identical streams in both packages.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 
@@ -25,3 +27,11 @@ def make_token_stream(n_seqs: int, seq_len: int, vocab: int,
     # map alphabet into the full vocab range deterministically
     lift = (np.arange(k) * max(vocab // k, 1)) % vocab
     return lift[out].astype(np.int32)
+
+
+def lm_batch(n_seqs: int, seq_len: int, vocab: int, seed: int = 0
+             ) -> Dict[str, np.ndarray]:
+    """Next-token pairs: ``tokens`` and ``labels`` (n_seqs, seq_len), the
+    labels shifted by one (a copy of ``repro/data/synthetic.py::lm_batch``)."""
+    toks = make_token_stream(n_seqs, seq_len + 1, vocab, seed)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -13,10 +13,13 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import fused_adam as _fadam
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import wavg as _wavg
 
-_COUNTED = {"flash_attention": _fa, "paged_decode_attention": _pa}
+_COUNTED = {"flash_attention": _fa, "paged_decode_attention": _pa,
+            "fused_adamw": _fadam, "weighted_average": _wavg}
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -53,6 +56,62 @@ def paged_decode_attention(q: torch.Tensor, pk: torch.Tensor,
     fn = ref.paged_decode_attention if _on_cpu(q) else _pa.paged_decode_attention
     return fn(q, pk, pv, ppos, table, pos, scale=scale,
               logit_softcap=logit_softcap)
+
+
+def weighted_average(stacked: torch.Tensor,
+                     weights: torch.Tensor) -> torch.Tensor:
+    """Any-rank stacked leaf (N, ...) x (N,) fp32 weights -> (...) in the
+    stack's dtype.  An empty leaf short-circuits: nothing to reduce."""
+    n = stacked.shape[0]
+    if stacked[0].numel() == 0:
+        return torch.zeros(stacked.shape[1:], dtype=stacked.dtype,
+                           device=stacked.device)
+    flat = stacked.reshape(n, -1)
+    if _on_cpu(flat):
+        out = ref.weighted_average_2d(flat, weights)
+    else:
+        out = _wavg.weighted_average_2d(flat, weights)
+    return out.reshape(stacked.shape[1:])
+
+
+def _adam_rows(p, g, m, v, mask):
+    n = p.shape[0] if mask is not None else 1
+    return p.view(n, -1), g.reshape(n, -1), m.view(n, -1), v.view(n, -1)
+
+
+def fused_adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                v: torch.Tensor, mask: Optional[torch.Tensor],
+                scalars: torch.Tensor) -> None:
+    """One fused masked-AdamW step over one leaf, in place on p, m and v.
+
+    Any-rank leaves.  With ``mask`` (a per-client stacked stage, leaves
+    (N, ...)) the leading axis is the client axis and rows with mask 0
+    keep p, m and v; with ``mask=None`` (a shared stage) the leaf is one
+    row, always on.  ``scalars`` is the (9,) fp32 host tensor
+    ``[lr, b1, b2, 1-b1, 1-b2, eps, wd, bc1, bc2]``.  An empty leaf
+    short-circuits."""
+    if p.numel() == 0:
+        return
+    if _on_cpu(p):
+        fused_adamw_plain(p, g, m, v, mask, scalars)
+        return
+    _fadam.fused_adamw_2d(*_adam_rows(p, g, m, v, mask), mask,
+                          scalars.tolist())
+
+
+def fused_adamw_plain(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                      v: torch.Tensor, mask: Optional[torch.Tensor],
+                      scalars: torch.Tensor) -> None:
+    """:func:`fused_adamw` through its plain version on any device, in
+    place: what a CPU tensor takes, and the reference a card's run is
+    held against."""
+    if p.numel() == 0:
+        return
+    pf, gf, mf, vf = _adam_rows(p, g, m, v, mask)
+    po, mo, vo = ref.fused_adamw_2d(pf, gf, mf, vf, mask, scalars)
+    pf.copy_(po)
+    mf.copy_(mo)
+    vf.copy_(vo)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels, in fp32 math.
 
-Ports of ``repro/kernels/ref.py::flash_attention`` and
-``::paged_decode_attention``, in the same layouts.  The CPU dispatch in
+Ports of ``repro/kernels/ref.py::flash_attention``,
+``::paged_decode_attention``, ``::weighted_average_2d`` and
+``::fused_adamw_2d``, in the same layouts.  The CPU dispatch in
 ``kernels/ops.py`` runs these; ``chip_smoke.py`` holds each CUDA kernel
 against them on the card.
 """
@@ -79,3 +80,42 @@ def paged_decode_attention(q: torch.Tensor, pk: torch.Tensor,
     l = p.sum(dim=-1).clamp_min(1e-30)
     out = torch.einsum("bkgs,bskd->bkgd", p, vc) / l[..., None]
     return out.reshape(b, hq, hd).to(q.dtype)
+
+
+def weighted_average_2d(stacked: torch.Tensor,
+                        weights: torch.Tensor) -> torch.Tensor:
+    """(N, M) x (N,) -> (M,): an fp32 matrix product, rounded once to the
+    stack's dtype."""
+    return (weights.float() @ stacked.float()).to(stacked.dtype)
+
+
+def fused_adamw_2d(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                   v: torch.Tensor, mask: Optional[torch.Tensor],
+                   scalars: torch.Tensor):
+    """Masked AdamW over (N, M) leaves -> new (p', m', v').
+
+    p, g: (N, M); m, v: (N, M) fp32; mask: (N,) or None (every row on);
+    scalars: (9,) fp32 ``[lr, b1, b2, 1-b1, 1-b2, eps, wd, bc1, bc2]``.
+    One PyTorch op per step of the JAX oracle, in its order, with the
+    hyper-parameters as fp32 tensors on the data's device (a Python scalar
+    divisor would make CUDA multiply by its reciprocal), so fp32 results
+    are those of the CUDA kernel bit for bit."""
+    s = scalars.to(device=p.device, dtype=torch.float32)
+    lr, b1, b2, omb1, omb2 = s[0], s[1], s[2], s[3], s[4]
+    eps, wd, bc1, bc2 = s[5], s[6], s[7], s[8]
+    p32 = p.float()
+    g32 = g.float()
+    m32 = m.float()
+    v32 = v.float()
+    m_new = b1 * m32 + omb1 * g32
+    v_new = b2 * v32 + omb2 * torch.square(g32)
+    mhat = m_new / bc1
+    vhat = v_new / bc2
+    p_new = p32 - lr * (mhat / (torch.sqrt(vhat) + eps) + wd * p32)
+    if mask is None:
+        mk = torch.ones((p.shape[0], 1), dtype=torch.float32, device=p.device)
+    else:
+        mk = mask.float()[:, None]
+    return ((mk * p_new + (1 - mk) * p32).to(p.dtype),
+            mk * m_new + (1 - mk) * m32,
+            mk * v_new + (1 - mk) * v32)

@@ -7,7 +7,8 @@ keeps the JAX layout ``(B, S, H, hd)``.  Implementations (``impl``):
 * ``dense``  — materialize the (Sq, Sk) scores; the plain model path.
 * ``kernel`` — the hand-written CUDA flash kernel (``kernels/ops.py``),
   which takes any S >= 1.  ``pallas``, the JAX package's name for its
-  kernel path, is accepted as an alias.
+  kernel path, is accepted as an alias.  It has no backward yet, so
+  training (:func:`multihead_attention`) runs ``dense`` only.
 
 KV caches are updated in place (``index_put_``) where the JAX package
 donated its buffers: the functions return the cache they were given.
@@ -91,6 +92,35 @@ def _attn_kernel(cfg: ModelConfig, q, k, v) -> torch.Tensor:
     """The flash kernel path (positions are ``arange(S)`` from 0)."""
     return ops.flash_attention(q, k, v, causal=True, scale=_scale(cfg),
                                logit_softcap=cfg.attn_logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Training: full-sequence attention with autograd
+# ---------------------------------------------------------------------------
+
+TRAIN_IMPLS = ("dense",)
+
+
+def check_train_impl(impl: str) -> None:
+    """Training runs the dense path only: the flash kernel has no backward
+    yet, and the JAX package's ``chunked`` / ``flash`` custom-VJP path is
+    not ported."""
+    if impl not in TRAIN_IMPLS:
+        raise NotImplementedError(
+            f"attention impl {impl!r} has no backward in the port yet: train "
+            f"with impl='dense' (ROADMAP Queue 1, item 6: the chunked / flash "
+            f"training path and the flash-attention backward kernel)")
+
+
+def multihead_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                        positions: torch.Tensor, *,
+                        impl: str = "dense") -> torch.Tensor:
+    """Full-sequence causal global self-attention (train / prefill without
+    a cache), differentiable by autograd.  x (B,S,D); positions (B,S)."""
+    check_train_impl(impl)
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    out = _attn_dense(cfg, q, k, v, positions, positions)
+    return _out_proj(p, out)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """Shared building blocks: parameter init, RMSNorm, RoPE, the gated MLP.
 
 The PyTorch twin of ``repro/models/layers.py``.  Parameters are plain
-dicts of tensors in the JAX package's layout.  Matrices are stored in the
-activation dtype (the JAX package stores fp32 and casts on every use, so
-the values are the same); norm scales stay fp32, because the norm forms
-``1 + scale`` in fp32 before it rounds to the activation dtype.
+dicts of tensors in the JAX package's layout.  Matrices are cast to the
+activation dtype on every use, as in the JAX package: serving stores them
+in that dtype already, training keeps fp32 master weights.  Norm scales
+stay fp32, because the norm forms ``1 + scale`` in fp32 before it rounds
+to the activation dtype.
 """
 
 from __future__ import annotations

@@ -8,6 +8,13 @@ remainder layers — so the bridge from JAX is a plain copy and the layer
 loop indexes views ``w[i]``.  Caches mirror the same layout and are
 updated in place.
 
+For training, a stacked leaf may also be a Python list of per-layer
+tensors (``core/round.py`` binds each layer's slice as a leaf of its own,
+so autograd accumulates into the slice and not into a full-size buffer
+per layer); the layer loops index both forms the same way.  ``remat``
+recomputes the activations of each span of super-blocks in the backward
+(``torch.utils.checkpoint``), which changes no number.
+
 So far only global attention with a dense MLP is ported; any other mixer
 or MLP kind raises ``NotImplementedError`` naming the ROADMAP item that
 ports it.
@@ -15,9 +22,10 @@ ports it.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import (ATTN_GLOBAL, MLP_DENSE, LayerSpec,
                                 ModelConfig)
@@ -104,13 +112,15 @@ def _layer_init(gen, cfg: ModelConfig, layers: int, dtype, device) -> Params:
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
-                device="cuda") -> Params:
+                device="cuda", dtype: Optional[torch.dtype] = None) -> Params:
     """Random params from ``gen`` (a generator on ``device``), with the JAX
     package's init scales and tree layout.  Matrices are stored in
-    ``cfg.dtype``, norm scales in fp32."""
+    ``dtype`` — by default ``cfg.dtype``, what serving computes in;
+    training passes ``cfg.param_dtype`` (fp32 master weights, cast to
+    ``cfg.dtype`` on use as in JAX) — norm scales in fp32."""
     device = resolve_device(device)
     period_specs, n_full, n_rem = _superblock_layout(cfg)
-    dtype = torch_dtype(cfg.dtype)
+    dtype = dtype or torch_dtype(cfg.dtype)
     params: Params = {
         "embed": {"tok": dense_param(gen, (cfg.vocab_size, cfg.d_model),
                                      scale=cfg.d_model ** -0.5, dtype=dtype,
@@ -262,3 +272,287 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if last_only:
         x = x[:, -1:]
     return _unembed(cfg, params, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+def _resolve_span(n_full: int, requested: int) -> int:
+    """Largest divisor of n_full not exceeding the requested remat span."""
+    span = max(min(requested, n_full), 1)
+    while n_full % span:
+        span -= 1
+    return span
+
+
+def _apply_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                 positions: torch.Tensor, impl: str) -> torch.Tensor:
+    h = apply_norm(cfg, p["norm1"], x)
+    x = x + attn.multihead_attention(cfg, p["mixer"], h, positions,
+                                     impl=impl)
+    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+
+
+def _num_blocks(stack: List[Params]) -> int:
+    """Super-blocks in a (stage's) stack: the leading length of a leaf,
+    stacked tensor or per-layer list alike."""
+    tree = stack[0]
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return len(tree)
+
+
+def _stack_forward(stack: List[Params], cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor, impl: str, remat: bool,
+                   remat_span: int) -> torch.Tensor:
+    """Run a stage's stacked super-blocks over ``x``.  With ``remat`` each
+    span of ``remat_span`` super-blocks (the largest divisor of the count
+    not above it) is recomputed in the backward, as the JAX scan body."""
+    period_specs, _, _ = _superblock_layout(cfg)
+    n = _num_blocks(stack)
+    if n == 0:
+        return x
+    span = _resolve_span(n, remat_span if remat else 1)
+
+    def span_block(x, first):
+        for t in range(first, first + span):
+            for j in range(len(period_specs)):
+                x = _apply_layer(cfg, _tree_index(stack[j], t), x, positions,
+                                 impl)
+        return x
+
+    for first in range(0, n, span):
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(span_block, x, first, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = span_block(x, first)
+    return x
+
+
+def _zero_aux(x: torch.Tensor) -> torch.Tensor:
+    # the MoE load-balance loss; a dense stack has none
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None, impl: str = "dense",
+            remat: bool = True, remat_span: int = 1,
+            last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward -> (logits (B, S, V) fp32, aux loss)."""
+    x = _embed(cfg, params, tokens)
+    b, s, _ = x.shape
+    if positions is None:
+        positions = text_positions(b, s, x.device)
+    x = _stack_forward(params["stack"], cfg, x, positions, impl, remat,
+                       remat_span)
+    for lp in params["rem"]:
+        x = _apply_layer(cfg, lp, x, positions, impl)
+    x = apply_norm(cfg, params["final_norm"], x)
+    if last_only:
+        x = x[:, -1:]
+    return _unembed(cfg, params, x), _zero_aux(x)
+
+
+# ---------------------------------------------------------------------------
+# WSSL stage partition (the N-stage pipeline; one cut is client/server)
+# ---------------------------------------------------------------------------
+
+
+def _check_cuts(cfg: ModelConfig, cuts: Sequence[int]) -> Tuple[int, ...]:
+    cuts = tuple(int(c) for c in cuts)
+    if not cuts:
+        raise ValueError("need at least one cut")
+    prev = -1      # cut 0 is legal: a thin client holding only the embedding
+    for c in cuts:
+        if c % cfg.period:
+            raise ValueError(f"cut {c} must align to super-block "
+                             f"({cfg.period})")
+        if not prev < c:
+            raise ValueError(f"cuts must be strictly increasing: {cuts}")
+        prev = c
+    if cuts[-1] > cfg.num_layers:
+        raise ValueError(f"last cut {cuts[-1]} exceeds num_layers "
+                         f"({cfg.num_layers})")
+    return cuts
+
+
+def _slice_stack(stack: List[Params], lo: int, hi: Optional[int]):
+    """Super-blocks [lo, hi) of every stacked leaf, as copies: a view would
+    keep the whole unsplit stack alive."""
+    def one(tree):
+        if isinstance(tree, dict):
+            return {k: one(v) for k, v in tree.items()}
+        return tree[lo:hi].clone()
+    return [one(t) for t in stack]
+
+
+def partition_params(params: Params, cfg: ModelConfig, cuts: Sequence[int]
+                     ) -> List[Params]:
+    """Partition a param tree at layers ``cuts`` into ``len(cuts) + 1``
+    stages.  Stage 0 (the client) owns the embedding and the first
+    ``cuts[0] // period`` super-blocks; each edge stage the super-blocks
+    between two cuts; the server the rest, the remainder layers, the final
+    norm and the head.  With tied embeddings the server holds its own
+    *copy* of the embedding matrix (the server owns the output head): an
+    alias would let one in-place optimizer step move both."""
+    cuts = _check_cuts(cfg, cuts)
+    bounds = [c // cfg.period for c in cuts]
+    stages = [{"embed": params["embed"],
+               "stack": _slice_stack(params["stack"], 0, bounds[0])}]
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        stages.append({"stack": _slice_stack(params["stack"], lo, hi)})
+    last: Params = {"stack": _slice_stack(params["stack"], bounds[-1], None),
+                    "rem": params["rem"], "final_norm": params["final_norm"]}
+    if cfg.tie_embeddings:
+        last["embed"] = {"tok": params["embed"]["tok"].clone()}
+    elif "head" in params:
+        last["head"] = params["head"]
+    stages.append(last)
+    return stages
+
+
+def join_stages(stages: Sequence[Params], cfg: ModelConfig) -> Params:
+    """Invert :func:`partition_params`: reassemble the full param tree."""
+    first, last = stages[0], stages[-1]
+
+    def cat(*trees):
+        if isinstance(trees[0], dict):
+            return {k: cat(*[t[k] for t in trees]) for k in trees[0]}
+        return torch.cat(trees, dim=0)
+
+    stack = [cat(*[s["stack"][j] for s in stages])
+             for j in range(len(first["stack"]))]
+    joined = {"embed": first["embed"], "stack": stack, "rem": last["rem"],
+              "final_norm": last["final_norm"]}
+    if "head" in last:
+        joined["head"] = last["head"]
+    return joined
+
+
+def client_forward(client_params: Params, cfg: ModelConfig,
+                   tokens: torch.Tensor, *,
+                   positions: Optional[torch.Tensor] = None,
+                   impl: str = "dense", remat: bool = True,
+                   remat_span: int = 1) -> torch.Tensor:
+    """Client stage: embedding + the client's super-blocks -> the cut
+    activation (B, S, D) in ``cfg.dtype``."""
+    x = _embed(cfg, client_params, tokens)
+    b, s, _ = x.shape
+    if positions is None:
+        positions = text_positions(b, s, x.device)
+    return _stack_forward(client_params["stack"], cfg, x, positions, impl,
+                          remat, remat_span)
+
+
+def stage_forward(stage_params: Params, cfg: ModelConfig, x: torch.Tensor,
+                  stage_index: int, *,
+                  positions: Optional[torch.Tensor] = None,
+                  impl: str = "dense", remat: bool = True,
+                  remat_span: int = 1, with_aux: bool = False):
+    """Forward one non-final pipeline stage -> the hop activation (and,
+    with ``with_aux``, the stage's MoE aux loss: 0 for a dense stack).
+    Stage 0 reads ``x`` as tokens; an edge stage takes the upstream hop
+    activation."""
+    if stage_index == 0:
+        out = client_forward(stage_params, cfg, x, positions=positions,
+                             impl=impl, remat=remat, remat_span=remat_span)
+    else:
+        b, s, _ = x.shape
+        if positions is None:
+            positions = text_positions(b, s, x.device)
+        out = _stack_forward(stage_params["stack"], cfg, x, positions, impl,
+                             remat, remat_span)
+    return (out, _zero_aux(out)) if with_aux else out
+
+
+def server_hidden(server_params: Params, cfg: ModelConfig,
+                  activation: torch.Tensor, *,
+                  positions: Optional[torch.Tensor] = None,
+                  impl: str = "dense", remat: bool = True,
+                  remat_span: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Server stage up to the final norm (before the unembedding) ->
+    (x, aux)."""
+    x = activation
+    b, s, _ = x.shape
+    if positions is None:
+        positions = text_positions(b, s, x.device)
+    x = _stack_forward(server_params["stack"], cfg, x, positions, impl,
+                       remat, remat_span)
+    for lp in server_params["rem"]:
+        x = _apply_layer(cfg, lp, x, positions, impl)
+    return apply_norm(cfg, server_params["final_norm"], x), _zero_aux(x)
+
+
+def server_loss(server_params: Params, cfg: ModelConfig,
+                activation: torch.Tensor, labels: torch.Tensor, *,
+                impl: str = "dense", remat: bool = True, remat_span: int = 1,
+                xent_chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Server stage + the memory-bounded chunked cross-entropy ->
+    (mean token loss, aux)."""
+    x, aux = server_hidden(server_params, cfg, activation, impl=impl,
+                           remat=remat, remat_span=remat_span)
+    return chunked_xent(server_params, cfg, x, labels, chunk=xent_chunk), aux
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def _xent_sum(cfg: ModelConfig, params: Params, x: torch.Tensor,
+              y: torch.Tensor) -> torch.Tensor:
+    logits = _unembed(cfg, params, x)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y.long()[..., None])[..., 0]
+    return (lse - gold).sum()
+
+
+def chunked_xent(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                 labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Mean token cross-entropy without the (B, S, V) logits: one (B, c, V)
+    tile per sequence chunk, each recomputed in the backward instead of
+    stored, so the logits' peak is O(c * V) rather than O(S * V)."""
+    b, s, _ = x.shape
+    if labels.shape[1] != s:
+        x = x[:, -labels.shape[1]:]
+        s = labels.shape[1]
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk -= 1
+    tot = None
+    for lo in range(0, s, chunk):
+        xi, yi = x[:, lo:lo + chunk], labels[:, lo:lo + chunk]
+        if torch.is_grad_enabled():
+            part = checkpoint(_xent_sum, cfg, params, xi, yi,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            part = _xent_sum(cfg, params, xi, yi)
+        tot = part if tot is None else tot + part
+    # a tensor divisor: CUDA divides by a Python scalar through its
+    # reciprocal, one rounding more than JAX's division
+    return tot / torch.tensor(b * s, dtype=torch.float32, device=x.device)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy in fp32.  logits (B,S,V), labels (B,S)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            *, impl: str = "dense", remat: bool = True) -> torch.Tensor:
+    logits, aux = forward(params, cfg, batch["tokens"], impl=impl,
+                          remat=remat)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, -labels.shape[1]:]
+    return cross_entropy(logits, labels, batch.get("mask")) + aux

@@ -137,8 +137,16 @@ def test_cpu_dispatch_takes_plain_version_and_launches_nothing():
     args = [torch.as_tensor(a) for a in _paged_inputs(3)]
     assert torch.equal(ops.paged_decode_attention(*args),
                        ref.paged_decode_attention(*args))
+    x, w = torch.randn(3, 5), torch.tensor([0.2, 0.3, 0.5])
+    assert torch.equal(ops.weighted_average(x, w),
+                       ref.weighted_average_2d(x, w))
+    p, m = torch.randn(3, 5), torch.zeros(3, 5)
+    ops.fused_adamw(p, torch.randn(3, 5), m, m.clone(), w,
+                    torch.tensor([1e-3, 0.9, 0.95, 0.1, 0.05, 1e-8, 0.0,
+                                  0.1, 0.05]))
     assert ops.launch_counts() == {"flash_attention": 0,
-                                   "paged_decode_attention": 0}
+                                   "paged_decode_attention": 0,
+                                   "fused_adamw": 0, "weighted_average": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -150,7 +158,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pa.paged_decode_attention(*args)
     assert ops.launch_counts() == {"flash_attention": 0,
-                                   "paged_decode_attention": 0}
+                                   "paged_decode_attention": 0,
+                                   "fused_adamw": 0, "weighted_average": 0}
 
 
 def test_dispatch_refuses_other_devices():
