@@ -41,6 +41,32 @@ Phases, each printing its lines before the last:
              version (``ops.fused_adamw_plain``) and the plain aggregate,
              from the same seed and Gumbel draws: masks equal, losses and
              params within stated bands.
+2c. compression kernels (runs after 2b) — stochastic quantize, dequantize
+             and the top-k mask against their plain versions, bit-exact,
+             at the same full-size client leaf (2, 134217728) fp32 (timed,
+             levels 127, rate 0.05) and at levels 7, all-zero rows, a
+             ragged M (1,000,003), the activation shape (256, 2048) and
+             M = 0 (no launch).
+8. compressed train — 3 rounds of full-width Gemma-2B at 6 layers, cuts
+             (2, 4) (one edge stage, so the relay has two hops), 2
+             clients, through ``make_round_fn``: once uncompressed, once
+             under int8 and once under top-k at rate 0.05, error feedback
+             and activation compression on.  Checks: each compression
+             kernel launched once per client leaf a round and per hop
+             crossing of each selected client; ``bytes_update_comp`` =
+             selected x ``compressed_update_bytes``; a participant's
+             residual non-zero and the masked client's unchanged by the
+             round that masked it; finite losses; every round's selection
+             draw reads the generator state the uncompressed run's read,
+             and the masks are equal wherever the importance entering the
+             round is (the compressed run's validation losses move it).
+             Full depth does not fit with the residual, the pre-step rows
+             and the per-leaf transients.
+9. compressed parity — both schemes at full width and 3 layers (cuts
+             1, 2), once through the kernels and once with ``ops``'
+             quantize / dequantize / top-k mask patched to their plain
+             versions, the same seed and so the same draws: masks, losses,
+             trained stages, the aggregate and the residuals bit-exact.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
@@ -56,6 +82,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import hashlib
 import json
 import math
 import os
@@ -319,6 +346,153 @@ def check_wavg(torch, ops, ref, *, rows, cols, dtype, seed=0):
 CLIENT_WG_COLS = 4 * 2048 * 16384
 
 
+def _compress_inputs(torch, *, rows, cols, seed, zero_row):
+    """An update-like (N, M) fp32 leaf (std 1e-3) with an all-zero row,
+    its uniform draws, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((rows, cols), generator=g, device="cuda") * 1e-3
+    if zero_row is not None:
+        x[zero_row] = 0.0
+    u = torch.rand((rows, cols), generator=g, device="cuda")
+    return x, u
+
+
+def _bit_diffs(torch, a, b) -> int:
+    """How many elements differ bit for bit (fp32 as int32 patterns)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum().item())
+
+
+def check_quantize(torch, ops, ref, *, rows, cols, levels, seed,
+                   zero_row=None, timed=False):
+    """Quantize and dequantize kernels vs their plain versions on one leaf:
+    codes and reconstructions bit-exact.  Returns the two records."""
+    x, u = _compress_inputs(torch, rows=rows, cols=cols, seed=seed,
+                            zero_row=zero_row)
+    scale = x.abs().amax(dim=1) if cols else torch.zeros(rows, device="cuda")
+    lv = torch.full((), levels, device="cuda")
+    step = torch.where(scale > 0, scale / lv, 0.0)
+    inv = torch.where(scale > 0, lv / scale, 0.0)
+    before = ops.launch_counts()
+    q = ops.quantize_stochastic(x, u, inv, levels)
+    d = ops.dequantize(q, step)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    want_launch = 1 if cols else 0      # m = 0 returns without a launch
+    if (launched["quantize_stochastic"], launched["dequantize"]) != (
+            want_launch, want_launch) or q.shape != (rows, cols):
+        raise AssertionError(f"quantize/dequantize ({rows}, {cols}): "
+                             f"launches {launched}, shape {tuple(q.shape)}")
+    qp = ref.quantize_stochastic_2d(x, u, inv, levels)
+    dp = ref.dequantize_2d(q, step)
+    torch.cuda.synchronize()
+    if zero_row is not None and cols and bool(q[zero_row].any()):
+        raise AssertionError("quantize: the all-zero row has non-zero codes")
+    recs = []
+    for name, got, want in (("quantize_stochastic", q, qp),
+                            ("dequantize", d, dp)):
+        diff = _bit_diffs(torch, got, want)
+        err = ((got.float() - want.float()).abs().max().item()
+               if got.numel() else 0.0)
+        recs.append({"kernel": name, "N": rows, "M": cols, "levels": levels,
+                     "dtype": "float32", "zero_row": zero_row,
+                     "differing": diff, "max_abs_err": err, "band": 0.0})
+    del qp, dp
+    if timed:
+        n = rows * cols
+        qrec, drec = recs
+        qrec["ms"] = _time_ms(torch, lambda: ops.quantize_stochastic(
+            x, u, inv, levels), reps=10)
+        qrec["plain_ms"] = _time_ms(torch, lambda: ref.quantize_stochastic_2d(
+            x, u, inv, levels), reps=3, warmup=1)
+        # no PyTorch call draws a stochastic rounding from given uniforms
+        qrec["library_ms"] = None
+        qrec["bound_ms"], qrec["bound_by"] = _bound(9.0 * n + 4.0 * rows,
+                                                    4.0 * n, "float32")
+        drec["ms"] = _time_ms(torch, lambda: ops.dequantize(q, step), reps=10)
+        drec["plain_ms"] = _time_ms(torch, lambda: ref.dequantize_2d(q, step),
+                                    reps=10)
+        # one PyTorch call computes the same function: int8 * fp32 promotes
+        drec["library_ms"] = _time_ms(torch, lambda: q * step[:, None],
+                                      reps=10)
+        drec["bound_ms"], drec["bound_by"] = _bound(5.0 * n + 4.0 * rows,
+                                                    1.0 * n, "float32")
+    return recs
+
+
+def check_topk_mask(torch, ops, ref, *, rows, cols, seed, zero_row=None,
+                    timed=False):
+    """Top-k mask kernel vs its plain version at the rate-0.05 threshold
+    (a zero row has threshold 0): bit-exact."""
+    from repro_torch.compress import topk_threshold
+    x, _ = _compress_inputs(torch, rows=rows, cols=cols, seed=seed,
+                            zero_row=zero_row)
+    t = topk_threshold(x, 0.05)
+    before = ops.launch_counts()["topk_mask"]
+    out = ops.topk_mask(x, t)
+    torch.cuda.synchronize()
+    if ops.launch_counts()["topk_mask"] - before != (1 if cols else 0):
+        raise AssertionError(f"topk_mask ({rows}, {cols}): launches")
+    want = ref.topk_mask_2d(x, t)
+    diff = _bit_diffs(torch, out, want)
+    err = (out - want).abs().max().item() if out.numel() else 0.0
+    rec = {"kernel": "topk_mask", "N": rows, "M": cols, "dtype": "float32",
+           "zero_row": zero_row, "differing": diff, "max_abs_err": err,
+           "band": 0.0, "kept": int((out != 0).sum().item())}
+    del want, out
+    if timed:
+        n = rows * cols
+        rec["ms"] = _time_ms(torch, lambda: ops.topk_mask(x, t), reps=10)
+        rec["plain_ms"] = _time_ms(torch, lambda: ref.topk_mask_2d(x, t),
+                                   reps=10)
+        # no one PyTorch call: the mask needs abs, a comparison and where
+        rec["library_ms"] = None
+        rec["bound_ms"], rec["bound_by"] = _bound(8.0 * n + 4.0 * rows,
+                                                  2.0 * n, "float32")
+        # the plain per-row threshold that feeds the mask on the round's path
+        rec["threshold_ms"] = _time_ms(torch, lambda: topk_threshold(x, 0.05),
+                                       reps=3, warmup=1)
+    return [rec]
+
+
+def run_compress_kernels(torch, ops, ref):
+    """Phase 2c: the three compression kernels against their plain
+    versions, bit-exact, at the full-size client leaf (timed) and at the
+    edge cases: levels 127 and 7, an all-zero row, a ragged M, M = 0."""
+    main = (check_quantize(torch, ops, ref, rows=2, cols=CLIENT_WG_COLS,
+                           levels=127.0, seed=21, zero_row=None, timed=True)
+            + check_topk_mask(torch, ops, ref, rows=2, cols=CLIENT_WG_COLS,
+                              seed=22, timed=True))
+    torch.cuda.empty_cache()
+    checks = list(main)
+    for rows, cols, levels, zero_row, seed in (
+            (2, CLIENT_WG_COLS, 7.0, 1, 23), (3, 1_000_003, 127.0, 2, 24),
+            (3, 1_000_003, 7.0, 0, 25), (256, 2048, 127.0, 5, 26),
+            (2, 0, 127.0, None, 27)):
+        checks += check_quantize(torch, ops, ref, rows=rows, cols=cols,
+                                 levels=levels, seed=seed, zero_row=zero_row)
+        checks += check_topk_mask(torch, ops, ref, rows=rows, cols=cols,
+                                  seed=seed, zero_row=zero_row)
+        torch.cuda.empty_cache()
+    for rec in checks:
+        timing = (f", kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}"
+                  f" ms, library {rec['library_ms'] if rec['library_ms'] is None else round(rec['library_ms'], 4)} ms, "
+                  f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+                  if "ms" in rec else "")
+        if "threshold_ms" in rec:
+            timing += f"; its threshold (torch.topk) {rec['threshold_ms']:.4f} ms"
+        print(f"  {rec['kernel']} N={rec['N']} M={rec['M']}"
+              + (f" levels={rec['levels']:g}" if "levels" in rec else "")
+              + f" zero_row={rec['zero_row']}: {rec['differing']} elements "
+              f"differ, max|diff| {rec['max_abs_err']:.3g} (bit-exact "
+              f"required){timing}", flush=True)
+        if rec["differing"]:
+            raise AssertionError(f"{rec['kernel']} is not bit-exact against "
+                                 f"its plain version: {rec}")
+    return checks, {r["kernel"]: r for r in main}
+
+
 def _train_setup(num_layers=None):
     """Full Gemma-2B (or its first ``num_layers`` layers) under the
     launcher's defaults, 2 clients."""
@@ -533,6 +707,274 @@ def run_train_parity(torch, ops):
     return rec
 
 
+# phases 8-9: compressed rounds at full Gemma-2B width and a cut depth
+# (module values, so a CPU rehearsal can shrink them)
+COMP_RUN = dict(arch="gemma-2b", reduced=False, rounds=3, batch_per_client=2,
+                seq_len=128, val_batch=2, seed=0, device="cuda", rate=0.05)
+COMP_SCHEMES = ("int8", "topk")
+COMP_KERNELS = {"int8": ("quantize_stochastic", "dequantize"),
+                "topk": ("topk_mask",)}
+
+
+def _comp_setup(scheme, num_layers, cuts):
+    """Gemma-2B cut to ``num_layers`` at ``cuts``, 2 clients at
+    participation 0.5, with ``scheme`` on updates and activations, error
+    feedback on."""
+    from repro_torch.config import (CompressionConfig, TrainConfig,
+                                    WSSLConfig, get_arch, reduced)
+    cfg = get_arch(COMP_RUN["arch"])
+    if COMP_RUN["reduced"]:
+        cfg = reduced(cfg)
+    cfg = cfg.replace(num_layers=num_layers)
+    comp = (CompressionConfig() if scheme == "none" else CompressionConfig(
+        scheme=scheme, rate=COMP_RUN["rate"], error_feedback=True,
+        activations=True))
+    wssl_cfg = WSSLConfig(num_clients=2, participation_fraction=0.5,
+                          split_layers=cuts, compression=comp)
+    train_cfg = TrainConfig(rounds=COMP_RUN["rounds"], learning_rate=1e-3,
+                            remat=not COMP_RUN["reduced"])
+    return cfg, wssl_cfg, train_cfg
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _drive_rounds(torch, cfg, wssl_cfg, train_cfg, before_round=None):
+    """The port's training entry points, round by round: ``init_state``
+    from the seed, then ``make_round_fn``'s round on each round's batch.
+    Returns the state and one record per round."""
+    from repro_torch.core.round import init_state, make_round_fn
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch.train import round_batch
+    dev = torch.device(COMP_RUN["device"])
+    n, b, s = (wssl_cfg.num_clients, COMP_RUN["batch_per_client"],
+               COMP_RUN["seq_len"])
+    gen = torch.Generator(device=dev).manual_seed(COMP_RUN["seed"])
+    state = init_state(gen, cfg, wssl_cfg, train_cfg, device=dev)
+    round_fn = make_round_fn(cfg, wssl_cfg, train_cfg)
+    val = {k: torch.as_tensor(v, device=dev) for k, v in lm_batch(
+        COMP_RUN["val_batch"], s, cfg.vocab_size, seed=10_000).items()}
+    recs = []
+    for r in range(COMP_RUN["rounds"]):
+        batch = round_batch(cfg, n, b, s, COMP_RUN["seed"] * 1000 + r, dev)
+        if before_round is not None:
+            before_round(state, r)
+        # what the selection draw of this round reads: the selection
+        # generator's state and the importance entering the round
+        stream = hashlib.sha256(state.rng.get_state().numpy().tobytes()
+                                ).hexdigest()
+        importance_in = state.importance.cpu().tolist()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        state, m = round_fn(state, batch, val)
+        _sync(torch, dev)
+        dt = time.perf_counter() - t0
+        recs.append({"round": r, "dt_s": dt, "stream": stream,
+                     "importance_in": importance_in, "loss": float(m.loss),
+                     "val_loss": m.val_loss.cpu().tolist(),
+                     "mask": m.mask.cpu().tolist(),
+                     "selected": int(m.mask.sum()),
+                     **{f: float(getattr(m, f)) for f in (
+                         "bytes_update_raw", "bytes_update_comp", "bytes_sync",
+                         "bytes_act_raw", "bytes_act_comp")}})
+    return state, recs
+
+
+def _free(torch):
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def run_comp_train(torch, ops):
+    """Phase 8: 3 compressed rounds of full-width Gemma-2B at 6 layers
+    (cuts 2, 4: one edge stage), under int8 and under top-k at rate 0.05,
+    error feedback and activation compression on; and the same rounds
+    with compression off, whose masks the compressed runs must repeat."""
+    import numpy as np
+    from repro_torch import compress
+    from repro_torch.core.protocol import compressed_update_bytes
+    layers, cuts = 6, (2, 4)
+    runs = {}
+    for scheme in ("none",) + COMP_SCHEMES:
+        cfg, wssl_cfg, train_cfg = _comp_setup(scheme, layers, cuts)
+        held = {}
+
+        def before(state, r):
+            # the residual before the last round, to hold the client that
+            # round masks to it (a host copy: it stays out of the peak)
+            if r == COMP_RUN["rounds"] - 1:
+                held["res"] = [t.cpu() for t in
+                               compress.tree_leaves(state.ef_residual)]
+
+        _free(torch)
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        state, recs = _drive_rounds(torch, cfg, wssl_cfg, train_cfg,
+                                    before_round=before)
+        counts = ops.launch_counts()
+        peak = (torch.cuda.max_memory_allocated()
+                if torch.cuda.is_available() else 0)
+        stack_leaves = compress.tree_leaves(state.client_stack)
+        leaves = sum(1 for l in stack_leaves if l[0].numel())
+        run = {"scheme": scheme, "layers": layers, "cuts": list(cuts),
+               "rounds": recs, "round_s": [r["dt_s"] for r in recs],
+               "peak_bytes": peak, "launches": counts,
+               "client_stage_elements": sum(l[0].numel()
+                                            for l in stack_leaves)}
+        if not all(math.isfinite(r["loss"]) and all(map(math.isfinite,
+                                                         r["val_loss"]))
+                   for r in recs):
+            raise AssertionError(f"compressed train {scheme}: non-finite "
+                                 f"loss {recs}")
+        if scheme != "none":
+            # compression leaves the selection stream alone: each round's
+            # draw reads the same generator state as the uncompressed run,
+            # so the masks are equal wherever the importance entering the
+            # round is (round 0 always; later the validation losses of the
+            # compressed run move the importance, and the mask may follow)
+            same = []
+            for r, b in zip(recs, runs["none"]["rounds"]):
+                if r["stream"] != b["stream"]:
+                    raise AssertionError(f"compressed train {scheme}: round "
+                                         f"{r['round']} drew from another "
+                                         f"selection state")
+                if r["importance_in"] == b["importance_in"]:
+                    if r["mask"] != b["mask"]:
+                        raise AssertionError(
+                            f"compressed train {scheme}: round {r['round']} "
+                            f"masks {r['mask']} != {b['mask']} at equal "
+                            f"importance")
+                    same.append(r["round"])
+            run["masks_held_rounds"] = same
+            run["masks_equal_uncompressed"] = [
+                r["mask"] == b["mask"]
+                for r, b in zip(recs, runs["none"]["rounds"])]
+            # every wire upload and every hop crossing through the kernels
+            hops = 2 * len(cuts)         # up and down, per selected client
+            want = (COMP_RUN["rounds"] * leaves
+                    + sum(r["selected"] for r in recs) * hops)
+            for name in ("quantize_stochastic", "dequantize", "topk_mask"):
+                expect = want if name in COMP_KERNELS[scheme] else 0
+                if counts[name] != expect:
+                    raise AssertionError(f"compressed train {scheme}: "
+                                         f"launches {counts}, expected "
+                                         f"{expect} {name}")
+            cub = compressed_update_bytes(state.client_stack, scheme,
+                                          COMP_RUN["rate"], num_clients=2)
+            run["compressed_update_bytes"] = cub
+            for r in recs:
+                if r["bytes_update_comp"] != float(np.float32(
+                        r["selected"] * cub)):
+                    raise AssertionError(
+                        f"compressed train {scheme}: bytes_update_comp "
+                        f"{r['bytes_update_comp']} != {r['selected']} x {cub}")
+            mask = recs[-1]["mask"]
+            on, off = mask.index(1.0), mask.index(0.0)
+            res = compress.tree_leaves(state.ef_residual)
+            if not any(bool(t[on].any()) for t in res):
+                raise AssertionError(f"compressed train {scheme}: the "
+                                     f"participant's residual is zero")
+            moved = sum(int((a[off].cpu() != b[off]).sum())
+                        for a, b in zip(res, held["res"]))
+            if moved:
+                raise AssertionError(f"compressed train {scheme}: the masked "
+                                     f"client's residual moved ({moved})")
+            run["update_ratio"] = (recs[-1]["bytes_update_raw"]
+                                   / recs[-1]["bytes_update_comp"])
+            run["act_ratio"] = (recs[-1]["bytes_act_raw"]
+                                / recs[-1]["bytes_act_comp"])
+        runs[scheme] = run
+        print(f"compressed train {scheme}: gemma-2b width, {layers} layers "
+              f"cut {cuts}, 2 clients, rounds "
+              f"{', '.join(f'{t:.3f}' for t in run['round_s'])} s, losses "
+              f"{[round(r['loss'], 4) for r in recs]}, masks "
+              f"{[r['mask'] for r in recs]}, peak memory "
+              f"{peak / 2**30:.2f} GiB, launches {counts}"
+              + (f", update ratio {run['update_ratio']:.7f}, activation "
+                 f"ratio {run['act_ratio']:.4f}, selection stream equal to "
+                 f"the uncompressed run's, masks equal to its "
+                 f"{run['masks_equal_uncompressed']} (held at equal "
+                 f"importance in rounds {run['masks_held_rounds']})"
+                 if scheme != "none" else ""),
+              flush=True)
+        del state, held
+        _free(torch)
+    return runs
+
+
+def run_comp_parity(torch, ops, ref):
+    """Phase 9: 3 compressed rounds at full width and 3 layers (cuts 1, 2)
+    through the compression kernels, then with ``ops``' three compression
+    entry points patched to their plain versions; the same seed, so the
+    same draws.  Masks, losses, the trained stages, the aggregate (the
+    client rows after the sync) and the residuals must be bit-exact."""
+    import contextlib
+    from unittest import mock
+    from repro_torch import compress
+    out = {}
+    for scheme in COMP_SCHEMES:
+        sides = {}
+        for side in ("kernel", "plain"):
+            cfg, wssl_cfg, train_cfg = _comp_setup(scheme, 3, (1, 2))
+            patch = (contextlib.nullcontext() if side == "kernel" else
+                     mock.patch.multiple(
+                         ops, quantize_stochastic=ref.quantize_stochastic_2d,
+                         dequantize=ref.dequantize_2d,
+                         topk_mask=ref.topk_mask_2d))
+            _free(torch)
+            ops.reset_launch_counts()
+            with patch:
+                state, recs = _drive_rounds(torch, cfg, wssl_cfg, train_cfg)
+            counts = ops.launch_counts()
+            comp_launches = sum(counts[k] for k in COMP_KERNELS[scheme])
+            if (comp_launches > 0) != (side == "kernel") or not counts[
+                    "fused_adamw"]:
+                raise AssertionError(f"comp parity {scheme} {side}: "
+                                     f"launches {counts}")
+            host = lambda ts: [t.detach().cpu() for t in ts]
+            sides[side] = {
+                "recs": recs,
+                "aggregate": host(t[0] for t in compress.tree_leaves(
+                    state.client_stack)),
+                "stages": host(compress.tree_leaves(
+                    (state.server_params, state.edge_stages))),
+                "residual": host(compress.tree_leaves(state.ef_residual))}
+            del state
+            _free(torch)
+        k, p = sides["kernel"], sides["plain"]
+        rec = {"scheme": scheme, "layers": 3, "masks": [r["mask"] for r in
+                                                        k["recs"]]}
+        rec["masks_equal"] = rec["masks"] == [r["mask"] for r in p["recs"]]
+        rec["losses_equal"] = all(
+            a["loss"] == b["loss"] and a["val_loss"] == b["val_loss"]
+            for a, b in zip(k["recs"], p["recs"]))
+        for part in ("aggregate", "stages", "residual"):
+            rec[f"{part}_differing"] = sum(_bit_diffs(torch, a, b)
+                                           for a, b in zip(k[part], p[part]))
+            rec[f"{part}_elements"] = sum(a.numel() for a in k[part])
+        print(f"compressed parity {scheme}: gemma-2b width, 3 layers, masks "
+              f"{rec['masks']} equal {rec['masks_equal']}, losses equal "
+              f"{rec['losses_equal']}; elements differing bit for bit: "
+              f"aggregate {rec['aggregate_differing']} of "
+              f"{rec['aggregate_elements']}, stages {rec['stages_differing']} "
+              f"of {rec['stages_elements']}, residual "
+              f"{rec['residual_differing']} of {rec['residual_elements']}",
+              flush=True)
+        if not (rec["masks_equal"] and rec["losses_equal"]
+                and rec["aggregate_differing"] == rec["stages_differing"]
+                == rec["residual_differing"] == 0):
+            raise AssertionError(f"compressed parity {scheme}: the kernel "
+                                 f"path is not bit-exact: {rec}")
+        out[scheme] = rec
+        del sides
+        _free(torch)
+    return out
+
+
 def _check_band(rec):
     line = (f"  {rec['kernel']} " + " ".join(
         f"{k}={rec[k]}" for k in ("B", "S", "Hq", "Hkv", "hd", "bs", "nb",
@@ -636,6 +1078,11 @@ def main(argv=None) -> int:
     record["train_kernel_checks"] = train_checks
     torch.cuda.empty_cache()
 
+    # -- 2c. compression kernels against their plain versions -------------
+    print("compression kernels:", flush=True)
+    record["compress_kernel_checks"], main_comp = run_compress_kernels(
+        torch, ops, ref)
+
     # -- 3. serve full Gemma-2B through the kernels -----------------------
     cfg = get_arch("gemma-2b")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -733,6 +1180,10 @@ def main(argv=None) -> int:
     record["train"], train_counts = run_train(torch, ops)
     # -- 7. train parity with the plain path -------------------------------
     record["train_parity"] = run_train_parity(torch, ops)
+    # -- 8. compressed training at full width -----------------------------
+    record["comp_train"] = run_comp_train(torch, ops)
+    # -- 9. compressed kernel path vs plain path ---------------------------
+    record["comp_parity"] = run_comp_parity(torch, ops, ref)
 
     sources = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:74"),
@@ -741,13 +1192,26 @@ def main(argv=None) -> int:
                "fused_adamw": ("src/repro_torch/kernels/csrc/fused_adam.cu",
                                "src/repro/kernels/fused_adam.py:63"),
                "weighted_average": ("src/repro_torch/kernels/csrc/wavg.cu",
-                                    "src/repro/kernels/wavg.py:30")}
+                                    "src/repro/kernels/wavg.py:30"),
+               "quantize_stochastic": ("src/repro_torch/kernels/csrc/compress.cu",
+                                       "src/repro/kernels/compress.py:53"),
+               "dequantize": ("src/repro_torch/kernels/csrc/compress.cu",
+                              "src/repro/kernels/compress.py:89"),
+               "topk_mask": ("src/repro_torch/kernels/csrc/compress.cu",
+                             "src/repro/kernels/compress.py:120")}
     # each kernel's launches on its own main path: serving for the
-    # attention kernels, the training run of phase 6 for the others
+    # attention kernels, the training run of phase 6 for AdamW and wavg,
+    # phase 8's int8 run for quantize / dequantize and its top-k run for
+    # the mask
+    comp = record["comp_train"]
     launches = {**counts, "fused_adamw": train_counts["fused_adamw"],
-                "weighted_average": train_counts["weighted_average"]}
+                "weighted_average": train_counts["weighted_average"],
+                **{k: comp[scheme]["launches"][k]
+                   for scheme, names in COMP_KERNELS.items() for k in names}}
     kernels = []
-    for rec in (main_flash, main_paged, main_adam, main_wavg):
+    for rec in (main_flash, main_paged, main_adam, main_wavg,
+                main_comp["quantize_stochastic"], main_comp["dequantize"],
+                main_comp["topk_mask"]):
         src, replaces = sources[rec["kernel"]]
         kernels.append({"name": rec["kernel"], "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[rec["kernel"]],

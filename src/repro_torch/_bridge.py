@@ -63,13 +63,17 @@ def state_from_jax(np_state: Any, cfg: ModelConfig, *, device="cuda",
     """The JAX package's ``WSSLState`` with numpy leaves (for example
     ``jax.tree.map(np.asarray, state)``) -> the port's
     :class:`~repro_torch.core.round.WSSLState`: params in ``dtype``,
-    optimizer moments fp32, the step and round index on the host.  The
-    selection generator is seeded from the JAX key's bits; a test that
-    needs the JAX selection injects the JAX Gumbel draw instead."""
+    optimizer moments and error-feedback residuals fp32, the step and
+    round index on the host.  The selection generator is seeded from the
+    JAX key's bits; a test that needs the JAX selection injects the JAX
+    Gumbel draw instead."""
     from repro_torch.core.round import WSSLState
     device = resolve_device(device)
     conv = lambda t: params_from_jax(t, cfg, device=device, dtype=dtype)
     key = np.asarray(np_state.rng).astype(np.uint32).tobytes()
+    fp32 = lambda t: tree_map(
+        lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device),
+        t)
     return WSSLState(
         client_stack=conv(np_state.client_stack),
         server_params=conv(np_state.server_params),
@@ -82,13 +86,15 @@ def state_from_jax(np_state: Any, cfg: ModelConfig, *, device="cuda",
         round_index=torch.tensor(int(np.asarray(np_state.round_index)),
                                  dtype=torch.int32),
         rng=torch.Generator().manual_seed(
-            int.from_bytes(key[:8], "little") % 2 ** 63))
+            int.from_bytes(key[:8], "little") % 2 ** 63),
+        ef_residual=fp32(np_state.ef_residual))
 
 
 def state_to_numpy(state: Any) -> dict:
     """The port's state as nested dicts and lists of fp32 numpy arrays, in
     the JAX state's field and tree layout (``opt_*`` as
-    ``{"step", "m", "v"}`` or ``{"step", "mom"}``)."""
+    ``{"step", "m", "v"}`` or ``{"step", "mom"}``; ``ef_residual`` ``()``
+    when there is none)."""
     arr = lambda t: tree_map(lambda a: a.detach().float().cpu().numpy(), t)
 
     def opt(o):
@@ -106,4 +112,5 @@ def state_to_numpy(state: Any) -> dict:
             "opt_server": opt(state.opt_server),
             "opt_edge": [opt(o) for o in state.opt_edge],
             "importance": arr(state.importance),
+            "ef_residual": arr(state.ef_residual),
             "round_index": np.asarray(int(state.round_index), np.int32)}

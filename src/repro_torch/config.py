@@ -4,9 +4,9 @@ training blocks (:class:`WSSLConfig`, :class:`TrainConfig`,
 :class:`AggregationConfig`, and the async and compression blocks).
 
 A copy of the parts of ``repro/config.py`` that the serving path and the
-synchronous training round read.  The async-round and compression blocks
-come in their default, off state: a value that turns either on raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+synchronous training round read.  The async-round block comes in its
+default, off state: a finite deadline raises ``NotImplementedError``
+naming the ROADMAP item that ports it.
 It is stdlib-only, like the original, and the port keeps its own copy so
 that it imports nothing of ``repro``.  Field names, defaults and
 ``reduced`` are the same, so a config built here and one built by the JAX
@@ -221,12 +221,31 @@ class AsyncRoundsConfig:
 
 @dataclass(frozen=True)
 class CompressionConfig:
-    """Update- and activation-path compression.  Only the default
-    ``scheme = "none"`` is ported; any other scheme raises until
-    ``compress.py`` and its kernels are ported."""
+    """Update- and activation-path compression (``repro_torch.compress``).
+
+    Client updates (the post-optimizer stage deltas uploaded for
+    aggregation) are compressed before they cross the wire and
+    reconstructed in front of ``aggregation.aggregate_clients``, so every
+    registry rule runs on the reconstructed updates.  The hot loops
+    (stochastic quantize / dequantize, magnitude-top-k masking) are CUDA
+    kernels on the card (``kernels/csrc/compress.cu``).
+
+    * ``none`` — the round runs no compression op at all.
+    * ``topk`` — each client keeps the ``rate`` fraction of largest-|x|
+      coordinates per leaf row; the wire carries (value, index) pairs.
+    * ``int8`` / ``int4`` — stochastic symmetric quantization at
+      2^(bits-1)-1 levels per client row with an fp32 scale per row; both
+      take the same ``"quant"`` branch (``kind``), the level count is a
+      runtime value (``compress.CompressionParams``).
+
+    ``error_feedback`` keeps a per-client fp32 residual
+    (``WSSLState.ef_residual``): e <- (delta + e) - decompress(compress(
+    delta + e)).  ``activations`` also compresses every split-hop crossing
+    (activations up, their cotangents down) with the same scheme.
+    """
 
     scheme: str = "none"          # none | topk | int8 | int4
-    rate: float = 0.05
+    rate: float = 0.05            # topk: kept fraction of coordinates
     error_feedback: bool = True
     activations: bool = False
 
@@ -238,14 +257,22 @@ class CompressionConfig:
                              f"{self._SCHEMES}")
         if not 0.0 < self.rate <= 1.0:
             raise ValueError("compression rate must be in (0, 1]")
-        if self.scheme != "none":
-            raise NotImplementedError(
-                f"compression scheme {self.scheme!r} is not ported yet "
-                f"(ROADMAP Queue 1, item 9: compress.py)")
 
     @property
     def enabled(self) -> bool:
         return self.scheme != "none"
+
+    @property
+    def kind(self) -> str:
+        """The branch the round takes: int8 and int4 share ``"quant"``."""
+        if self.scheme in ("int8", "int4"):
+            return "quant"
+        return self.scheme
+
+    @property
+    def bits(self) -> int:
+        """Wire bits per element (topk / none count full fp32 values)."""
+        return {"int8": 8, "int4": 4}.get(self.scheme, 32)
 
     def replace(self, **kw) -> "CompressionConfig":
         return dataclasses.replace(self, **kw)

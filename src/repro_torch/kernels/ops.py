@@ -12,14 +12,21 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import compress as _comp
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_adam as _fadam
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import wavg as _wavg
 
-_COUNTED = {"flash_attention": _fa, "paged_decode_attention": _pa,
-            "fused_adamw": _fadam, "weighted_average": _wavg}
+# kernel -> (wrapper module, its launch counter)
+_COUNTED = {"flash_attention": (_fa, "launches"),
+            "paged_decode_attention": (_pa, "launches"),
+            "fused_adamw": (_fadam, "launches"),
+            "weighted_average": (_wavg, "launches"),
+            "quantize_stochastic": (_comp, "quantize_launches"),
+            "dequantize": (_comp, "dequantize_launches"),
+            "topk_mask": (_comp, "topk_launches")}
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -114,11 +121,31 @@ def fused_adamw_plain(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     vf.copy_(vo)
 
 
+def quantize_stochastic(x: torch.Tensor, u: torch.Tensor,
+                        inv_step: torch.Tensor, levels: float) -> torch.Tensor:
+    """(N, M) fp32 -> (N, M) int8 codes in [-levels, levels]."""
+    fn = (ref.quantize_stochastic_2d if _on_cpu(x)
+          else _comp.quantize_stochastic_2d)
+    return fn(x, u, inv_step, levels)
+
+
+def dequantize(q: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
+    """(N, M) int8 codes -> (N, M) fp32 reconstruction."""
+    fn = ref.dequantize_2d if _on_cpu(q) else _comp.dequantize_2d
+    return fn(q, step)
+
+
+def topk_mask(x: torch.Tensor, thresh: torch.Tensor) -> torch.Tensor:
+    """(N, M) fp32 -> the same with |x| < its row's threshold zeroed."""
+    fn = ref.topk_mask_2d if _on_cpu(x) else _comp.topk_mask_2d
+    return fn(x, thresh)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches of this process, by kernel."""
-    return {name: mod.launches for name, mod in _COUNTED.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _COUNTED.values():
-        mod.launches = 0
+    for mod, attr in _COUNTED.values():
+        setattr(mod, attr, 0)

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the port's kernels, in fp32 math.
 
 Ports of ``repro/kernels/ref.py::flash_attention``,
-``::paged_decode_attention``, ``::weighted_average_2d`` and
-``::fused_adamw_2d``, in the same layouts.  The CPU dispatch in
+``::paged_decode_attention``, ``::weighted_average_2d``,
+``::fused_adamw_2d``, ``::quantize_stochastic_2d``, ``::dequantize_2d``
+and ``::topk_mask_2d``, in the same layouts.  The CPU dispatch in
 ``kernels/ops.py`` runs these; ``chip_smoke.py`` holds each CUDA kernel
 against them on the card.
 """
@@ -119,3 +120,70 @@ def fused_adamw_2d(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     return ((mk * p_new + (1 - mk) * p32).to(p.dtype),
             mk * m_new + (1 - mk) * m32,
             mk * v_new + (1 - mk) * v32)
+
+
+# elements per chunk of the exact fp32 fused multiply-add (its float64
+# temporaries stay ~1 GB however large the leaf)
+_FMA_CHUNK = 1 << 24
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+             ) -> torch.Tensor:
+    """fp32 ``a * b + c`` rounded once, as CUDA's ``fmaf``: a, c (N, M)
+    fp32, b (N, 1) fp32.
+
+    The product of two fp32 values is exact in float64 and TwoSum gives
+    the float64 sum's exact error ``e``.  Rounding the float64 sum to fp32
+    is then the correctly rounded result except where the sum lands
+    exactly on a midpoint between two fp32 values; there the sign of ``e``
+    picks the side."""
+    inf = torch.tensor(math.inf, dtype=torch.float32, device=a.device)
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    z = s - p
+    e = (p - (s - z)) + (cd - z)
+    r = s.float()
+    up = torch.nextafter(r, inf)
+    dn = torch.nextafter(r, -inf)
+    rd = r.double()
+    r = torch.where((s == (rd + up.double()) * 0.5) & (e > 0), up, r)
+    return torch.where((s == (rd + dn.double()) * 0.5) & (e < 0), dn, r)
+
+
+def quantize_stochastic_2d(x: torch.Tensor, u: torch.Tensor,
+                           inv_step: torch.Tensor, levels) -> torch.Tensor:
+    """Stochastic symmetric quantization: x, u (N, M); inv_step (N,) =
+    levels / scale (0 for an all-zero row) -> int8 codes
+    ``clip(floor(x * inv_step + u), -levels, levels)``.
+
+    The pre-floor value is rounded once (:func:`_fma_f32`), as the CUDA
+    kernel's ``fmaf`` and the JAX oracle under XLA (which contracts the
+    multiply-add) compute it: rounding the product first moves a value
+    across an integer about once in 8 M elements."""
+    n, m = x.shape
+    out = torch.empty((n, m), dtype=torch.int8, device=x.device)
+    if m == 0:
+        return out
+    lv = float(levels)
+    inv = inv_step.float()[:, None]
+    step = max(1, _FMA_CHUNK // max(n, 1))
+    for c0 in range(0, m, step):
+        sl = slice(c0, min(c0 + step, m))
+        pre = _fma_f32(x[:, sl].float(), inv, u[:, sl].float())
+        out[:, sl] = torch.clamp(torch.floor(pre), -lv, lv).to(torch.int8)
+    return out
+
+
+def dequantize_2d(q: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
+    """q (N, M) int8 codes; step (N,) = scale / levels -> fp32 q * step."""
+    return q.float() * step.float()[:, None]
+
+
+def topk_mask_2d(x: torch.Tensor, thresh: torch.Tensor) -> torch.Tensor:
+    """Zero every entry whose magnitude is below its row's threshold:
+    x (N, M); thresh (N,) -> x's dtype."""
+    xf = x.float()
+    return torch.where(xf.abs() >= thresh.float()[:, None], xf,
+                       torch.zeros((), dtype=torch.float32, device=x.device)
+                       ).to(x.dtype)

@@ -146,7 +146,9 @@ def test_cpu_dispatch_takes_plain_version_and_launches_nothing():
                                   0.1, 0.05]))
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "paged_decode_attention": 0,
-                                   "fused_adamw": 0, "weighted_average": 0}
+                                   "fused_adamw": 0, "weighted_average": 0,
+                                   "quantize_stochastic": 0, "dequantize": 0,
+                                   "topk_mask": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -159,7 +161,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         pa.paged_decode_attention(*args)
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "paged_decode_attention": 0,
-                                   "fused_adamw": 0, "weighted_average": 0}
+                                   "fused_adamw": 0, "weighted_average": 0,
+                                   "quantize_stochastic": 0, "dequantize": 0,
+                                   "topk_mask": 0}
 
 
 def test_dispatch_refuses_other_devices():

@@ -15,9 +15,24 @@ against the JAX package on the same inputs.
   to a mean |diff| of 1e-7 and a 99.9th percentile of 1e-6 (measured: max
   8.1e-6, mean 1.9e-8, 99.9th percentile 1.2e-7 on TINY; max 6.9e-7, mean
   4.4e-9 on TINY3 — no sign flipped).  Moments: atol 1e-6.
+* The same two rounds compressed (top-k at rate 0.05, int8, int4; update
+  path alone and with the split-hop activations), the JAX compression
+  draws injected too and the JAX ops patched to their oracles for the
+  test.  Masks and every byte count are exact.  Rounding differences
+  between the client loop and ``vmap`` can flip a code by one step or a
+  top-k membership at the threshold, and one flipped activation element
+  moves every gradient behind it a little.  Bands: losses, val losses and
+  importance rel 1e-3 (measured max 9.8e-5, multihop int8 with
+  activations, where a hop's pre-floor value sat 7.6e-6 from an integer;
+  1.5e-5 with updates alone); stages and residuals max |diff| 2 lr per
+  round, the size of one flip (a top-k coordinate is at most |delta| +
+  |e|, a quant step that over the levels), mean |diff| 1e-5 (measured
+  max 1.5e-6) and at most 0.5% of coordinates off by more than 1e-4
+  (measured max 0.11%).
 """
 
 import functools
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +41,7 @@ import pytest
 import torch
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
+from repro.config import CompressionConfig as JCompressionConfig
 from repro.config import ModelConfig as JModelConfig
 from repro.config import TrainConfig as JTrainConfig
 from repro.config import WSSLConfig as JWSSLConfig
@@ -36,10 +52,12 @@ from repro.core.round import init_state as jax_init_state
 from repro.core.round import make_round_fn as jax_make_round_fn
 from repro.core.split import end_to_end_grads_n as jax_e2e_n
 from repro.data.synthetic import lm_batch as jax_lm_batch
+from repro.kernels import ops as jax_ops
+from repro.kernels import ref as jax_ref
 from repro.models import transformer as jtf
 from repro_torch._bridge import params_from_jax, state_from_jax, state_to_numpy
-from repro_torch.config import (ModelConfig, TrainConfig, WSSLConfig, get_arch,
-                                reduced)
+from repro_torch.config import (CompressionConfig, ModelConfig, TrainConfig,
+                                WSSLConfig, get_arch, reduced)
 from repro_torch.core.round import init_state, make_round_fn
 from repro_torch.core.split import (end_to_end_grads, end_to_end_grads_n,
                                     pipeline_grads, split_grads)
@@ -370,6 +388,93 @@ def test_two_rounds_match_live_jax_round(name, fused_adam):
                                rtol=1e-5)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_compressed_rounds(name, scheme, acts):
+    """``_jax_two_rounds`` with compression on: also each round's
+    selection key, from which the test rebuilds the JAX compression
+    draws.  The JAX ops run their oracles (the Pallas kernels cannot run
+    here)."""
+    mkw, wkw = CONFIGS[name]
+    jm = JModelConfig(**mkw)
+    w = JWSSLConfig(num_clients=4, participation_fraction=0.5,
+                    compression=JCompressionConfig(scheme=scheme,
+                                                   activations=acts), **wkw)
+    t = JTrainConfig(**TRAIN_KW)
+    state, _ = jax_init_state(jax.random.PRNGKey(0), jm, w, t)
+    init = jax.tree.map(np.asarray, state)
+    val = {k: jnp.asarray(v) for k, v in
+           jax_lm_batch(4, 16, jm.vocab_size, seed=999).items()}
+    keys, gumbels, metrics = [], [], []
+    with mock.patch.multiple(jax_ops,
+                             quantize_stochastic=jax_ref.quantize_stochastic_2d,
+                             dequantize=jax_ref.dequantize_2d,
+                             topk_mask=jax_ref.topk_mask_2d):
+        rf = jax_make_round_fn(jm, w, t, impl="dense", donate=True)
+        for r in range(2):
+            _, rng_sel = jax.random.split(state.rng)
+            keys.append(rng_sel)
+            gumbels.append(np.asarray(jax.random.gumbel(rng_sel, (4,))))
+            d = jax_lm_batch(8, 16, jm.vocab_size, seed=r)
+            batch = {k: jnp.asarray(v).reshape(4, 2, 16) for k, v in d.items()}
+            state, m = rf(state, batch, val)
+            metrics.append(jax.tree.map(np.asarray, m._asdict()))
+    return init, keys, gumbels, metrics, jax.tree.map(np.asarray, state)
+
+
+def _jax_uniform(key):
+    """The round's compression draws as the JAX round makes them."""
+    def draw(tag, leaf, shape):
+        k = jax.random.fold_in(key, tag)
+        if leaf is not None:
+            k = jax.random.fold_in(k, leaf)
+        return _t(jax.random.uniform(k, shape, jnp.float32))
+    return draw
+
+
+@pytest.mark.parametrize("name", ["single", "multihop"])
+@pytest.mark.parametrize("scheme", ["topk", "int8", "int4"])
+@pytest.mark.parametrize("acts", [False, True])
+def test_compressed_rounds_match_live_jax_round(name, scheme, acts):
+    init, keys, gumbels, jmetrics, jstate = _jax_compressed_rounds(
+        name, scheme, acts)
+    mkw, wkw = CONFIGS[name]
+    cfg = ModelConfig(**mkw)
+    w = WSSLConfig(num_clients=4, participation_fraction=0.5,
+                   compression=CompressionConfig(scheme=scheme,
+                                                 activations=acts), **wkw)
+    state = state_from_jax(init, cfg, device="cpu")
+    rf = make_round_fn(cfg, w, TrainConfig(**TRAIN_KW))
+    val = {k: torch.as_tensor(v) for k, v in
+           lm_batch(4, 16, cfg.vocab_size, seed=999).items()}
+    for r, jm in enumerate(jmetrics):
+        d = lm_batch(8, 16, cfg.vocab_size, seed=r)
+        batch = {k: torch.as_tensor(v).reshape(4, 2, 16) for k, v in d.items()}
+        _, m = rf(state, batch, val, gumbel=_t(gumbels[r]),
+                  comp_uniform=_jax_uniform(keys[r]))
+        np.testing.assert_array_equal(m.mask.numpy(), jm["mask"])
+        for f in ("bytes_up", "bytes_down", "bytes_per_hop", "bytes_sync",
+                  "bytes_update_raw", "bytes_update_comp", "bytes_act_raw",
+                  "bytes_act_comp"):
+            np.testing.assert_array_equal(np.asarray(getattr(m, f)), jm[f],
+                                          err_msg=f)
+        assert float(m.bytes_update_comp) < float(m.bytes_update_raw)
+        assert (float(m.bytes_act_comp) > 0) == acts
+        for f in ("loss", "per_client_loss", "val_loss", "importance"):
+            np.testing.assert_allclose(getattr(m, f).numpy(), jm[f],
+                                       rtol=1e-3, atol=1e-7, err_msg=f)
+    got = state_to_numpy(state)
+    for f in ("client_stack", "server_params", "edge_stages", "ef_residual"):
+        a, b = _np_leaves(got[f]), _np_leaves(getattr(jstate, f))
+        assert [x.shape for x in a] == [x.shape for x in b]
+        if not a:
+            continue
+        diffs = np.concatenate([np.abs(x - y).ravel() for x, y in zip(a, b)])
+        assert diffs.max() <= 2 * LR * 2, (f, diffs.max())
+        assert diffs.mean() <= 1e-5, (f, diffs.mean())
+        assert (diffs > 1e-4).mean() <= 5e-3, (f, (diffs > 1e-4).mean())
+    assert any(np.abs(x).max() > 0 for x in _np_leaves(got["ef_residual"]))
+
+
 def test_round_updates_the_state_in_place():
     state, metrics = _torch_rounds("multihop", True, rounds=2,
                                    check_ptrs=True)
@@ -402,8 +507,7 @@ def test_round_refuses_what_is_not_ported():
     before = [x.clone() for x in _state_tensors(state)]
     rf = make_round_fn(cfg, w, t)
     cases = [(dict(scenario=object()), "item 8"),
-             (dict(agg_p=object()), "item 8"),
-             (dict(comp_p=object()), "item 9")]
+             (dict(agg_p=object()), "item 8")]
     for kw, item in cases:
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             rf(state, batch, **kw)

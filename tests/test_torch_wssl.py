@@ -253,19 +253,30 @@ def test_wssl_config_resolution_matches_jax(arch, wkw):
 
 def test_training_configs_copy_jax_defaults_and_refuse_unported():
     import dataclasses
+    from repro.config import CompressionConfig as JCompressionConfig
     from repro.config import TrainConfig as JTrainConfig
+
+    def defaults(cls):
+        # a nested config block compares by its fields
+        return {f.name: dataclasses.asdict(f.default)
+                if dataclasses.is_dataclass(f.default) else f.default
+                for f in dataclasses.fields(cls) if f.name != "async_rounds"}
+
     for jcls, tcls in ((JWSSLConfig, WSSLConfig),
                        (JTrainConfig, TrainConfig),
-                       (JAggregationConfig, AggregationConfig)):
-        jf = {f.name: f.default for f in dataclasses.fields(jcls)
-              if f.name not in ("async_rounds", "compression")}
-        tf_ = {f.name: f.default for f in dataclasses.fields(tcls)
-               if f.name not in ("async_rounds", "compression")}
-        assert jf == tf_
+                       (JAggregationConfig, AggregationConfig),
+                       (JCompressionConfig, CompressionConfig)):
+        assert defaults(jcls) == defaults(tcls)
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
         AsyncRoundsConfig(deadline=2.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        CompressionConfig(scheme="int8")
+    for scheme in ("none", "topk", "int8", "int4"):
+        got = CompressionConfig(scheme=scheme, rate=0.1, activations=True)
+        want = JCompressionConfig(scheme=scheme, rate=0.1, activations=True)
+        assert (got.kind, got.bits, got.enabled) == (want.kind, want.bits,
+                                                     want.enabled)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    with pytest.raises(ValueError):
+        CompressionConfig(scheme="int2")
     with pytest.raises(ValueError):
         TrainConfig(optimizer="sgd", fused_adam=True)
     with pytest.raises(ValueError):
