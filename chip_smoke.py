@@ -7,6 +7,30 @@ Phases, each printing its lines before the last:
 
 1. build   — compile the CUDA kernels of ``src/repro_torch/kernels/csrc``
              with nvcc for sm_90a.
+2d. scan kernels (run first, on an empty card) — the Mamba-2 SSD scan
+             and the RG-LRU recurrence against their plain versions at the
+             prefill step's shapes (SSD x (2, 4096, 32, 64) bf16, N 128;
+             RG-LRU (2, 4096, 2560) fp32; timed) and at edge cases (S =
+             chunk, S = 64 < chunk, B = 3, fp32, a ragged P; W not a
+             multiple of 512, S < chunk, bf16); the flash kernel at
+             RecurrentGemma's 10 query heads over 1, window 2048, S 4096.
+10. prefill step — ``launch/steps.py::make_prefill_step`` of full
+             Mamba-2-370M (48 layers) and full RecurrentGemma-2B (26
+             layers), random weights from seed 0, tokens B 2 x S 4096,
+             through the kernels (exactly 48 SSD scans; 18 RG-LRU scans
+             and 8 flash launches) and then the plain path: last-position
+             logits within ``FAMILY_LOGIT_BAND`` and the greedy argmax
+             equal wherever the plain path's top-2 margin exceeds 0.5, in
+             bf16 (timed: medians of 3) and in fp32.
+11. family serve — both models through the router and engine
+             (``impl="kernel"``, greedy), then the plain path: Mamba-2 8
+             requests of 128-512 tokens, contiguous cache; RecurrentGemma
+             8 requests of 256-2304 tokens (past its window: the ring
+             wraps), paged (which pages none of its layers); 32 new
+             tokens each, one replica of 4 slots, decode chunk 8.  Tokens
+             equal wherever the margin exceeds 0.5; flash launches 8 per
+             RecurrentGemma admission and nothing else launches (the
+             engine's prefill runs the recurrent blocks' plain scans).
 2. kernels — hold each serving kernel against its plain PyTorch version
              (``kernels/ref.py``) on the card, in bf16 and fp32, at the
              serving path's shapes and a few edge cases; time the kernel,
@@ -68,7 +92,8 @@ Phases, each printing its lines before the last:
              versions, the same seed and so the same draws: masks, losses,
              trained stages, the aggregate and the residuals bit-exact.
 
-Then one JSON line with every kernel's numbers, and as the last line
+Then one JSON line with every kernel's numbers (nine kernels), and as the
+last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
 exits non-zero before that line; it also exits non-zero, printing no
 result, when no card is present or the package is not beside it.
@@ -110,7 +135,29 @@ BANDS = {"flash_attention": {"bfloat16": 8e-3, "float32": 1e-4},
          # the N products in index order with fmaf, cuBLAS in an order and
          # with fusions of its own, a few roundings apart in fp32; the bf16
          # outputs round once from those fp32 sums, one bf16 ulp apart
-         "weighted_average": {"float32": 4, "bfloat16": 1}}
+         "weighted_average": {"float32": 4, "bfloat16": 1},
+         # (atol, rtol) for fp32 output, as tests/test_kernels.py holds the
+         # TPU kernel; a bf16 output gets one bf16 ulp at max|y| (check_ssd)
+         "ssd_scan": {"float32": (5e-4, 1e-3)},
+         # in fp32 ulps at max|h|: kernel and plain version round each
+         # step's exp, product and sum once, so they differ only where
+         # expf and torch's CUDA exp do
+         "rg_lru_scan": {"float32": 4, "bfloat16": 1}}
+# prefill step (phase 10), kernel path vs plain path, last-position logits
+# max |diff|, by model and dtype, set from this phase's readings on an H100
+# 80GB HBM3 at 700 W (seed 0).  In fp32 the paths differ by summation order
+# only: read 8.8e-4 (Mamba-2) and 2.6e-5 (RecurrentGemma).  In bf16 they
+# round at different places (the kernels keep fp32 inside; the plain SSD
+# path rounds its intra-chunk weights and carries its state in bf16, the
+# plain attention rounds scores), and at random weights those roundings
+# compound over the depth: Mamba-2's 48 layers read 2.17 on logits of std
+# ~1, and either bf16 path lies 1.7-2.1 from the fp32 plain path (the
+# kernel path the nearer); RecurrentGemma read 0.139.  The greedy argmax
+# must agree wherever the plain path's top-2 margin exceeds ARGMAX_MARGIN.
+FAMILY_LOGIT_BAND = {"mamba2-370m": {"bfloat16": 4.0, "float32": 5e-3},
+                     "recurrentgemma-2b": {"bfloat16": 0.25,
+                                           "float32": 5e-4}}
+ARGMAX_MARGIN = 0.5
 # prefill logits, kernel path vs plain path, bf16, max |diff|: the plain
 # path rounds scores and probabilities to bf16 where the kernel keeps fp32,
 # compounded over 18 layers; an 18-layer d_model-512 cut of the same model
@@ -175,12 +222,21 @@ def check_flash(torch, ops, ref, *, b, hq, hkv, s, hd, dtype, window=None,
     rec["plain_ms"] = _time_ms(torch, lambda: ref.flash_attention(
         qt, kt, vt, **kw))
     rec["library_ms"] = None
-    if window is None and softcap is None:
-        # yardstick only: SDPA on the same inputs, kv heads expanded first
+    if softcap is None:
+        # yardstick only: SDPA on the same inputs, kv heads expanded first;
+        # a window as a boolean band mask (built outside the timing)
         ke = kt.repeat_interleave(hq // hkv, dim=1)
         ve = vt.repeat_interleave(hq // hkv, dim=1)
-        rec["library_ms"] = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, ke, ve, is_causal=True))
+        if window is None:
+            sdpa = lambda: F.scaled_dot_product_attention(qt, ke, ve,
+                                                          is_causal=True)
+        else:
+            i = torch.arange(s, device="cuda")
+            band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
+                                                 < window)
+            sdpa = lambda: F.scaled_dot_product_attention(qt, ke, ve,
+                                                          attn_mask=band)
+        rec["library_ms"] = _time_ms(torch, sdpa)
     pairs = sum(min(i + 1, window or s) for i in range(s))
     isz = q.element_size()
     nbytes = isz * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
@@ -571,14 +627,9 @@ def run_train(torch, ops):
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    prof = rec["profile"]
     print(f"train: one fused-AdamW step of every leaf {rec['opt_step_ms']:.2f}"
           f" ms (bound {rec['opt_step_bound_ms']:.2f} ms); a profiled round: "
-          f"{prof['wall_s']:.3f} s wall, device busy {prof['device_busy_s']:.3f}"
-          f" s (share {prof['device_busy_share']:.3f}), {prof['launches']} "
-          f"kernel launches; top: " + ", ".join(
-              f"{k['name'][:48]} {k['device_ms']:.1f} ms x{k['count']}"
-              for k in prof["kernels"][:6]), flush=True)
+          + _profile_line(rec["profile"], top=6), flush=True)
     return rec, counts
 
 
@@ -587,8 +638,6 @@ def profile_train(torch, state, cfg, wssl_cfg, train_cfg):
     launches are not counted): one fused-AdamW step of every leaf alone,
     timed with CUDA events against its bound, then one more round under
     ``torch.profiler``.  Both move the state, which nothing reads after."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from torch.utils._pytree import tree_map
     from repro_torch.core.round import make_round_fn
     from repro_torch.data.synthetic import lm_batch
@@ -615,25 +664,44 @@ def profile_train(torch, state, cfg, wssl_cfg, train_cfg):
     val = {k: torch.as_tensor(v, device=dev) for k, v in lm_batch(
         TRAIN_RUN["val_batch"], s, cfg.vocab_size, seed=10_000).items()}
     round_fn = make_round_fn(cfg, wssl_cfg, train_cfg)
+    out["profile"] = _device_profile(torch, lambda: round_fn(state, batch,
+                                                             val))
+    return out
+
+
+def _device_profile(torch, fn, top: int = 25):
+    """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA activity)
+    from a synchronised start to a synchronise after it: the wall time,
+    the device's busy time (the kernels' summed device time) and share of
+    the wall, the launches, and the ``top`` kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        round_fn(state, batch, val)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    out["profile"] = {
-        "wall_s": wall, "device_busy_s": busy,
-        "device_busy_share": busy / wall,
-        "launches": sum(e.count for e in kernels),
-        "kernels": [{"name": e.key, "count": e.count,
-                     "device_ms": e.self_device_time_total / 1e3}
-                    for e in kernels[:25]]}
-    return out
+    return {"wall_s": wall, "device_busy_s": busy,
+            "device_busy_share": busy / wall,
+            "launches": sum(e.count for e in kernels),
+            "kernels": [{"name": e.key, "count": e.count,
+                         "device_ms": e.self_device_time_total / 1e3}
+                        for e in kernels[:top]]}
+
+
+def _profile_line(prof, top: int = 5) -> str:
+    return (f"{prof['wall_s']:.3f} s wall, device busy "
+            f"{prof['device_busy_s']:.3f} s (share "
+            f"{prof['device_busy_share']:.3f}), {prof['launches']} kernel "
+            f"launches; top: " + ", ".join(
+                f"{k['name'][:48]} {k['device_ms']:.1f} ms x{k['count']}"
+                for k in prof["kernels"][:top]))
 
 
 def _leaves(tree):
@@ -975,6 +1043,442 @@ def run_comp_parity(torch, ops, ref):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The recurrent families (phases 2d, 10, 11)
+# ---------------------------------------------------------------------------
+
+# module values, so a CPU rehearsal can shrink them: the prefill step's
+# batch and sequence, and the serving runs' requests
+FAMILY_RUN = dict(device="cuda", reduced=False, batch=2, seq=4096,
+                  mamba_prompts=(128, 256, 384, 512) * 2,
+                  rg_prompts=(256, 512, 1024, 1536, 1792, 2048, 2200, 2304),
+                  gen=32, slots=4, chunk=8, block_size=16)
+FAMILY_ARCHS = ("mamba2-370m", "recurrentgemma-2b")
+
+
+def _ssd_inputs(torch, *, b, s, h, p, n, dtype, seed):
+    """SSD scan inputs as the Mamba-2 block makes them: x, B and C of unit
+    scale in ``dtype``; dt in [0.01, 0.5) and a in [-16, -1) in fp32."""
+    dt_, dev = getattr(torch, dtype), FAMILY_RUN["device"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=g, device=dev).to(dt_)
+    dt = torch.rand((b, s, h), generator=g, device=dev) * 0.49 + 0.01
+    a = -(torch.rand((h,), generator=g, device=dev) * 15.0 + 1.0)
+    b_ = torch.randn((b, s, n), generator=g, device=dev).to(dt_)
+    c_ = torch.randn((b, s, n), generator=g, device=dev).to(dt_)
+    return x, dt, a, b_, c_
+
+
+def check_ssd(torch, ops, ref, *, b, s, h, p, n, dtype, seed, chunk=128,
+              timed=False):
+    """SSD scan kernel vs its plain (sequential fp32) version.  Band: bf16
+    output one bf16 ulp at max|y| (both sides keep fp32 and round once);
+    fp32 the JAX kernel tests' band, |diff| <= 5e-4 + 1e-3 |y|."""
+    args = _ssd_inputs(torch, b=b, s=s, h=h, p=p, n=n, dtype=dtype,
+                       seed=seed)
+    block_h = max(d for d in range(1, min(8, h) + 1) if h % d == 0)
+    kw = dict(chunk=chunk, block_h=block_h)
+    before = ops.launch_counts()["ssd_scan"]
+    y = ops.ssd_scan(*args, **kw)
+    torch.cuda.synchronize()
+    if ops.launch_counts()["ssd_scan"] - before != 1:
+        raise AssertionError("ssd_scan: the kernel did not launch once")
+    plain = ref.ssd_scan(*args)
+    torch.cuda.synchronize()
+    diff = (y.float() - plain.float()).abs()
+    err = diff.max().item()
+    if dtype == "bfloat16":
+        band = _ulps(torch, plain, 1, dtype)
+        ok = err <= band
+    else:
+        atol, rtol = BANDS["ssd_scan"]["float32"]
+        band = atol
+        ok = bool((diff <= atol + rtol * plain.float().abs()).all())
+    rec = {"kernel": "ssd_scan", "B": b, "S": s, "H": h, "P": p, "N": n,
+           "dtype": dtype, "chunk": chunk, "max_abs_err": err, "band": band,
+           "ok": ok, "max_abs_y": plain.float().abs().max().item()}
+    del y, plain, diff
+    if timed:
+        rec["ms"] = _time_ms(torch, lambda: ops.ssd_scan(*args, **kw))
+        rec["plain_ms"] = _time_ms(torch, lambda: ref.ssd_scan(*args),
+                                   reps=2, warmup=1)
+        # no PyTorch call computes the SSD scan
+        rec["library_ms"] = None
+        isz = args[0].element_size()
+        nbytes = (2 * b * s * h * p * isz        # x in, y out
+                  + b * s * h * 4 + h * 4        # dt, a
+                  + 2 * b * s * n * isz)         # B, C
+        q = min(chunk, s)
+        # the SSD form per chunk: C.B^T (shared by the heads), then per
+        # head the masked product with x, C . state and the state update
+        flops = 2.0 * b * (s // q) * (q * q * n + h * q * q * p
+                                      + 2 * h * q * n * p)
+        rec["flops"] = flops
+        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops, dtype)
+    return rec
+
+
+def check_rglru(torch, ops, ref, *, b, s, w, dtype, seed, timed=False):
+    """RG-LRU kernel vs its plain version: log_a as the gates make it
+    (in (-0.105, 0): a^(1/r) in [0.9, 0.999]), b of scale 0.1.  Band:
+    BANDS["rg_lru_scan"] fp32 ulps at max|h|; bit-exact is recorded."""
+    dt_, dev = getattr(torch, dtype), FAMILY_RUN["device"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    log_a = -(torch.rand((b, s, w), generator=g, device=dev) * 0.105 + 1e-5)
+    bb = (torch.randn((b, s, w), generator=g, device=dev) * 0.1).to(dt_)
+    chunk, block_w = min(128, s), 512
+    while w % block_w:
+        block_w //= 2
+    kw = dict(chunk=chunk, block_w=max(block_w, 1))
+    before = ops.launch_counts()["rg_lru_scan"]
+    h = ops.rg_lru_scan(log_a, bb, **kw)
+    torch.cuda.synchronize()
+    if ops.launch_counts()["rg_lru_scan"] - before != 1:
+        raise AssertionError("rg_lru_scan: the kernel did not launch once")
+    plain = ref.rg_lru_scan(log_a, bb)
+    torch.cuda.synchronize()
+    err = (h.float() - plain.float()).abs().max().item()
+    band = _ulps(torch, plain, BANDS["rg_lru_scan"][dtype], dtype)
+    rec = {"kernel": "rg_lru_scan", "B": b, "S": s, "W": w, "dtype": dtype,
+           "max_abs_err": err, "band": band, "ok": err <= band,
+           "differing": _bit_diffs(torch, h, plain),
+           "max_abs_h": plain.float().abs().max().item()}
+    del h, plain
+    if timed:
+        rec["ms"] = _time_ms(torch, lambda: ops.rg_lru_scan(log_a, bb, **kw))
+        rec["plain_ms"] = _time_ms(torch, lambda: ref.rg_lru_scan(log_a, bb),
+                                   reps=2, warmup=1)
+        # no PyTorch call computes a linear recurrence
+        rec["library_ms"] = None
+        n = b * s * w
+        nbytes = n * (4 + 2 * bb.element_size())
+        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 3.0 * n, "float32")
+    return rec
+
+
+def run_scan_kernels(torch, ops, ref):
+    """Phase 2d: the SSD-scan and RG-LRU kernels against their plain
+    versions at the prefill step's shapes (timed) and at edge cases, and
+    the flash kernel at RecurrentGemma's 10-over-1 heads and window."""
+    main_ssd = check_ssd(torch, ops, ref, b=2, s=4096, h=32, p=64, n=128,
+                         dtype="bfloat16", seed=31, timed=True)
+    main_rg = check_rglru(torch, ops, ref, b=2, s=4096, w=2560,
+                          dtype="float32", seed=32, timed=True)
+    checks = [main_ssd, main_rg]
+    # S = chunk, S = 64 < chunk, B = 3, fp32, a ragged P and a small N
+    for kw in (dict(b=2, s=128, h=32, p=64, n=128, dtype="bfloat16"),
+               dict(b=1, s=64, h=32, p=64, n=128, dtype="bfloat16"),
+               dict(b=3, s=384, h=8, p=64, n=128, dtype="bfloat16"),
+               dict(b=2, s=512, h=16, p=64, n=128, dtype="float32"),
+               dict(b=1, s=96, h=4, p=40, n=24, dtype="float32", chunk=32)):
+        checks.append(check_ssd(torch, ops, ref, seed=33 + len(checks),
+                                **kw))
+    # W not a multiple of 512 (nor of the 64-thread block), S below one
+    # 128-step chunk and not a multiple of the kernel's 16-step blocks,
+    # and bf16 b
+    for kw in (dict(b=3, s=384, w=1000, dtype="float32"),
+               dict(b=2, s=100, w=2560, dtype="float32"),
+               dict(b=1, s=128, w=768, dtype="bfloat16")):
+        checks.append(check_rglru(torch, ops, ref, seed=40 + len(checks),
+                                  **kw))
+    torch.cuda.empty_cache()
+    for rec in checks:
+        dims = " ".join(f"{k}={rec[k]}" for k in ("B", "S", "H", "P", "N",
+                                                   "W", "dtype")
+                        if k in rec)
+        timing = (f", kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+                  f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+                  if "ms" in rec else "")
+        extra = (f", {rec['differing']} elements differ bit for bit"
+                 if "differing" in rec else "")
+        print(f"  {rec['kernel']} {dims}: max|diff| {rec['max_abs_err']:.3g} "
+              f"(band {rec['band']:.3g}){extra}{timing}", flush=True)
+        if not rec["ok"]:
+            raise AssertionError(f"{rec['kernel']} disagrees with its plain "
+                                 f"version: {rec}")
+    flash = check_flash(torch, ops, ref, b=2, hq=10, hkv=1, s=4096, hd=256,
+                        dtype="bfloat16", window=2048, seed=45)
+    _check_band(flash)
+    torch.cuda.empty_cache()
+    return checks, main_ssd, main_rg, flash
+
+
+def _family_cfg(arch, dtype="bfloat16"):
+    from repro_torch.config import get_arch, reduced
+    cfg = get_arch(arch)
+    if FAMILY_RUN["reduced"]:
+        cfg = reduced(cfg)
+    return cfg.replace(dtype=dtype)
+
+
+def _family_launches(cfg):
+    """The kernel launches of one kernel-path prefill step of ``cfg``."""
+    from repro_torch.config import ATTN_GLOBAL, ATTN_LOCAL, MIX_RGLRU, MIX_SSM
+    kinds = [spec.mixer for spec in cfg.layer_specs()]
+    return {"ssd_scan": kinds.count(MIX_SSM),
+            "rg_lru_scan": kinds.count(MIX_RGLRU),
+            "flash_attention": kinds.count(ATTN_LOCAL)
+            + kinds.count(ATTN_GLOBAL)}
+
+
+def _top2_margin(torch, logits):
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def run_prefill_step(torch, ops):
+    """Phase 10: the prefill step (``launch/steps.py::make_prefill_step``)
+    of both families at full width and depth, B 2 x S 4096, random weights
+    from seed 0: once through the kernels (the counted run), then the plain
+    path; bf16 (the main path, timed) and fp32 (the same weights in fp32,
+    where the two paths differ only by fp32 summation order)."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tf
+    dev = torch.device(FAMILY_RUN["device"])
+    b, s = FAMILY_RUN["batch"], FAMILY_RUN["seq"]
+    out = {}
+    for arch in FAMILY_ARCHS:
+        rec = {"arch": arch}
+        logits = {}
+        for dtype in ("bfloat16", "float32"):
+            cfg = _family_cfg(arch, dtype)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            params = tf.init_params(cfg, gen, device=dev)
+            tg = torch.Generator(device=dev).manual_seed(1)
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                             generator=tg, device=dev,
+                                             dtype=torch.int32)}
+            steps = {impl: make_prefill_step(cfg, impl)
+                     for impl in ("kernel", "dense")}
+            _free(torch)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            for impl in ("kernel", "dense"):
+                _sync(torch, dev)
+                ops.reset_launch_counts()
+                lg = steps[impl](params, batch)
+                _sync(torch, dev)
+                counts = ops.launch_counts()
+                want = ({**{k: 0 for k in counts}, **_family_launches(cfg)}
+                        if impl == "kernel" else {k: 0 for k in counts})
+                if counts != want:
+                    raise AssertionError(f"prefill step {arch} {dtype} {impl}: "
+                                         f"launches {counts}, expected {want}")
+                if lg.shape != (b, 1, cfg.vocab_size) or not bool(
+                        torch.isfinite(lg).all()):
+                    raise AssertionError(f"prefill step {arch} {dtype} "
+                                         f"{impl}: logits {tuple(lg.shape)}, "
+                                         f"finite {bool(torch.isfinite(lg).all())}")
+                logits[(dtype, impl)] = lg
+                if dtype == "bfloat16":
+                    if impl == "kernel":
+                        rec["launches"] = counts
+                        rec["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                             if dev.type == "cuda" else 0)
+                    times = []
+                    for _ in range(3):
+                        _sync(torch, dev)
+                        t0 = time.perf_counter()
+                        steps[impl](params, batch)
+                        _sync(torch, dev)
+                        times.append(time.perf_counter() - t0)
+                    rec[f"{impl}_step_s"] = sorted(times)[1]
+                    rec[f"{impl}_step_times"] = times
+                    if impl == "kernel" and dev.type == "cuda":
+                        # where a kernel-path step's time goes
+                        rec["profile"] = _device_profile(
+                            torch, lambda: steps[impl](params, batch))
+            del params, batch
+            _free(torch)
+        for dtype in ("bfloat16", "float32"):
+            lk, ld = logits[(dtype, "kernel")], logits[(dtype, "dense")]
+            band = FAMILY_LOGIT_BAND[arch][dtype]
+            err = (lk - ld).abs().max().item()
+            margin = _top2_margin(torch, ld[:, -1])
+            differ = (lk[:, -1].argmax(-1) != ld[:, -1].argmax(-1))
+            bad = [i for i in range(b) if bool(differ[i])
+                   and margin[i].item() > ARGMAX_MARGIN]
+            rec[dtype] = {"max_logit_diff": err, "band": band,
+                          "argmax_equal": (~differ).tolist(),
+                          "plain_margins": margin.tolist()}
+            if err > band or bad:
+                raise AssertionError(f"prefill step {arch} {dtype}: kernel vs "
+                                     f"plain logits max|diff| {err:.4g} (band "
+                                     f"{band}), argmax differs at margin > "
+                                     f"{ARGMAX_MARGIN} in rows {bad}")
+        # how far each bf16 path lies from the fp32 plain path
+        f32 = logits[("float32", "dense")]
+        rec["bf16_vs_fp32"] = {impl: (logits[("bfloat16", impl)] - f32).abs()
+                               .max().item() for impl in ("kernel", "dense")}
+        out[arch] = rec
+        print(f"prefill step: {arch} bf16 B {b} S {s}: kernel path "
+              f"{rec['kernel_step_s']:.4f} s, plain {rec['dense_step_s']:.4f} "
+              f"s (medians of 3), launches {rec['launches']}, peak memory "
+              f"{rec['peak_bytes'] / 2**30:.2f} GiB; kernel vs plain logits "
+              f"max|diff| bf16 {rec['bfloat16']['max_logit_diff']:.4g} (band "
+              f"{rec['bfloat16']['band']}), fp32 "
+              f"{rec['float32']['max_logit_diff']:.4g} (band "
+              f"{rec['float32']['band']}); argmax equal bf16 "
+              f"{rec['bfloat16']['argmax_equal']} fp32 "
+              f"{rec['float32']['argmax_equal']}; bf16 paths vs fp32 plain: "
+              f"kernel {rec['bf16_vs_fp32']['kernel']:.4g}, plain "
+              f"{rec['bf16_vs_fp32']['dense']:.4g}", flush=True)
+        if "profile" in rec:
+            print(f"prefill step: {arch} a profiled kernel-path step: "
+                  + _profile_line(rec["profile"]), flush=True)
+        del logits
+        _free(torch)
+    return out
+
+
+def _family_requests(cfg, prompts, gen):
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.serve import Request
+    return [Request(rid=i, prompt=make_token_stream(1, n, cfg.vocab_size,
+                                                     seed=100 + i)[0],
+                    max_new=gen) for i, n in enumerate(prompts)]
+
+
+def _plain_margin(torch, tf, params, cfg, prompt, toks, t, dev):
+    """Top-2 margin of the plain path's logits for token ``t`` of a
+    request: prefill the prompt, then decode its first ``t`` tokens (a
+    Mamba-2 context is not a whole number of SSD chunks, so no re-prefill)."""
+    cache = tf.init_cache(cfg, 1, len(prompt) + t + 1, device=dev)
+    lg, _ = tf.prefill(params, cfg, torch.as_tensor(
+        prompt, dtype=torch.int32, device=dev)[None], cache=cache,
+        impl="dense", last_only=True)
+    for i in range(t):
+        lg, _ = tf.decode_step(params, cfg, torch.full(
+            (1, 1), int(toks[i]), dtype=torch.int32, device=dev), cache,
+            torch.full((1,), len(prompt) + i, dtype=torch.int32, device=dev))
+    return _top2_margin(torch, lg[0, -1]).item()
+
+
+def _profile_serving(torch, cfg, params, reqs, sp, dev):
+    """One admission of the longest prompt into a fresh batch, the other
+    slots admitted unprofiled, then one decode chunk of every slot, each
+    under the profiler.  A contiguous cache: RecurrentGemma's paged mode
+    pages none of its layers, so the computation is the same."""
+    import numpy as np
+    from repro_torch.serve import DecodeEngine
+    engine = DecodeEngine(cfg, impl="kernel", device=dev)
+    state = engine.new_batch_state(sp.slots, sp.max_len)
+    by_len = sorted(reqs, key=lambda r: r.prompt_len, reverse=True)
+    out = {"admit_profile": _device_profile(
+        torch, lambda: engine.admit(state, params, by_len[0].prompt, 0))}
+    for slot, r in enumerate(by_len[1:sp.slots], start=1):
+        engine.admit(state, params, r.prompt, slot)
+    forced = np.zeros((sp.slots, sp.chunk), np.int32)
+    out["chunk_profile"] = _device_profile(
+        torch, lambda: engine.decode_chunk(state, params, forced,
+                                           np.zeros((sp.slots,), np.int32)))
+    return out
+
+
+def run_family_serve(torch, ops):
+    """Phase 11: serve both families at full width and depth through the
+    router and engine (``impl="kernel"``, greedy), then the same requests
+    through the plain path; tokens equal wherever the plain path's top-2
+    margin exceeds 0.5.  The engine's prefill runs the recurrent blocks'
+    plain scans (they return the final state), so only RecurrentGemma's
+    local-attention layers launch a kernel: flash, once per admission and
+    layer."""
+    from repro_torch.launch.serve import serve, serve_max_len
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import DecodeEngine, ServeParams
+    dev = torch.device(FAMILY_RUN["device"])
+    gen_n, chunk = FAMILY_RUN["gen"], FAMILY_RUN["chunk"]
+    out = {}
+    for arch, prompts, block in (
+            ("mamba2-370m", FAMILY_RUN["mamba_prompts"], 0),
+            ("recurrentgemma-2b", FAMILY_RUN["rg_prompts"],
+             FAMILY_RUN["block_size"])):
+        cfg = _family_cfg(arch)
+        params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                device=dev)
+        reqs = _family_requests(cfg, prompts, gen_n)
+        sp = ServeParams(replicas=1, slots=FAMILY_RUN["slots"], chunk=chunk,
+                         max_len=serve_max_len(max(prompts), gen_n, chunk,
+                                               block),
+                         block_size=block)
+        runs = {}
+        for impl in ("kernel", "dense"):
+            engine = DecodeEngine(cfg, impl=impl, device=dev)
+            _free(torch)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            report, secs = serve(engine, params, reqs, sp)
+            counts = ops.launch_counts()
+            if report.unfinished or any(len(report.outputs[r.rid]) != gen_n
+                                        for r in reqs):
+                raise AssertionError(f"serve {arch} {impl}: unfinished or "
+                                     f"short requests")
+            admissions = report.log.summary()["admitted"]
+            want = {k: 0 for k in counts}
+            if impl == "kernel":
+                want["flash_attention"] = int(
+                    _family_launches(cfg)["flash_attention"] * admissions)
+            if counts != want:
+                raise AssertionError(f"serve {arch} {impl}: launches "
+                                     f"{counts}, expected {want}")
+            runs[impl] = {"report": report, "seconds": secs,
+                          "tokens_per_s": report.tokens_out / secs,
+                          "launches": counts, "admissions": admissions,
+                          "peak_bytes": (torch.cuda.max_memory_allocated()
+                                         if dev.type == "cuda" else 0)}
+        if dev.type == "cuda":
+            # where a kernel-path serving run's time goes, sampled (not
+            # counted; profiling the whole run's ~200k launches would add
+            # minutes): one admission of the longest prompt, then one
+            # decode chunk of a full batch
+            runs["kernel"].update(_profile_serving(torch, cfg, params, reqs,
+                                                   sp, dev))
+        got, ref_out = runs["kernel"]["report"].outputs, \
+            runs["dense"]["report"].outputs
+        compared, diverged = 0, []
+        for r in reqs:
+            for t, (a, b_) in enumerate(zip(got[r.rid], ref_out[r.rid])):
+                compared += 1
+                if a == b_:
+                    continue
+                margin = _plain_margin(torch, tf, params, cfg, r.prompt,
+                                       ref_out[r.rid], t, dev)
+                if margin > ARGMAX_MARGIN:
+                    raise AssertionError(
+                        f"serve {arch}: request {r.rid} token {t} differs "
+                        f"({a} vs {b_}) at top-2 margin {margin:.3f} > "
+                        f"{ARGMAX_MARGIN}")
+                diverged.append({"rid": r.rid, "token": t, "margin": margin})
+                break
+        rec = {"arch": arch, "prompts": list(prompts), "gen": gen_n,
+               "slots": sp.slots, "block_size": block, "max_len": sp.max_len,
+               "tokens_compared": compared, "diverged": diverged,
+               **{f"{impl}_{k}": v for impl, run in runs.items()
+                  for k, v in run.items() if k != "report"},
+               "tokens": runs["kernel"]["report"].tokens_out}
+        out[arch] = rec
+        print(f"serve: {arch} bf16, {len(reqs)} requests (prompts "
+              f"{min(prompts)}-{max(prompts)}), {rec['tokens']} tokens: "
+              f"kernel path {rec['kernel_seconds']:.2f} s "
+              f"({rec['kernel_tokens_per_s']:.1f} tok/s), plain "
+              f"{rec['dense_seconds']:.2f} s "
+              f"({rec['dense_tokens_per_s']:.1f} tok/s), launches "
+              f"{rec['kernel_launches']}, peak memory "
+              f"{rec['kernel_peak_bytes'] / 2**30:.2f} GiB; {compared} greedy "
+              f"tokens compared, {len(diverged)} requests diverged at "
+              f"margin <= {ARGMAX_MARGIN}", flush=True)
+        if "kernel_admit_profile" in rec:
+            print(f"serve: {arch} profiled, kernel path: one admission of "
+                  f"{max(prompts)} tokens: "
+                  + _profile_line(rec["kernel_admit_profile"], top=3)
+                  + f"; one decode chunk ({sp.slots} slots x {chunk} steps): "
+                  + _profile_line(rec["kernel_chunk_profile"]), flush=True)
+        del params, runs
+        _free(torch)
+    return out
+
+
 def _check_band(rec):
     line = (f"  {rec['kernel']} " + " ".join(
         f"{k}={rec[k]}" for k in ("B", "S", "Hq", "Hkv", "hd", "bs", "nb",
@@ -1030,6 +1534,16 @@ def main(argv=None) -> int:
     record["build_s"] = time.perf_counter() - t0
     print(f"build: {len(paths)} kernels in {record['build_s']:.1f} s "
           f"({', '.join(p.name for p in paths.values())})", flush=True)
+
+    # -- 2d. the scan kernels (and flash at g = 10) against their plain
+    # versions; first, while the card is empty
+    print("scan kernels:", flush=True)
+    (record["scan_kernel_checks"], main_ssd, main_rg,
+     record["flash_g10"]) = run_scan_kernels(torch, ops, ref)
+    # -- 10. the prefill step of both recurrent families -----------------
+    record["prefill_step"] = run_prefill_step(torch, ops)
+    # -- 11. serve both recurrent families --------------------------------
+    record["family_serve"] = run_family_serve(torch, ops)
 
     # -- 2. kernels against their plain versions --------------------------
     print("kernels:", flush=True)
@@ -1198,20 +1712,28 @@ def main(argv=None) -> int:
                "dequantize": ("src/repro_torch/kernels/csrc/compress.cu",
                               "src/repro/kernels/compress.py:89"),
                "topk_mask": ("src/repro_torch/kernels/csrc/compress.cu",
-                             "src/repro/kernels/compress.py:120")}
+                             "src/repro/kernels/compress.py:120"),
+               "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                            "src/repro/kernels/ssd_scan.py:70"),
+               "rg_lru_scan": ("src/repro_torch/kernels/csrc/rg_lru.cu",
+                               "src/repro/kernels/rg_lru.py:43")}
     # each kernel's launches on its own main path: serving for the
     # attention kernels, the training run of phase 6 for AdamW and wavg,
     # phase 8's int8 run for quantize / dequantize and its top-k run for
-    # the mask
+    # the mask, phase 10's prefill steps for the two scans
     comp = record["comp_train"]
+    steps = record["prefill_step"]
     launches = {**counts, "fused_adamw": train_counts["fused_adamw"],
                 "weighted_average": train_counts["weighted_average"],
                 **{k: comp[scheme]["launches"][k]
-                   for scheme, names in COMP_KERNELS.items() for k in names}}
+                   for scheme, names in COMP_KERNELS.items() for k in names},
+                "ssd_scan": steps["mamba2-370m"]["launches"]["ssd_scan"],
+                "rg_lru_scan":
+                    steps["recurrentgemma-2b"]["launches"]["rg_lru_scan"]}
     kernels = []
     for rec in (main_flash, main_paged, main_adam, main_wavg,
                 main_comp["quantize_stochastic"], main_comp["dequantize"],
-                main_comp["topk_mask"]):
+                main_comp["topk_mask"], main_ssd, main_rg):
         src, replaces = sources[rec["kernel"]]
         kernels.append({"name": rec["kernel"], "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[rec["kernel"]],
@@ -1222,7 +1744,7 @@ def main(argv=None) -> int:
     record["kernels"] = kernels
     if record_path is not None:
         record_path.parent.mkdir(parents=True, exist_ok=True)
-        record_path.write_text(json.dumps(record, indent=1))
+        record_path.write_text(json.dumps(record, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

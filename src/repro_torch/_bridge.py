@@ -10,8 +10,13 @@ the JAX side.
 Matrices are stored in ``dtype``: serving passes the activation dtype (the
 JAX package keeps fp32 params and casts them on every use, so the values
 the model computes with are the same); training passes
-``torch.float32``, the JAX package's fp32 master params.  Norm scales stay
-fp32, because the norm forms ``1 + scale`` in fp32 before it rounds.
+``torch.float32``, the JAX package's fp32 master params.  The leaves the
+model reads in fp32 stay fp32 (:data:`_FP32_LEAVES`): norm scales, because
+the norm forms ``1 + scale`` in fp32 before it rounds; the SSD block's
+``A_log``, ``D``, ``dt_bias`` and gated-norm ``norm_scale``; the RG-LRU
+``lambda``, ``b_r``, ``b_i`` and the gate matrices ``w_r`` / ``w_i``,
+which the gates cast to fp32 at use (stored in bf16 they would lose bits
+the JAX model keeps).
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ from torch.utils._pytree import tree_map
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import resolve_device, torch_dtype
 
-_FP32_LEAVES = ("scale",)   # norm scales
+_FP32_LEAVES = ("scale", "norm_scale", "A_log", "D", "dt_bias", "lambda",
+                "b_r", "b_i", "w_r", "w_i")
 
 
 def params_from_jax(np_params: Any, cfg: ModelConfig, *, device="cuda",

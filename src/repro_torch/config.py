@@ -133,6 +133,19 @@ class ModelConfig:
             specs.append(LayerSpec(mixer=mixer, mlp=mlp, window=win))
         return specs
 
+    @property
+    def d_inner(self) -> int:
+        """Mamba2 inner width."""
+        return self.d_model * self.ssm_expand
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def uses_attention(self) -> bool:
+        return any(p in (ATTN_GLOBAL, ATTN_LOCAL) for p in self.pattern)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

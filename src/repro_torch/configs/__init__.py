@@ -2,3 +2,5 @@
 them into the registry (``repro_torch.config.get_arch``)."""
 
 from repro_torch.configs import gemma_2b  # noqa: F401
+from repro_torch.configs import mamba2_370m  # noqa: F401
+from repro_torch.configs import recurrentgemma_2b  # noqa: F401

@@ -25,8 +25,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("flash_attention", "paged_attention", "fused_adam", "wavg",
-           "compress")
+KERNELS = ("flash_attention", "paged_attention", "ssd_scan", "rg_lru",
+           "fused_adam", "wavg", "compress")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -13,11 +13,14 @@
 // h / g with g = Hq / Hkv.
 //
 // Design.  One CTA of 256 threads per (batch, kv head, 64-row tile of the
-// grouped query matrix).  The tile packs BM / g positions times all g query
-// heads of its kv head, so every K/V tile staged in shared memory serves
-// the g heads at once (g = 8 for Gemma's MQA) and the fp32 accumulator of
-// the 64 rows (64 x hd) fits in registers.  A loop inside the CTA walks the
-// kv tiles from the first one the window can reach to the causal limit;
+// grouped query matrix).  The tile packs floor(BM / g) positions times all
+// g query heads of its kv head, so every K/V tile staged in shared memory
+// serves the g heads at once (g = 8 for Gemma's MQA: 8 x 8 rows; g = 10
+// for RecurrentGemma: 6 x 10 = 60 rows, the last 4 rows padding that is
+// never loaded, never attends and never stored) and the fp32 accumulator
+// of the 64 rows (64 x hd) fits in registers.  Any g <= 64 is taken.  A
+// loop inside the CTA walks the kv tiles from the first one the window can
+// reach to the causal limit;
 // tiles wholly above the diagonal or outside the window are never loaded.
 // Shared memory holds fp32 copies of the Q tile, the K tile (transposed, so
 // the score loop reads it without bank conflicts), the V tile and the
@@ -74,6 +77,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int g = Hq / Hkv;
   const int tile_pos = BM / g;         // query positions per tile
+  const int rows = tile_pos * g;       // live rows; the rest pad the tile
   const int q0 = blockIdx.x * tile_pos;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
@@ -90,14 +94,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = idx / HD, d = idx % HD;
     const int p = q0 + r / g;
     float x = 0.f;
-    if (p < Sq)
+    if (r < rows && p < Sq)
       x = to_f(q[((size_t)b * Sq + p) * q_pos_stride + (size_t)(kvh * g + r % g) * HD + d]);
     sQ[r * S::QS + d] = x;
   }
 
+  // a padding row takes position Sq: out of range, so it is masked and
+  // never stored
   int qpos[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) qpos[i] = q0 + (ty + 16 * i) / g;
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    qpos[i] = r < rows ? q0 + r / g : Sq;
+  }
 
   float m[4], l[4], acc[4][DJ];
 #pragma unroll
@@ -254,7 +263,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    int Hkv, int hd, int dtype, float scale,
                                    float softcap, int window, int causal,
                                    void* stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || Hq % Hkv != 0 || BM % (Hq / Hkv) != 0)
+  if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || Hq % Hkv != 0 || Hq / Hkv > BM)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

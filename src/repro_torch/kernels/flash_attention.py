@@ -56,9 +56,9 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if hkv < 1 or hq % hkv or _TILE_ROWS % (hq // hkv):
+    if hkv < 1 or hq % hkv or hq // hkv > _TILE_ROWS:
         raise ValueError(f"{hq} query heads over {hkv} kv heads: the group "
-                         f"size must divide {_TILE_ROWS}")
+                         f"size must be a whole number <= {_TILE_ROWS}")
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
     if sq < 1 or sk < 1:

@@ -17,11 +17,15 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_adam as _fadam
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rg_lru as _rglru
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import wavg as _wavg
 
 # kernel -> (wrapper module, its launch counter)
 _COUNTED = {"flash_attention": (_fa, "launches"),
             "paged_decode_attention": (_pa, "launches"),
+            "ssd_scan": (_ssd, "launches"),
+            "rg_lru_scan": (_rglru, "launches"),
             "fused_adamw": (_fadam, "launches"),
             "weighted_average": (_wavg, "launches"),
             "quantize_stochastic": (_comp, "quantize_launches"),
@@ -63,6 +67,36 @@ def paged_decode_attention(q: torch.Tensor, pk: torch.Tensor,
     fn = ref.paged_decode_attention if _on_cpu(q) else _pa.paged_decode_attention
     return fn(q, pk, pv, ppos, table, pos, scale=scale,
               logit_softcap=logit_softcap)
+
+
+def _check_tiling(name: str, s: int, chunk: int, width: int,
+                  block: int) -> None:
+    """The TPU kernels' tiling rule (``S % min(chunk, S) == 0`` and the
+    width a multiple of its block), so the port raises where JAX does.
+    The CUDA kernels tile by their own sizes and take any shape."""
+    chunk, block = min(chunk, s), min(block, width)
+    if chunk < 1 or block < 1 or s % chunk or width % block:
+        raise ValueError(f"{name}: S {s} must be a multiple of chunk {chunk} "
+                         f"and width {width} of block {block}")
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b_: torch.Tensor, c_: torch.Tensor, *, chunk: int = 128,
+             block_h: int = 8) -> torch.Tensor:
+    """Mamba-2 SSD scan in the model layout: x (B,S,H,P); dt (B,S,H) fp32;
+    a (H,) fp32; b_, c_ (B,S,N) -> y (B,S,H,P) in x's dtype."""
+    _check_tiling("ssd_scan", x.shape[1], chunk, x.shape[2], block_h)
+    fn = ref.ssd_scan if _on_cpu(x) else _ssd.ssd_scan
+    return fn(x, dt, a, b_, c_)
+
+
+def rg_lru_scan(log_a: torch.Tensor, b: torch.Tensor, *, chunk: int = 128,
+                block_w: int = 512) -> torch.Tensor:
+    """``h_t = exp(log_a_t) h_{t-1} + b_t`` from h = 0: log_a, b (B,S,W)
+    -> h (B,S,W) in b's dtype."""
+    _check_tiling("rg_lru_scan", b.shape[1], chunk, b.shape[2], block_w)
+    fn = ref.rg_lru_scan if _on_cpu(b) else _rglru.rg_lru_scan
+    return fn(log_a, b)
 
 
 def weighted_average(stacked: torch.Tensor,

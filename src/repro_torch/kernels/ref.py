@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's kernels, in fp32 math.
 
 Ports of ``repro/kernels/ref.py::flash_attention``,
-``::paged_decode_attention``, ``::weighted_average_2d``,
-``::fused_adamw_2d``, ``::quantize_stochastic_2d``, ``::dequantize_2d``
-and ``::topk_mask_2d``, in the same layouts.  The CPU dispatch in
+``::paged_decode_attention``, ``::ssd_scan``, ``::rg_lru_scan``,
+``::weighted_average_2d``, ``::fused_adamw_2d``,
+``::quantize_stochastic_2d``, ``::dequantize_2d`` and ``::topk_mask_2d``,
+in the same layouts.  The CPU dispatch in
 ``kernels/ops.py`` runs these; ``chip_smoke.py`` holds each CUDA kernel
 against them on the card.
 """
@@ -81,6 +82,41 @@ def paged_decode_attention(q: torch.Tensor, pk: torch.Tensor,
     l = p.sum(dim=-1).clamp_min(1e-30)
     out = torch.einsum("bkgs,bskd->bkgd", p, vc) / l[..., None]
     return out.reshape(b, hq, hd).to(q.dtype)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b_: torch.Tensor, c_: torch.Tensor) -> torch.Tensor:
+    """The SSD recurrence step by step, in fp32: x (B,S,H,P); dt (B,S,H);
+    a (H,); b_, c_ (B,S,N) -> y (B,S,H,P) in x's dtype.  The state
+    starts at zero; per step ``state = exp(dt a) state + dt B (x) x`` and
+    ``y = C . state``."""
+    bsz, s, h, p = x.shape
+    n = b_.shape[-1]
+    a32 = a.float()
+    state = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    ys = torch.empty((bsz, s, h, p), dtype=torch.float32, device=x.device)
+    xf, dtf, bf, cf = x.float(), dt.float(), b_.float(), c_.float()
+    for t in range(s):
+        xt, dtt, bt, ct = xf[:, t], dtf[:, t], bf[:, t], cf[:, t]
+        da = torch.exp(dtt * a32)
+        state = state * da[..., None, None] + (
+            dtt[..., None, None] * bt[:, None, :, None] * xt[:, :, None, :])
+        ys[:, t] = torch.einsum("bn,bhnp->bhp", ct, state)
+    return ys.to(x.dtype)
+
+
+def rg_lru_scan(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The LRU recurrence step by step, in fp32: ``h_t = exp(la_t) h_{t-1}
+    + b_t`` from h = 0; log_a, b (B,S,W) -> h in b's dtype.  Each step
+    rounds the exp, the product and the sum once each, as the CUDA
+    kernel does."""
+    la, bf = log_a.float(), b.float()
+    h = torch.zeros_like(bf[:, 0])
+    hs = torch.empty_like(bf)
+    for t in range(b.shape[1]):
+        h = torch.exp(la[:, t]) * h + bf[:, t]
+        hs[:, t] = h
+    return hs.to(b.dtype)
 
 
 def weighted_average_2d(stacked: torch.Tensor,

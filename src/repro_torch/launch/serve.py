@@ -12,6 +12,15 @@ both CUDA kernels:
       --requests 16 --replicas 1 --slots 8 --prompt-len 512 --gen 64 \
       --block-size 16 --paged-kernel --impl kernel
 
+The recurrent families serve the same way (``--arch mamba2-370m`` or
+``--arch recurrentgemma-2b``).  A Mamba-2 prompt must be at most one SSD
+chunk (128 tokens; 32 reduced) or a whole number of chunks, since prefill
+is never padded:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+      --reduced --device cpu --requests 4 --replicas 1 --slots 2 \
+      --prompt-len 32 --gen 8
+
 Runs on the card; ``--device cpu`` runs the plain PyTorch path instead
 (with ``--reduced`` for a size the CPU can take).
 """
@@ -87,7 +96,8 @@ def profile_serve(engine: DecodeEngine, params, requests: Sequence[Request],
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="gemma-2b | mamba2-370m | recurrentgemma-2b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -1,14 +1,20 @@
-"""Attention: causal GQA/MQA, prefill into a KV cache, and one-token
-decode against a contiguous or a paged cache.
+"""Attention: causal GQA/MQA, global or sliding-window (local), prefill
+into a KV cache, and one-token decode against a contiguous, ring or paged
+cache.
 
 The PyTorch twin of ``repro/models/attention.py``.  Every public function
 keeps the JAX layout ``(B, S, H, hd)``.  Implementations (``impl``):
 
 * ``dense``  — materialize the (Sq, Sk) scores; the plain model path.
 * ``kernel`` — the hand-written CUDA flash kernel (``kernels/ops.py``),
-  which takes any S >= 1.  ``pallas``, the JAX package's name for its
-  kernel path, is accepted as an alias.  It has no backward yet, so
-  training (:func:`multihead_attention`) runs ``dense`` only.
+  which takes any S >= 1 and a window.  ``pallas``, the JAX package's name
+  for its kernel path, is accepted as an alias.  It has no backward yet,
+  so :func:`multihead_attention` takes it only with autograd off (the
+  prefill step), and training runs ``dense`` only.
+
+Local layers keep a ring of ``min(window, max_len)`` entries, written at
+slot ``pos % size``; global layers a full-length cache that refuses to
+overflow.
 
 KV caches are updated in place (``index_put_``) where the JAX package
 donated its buffers: the functions return the cache they were given.
@@ -17,7 +23,7 @@ donated its buffers: the functions return the cache they were given.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -77,20 +83,26 @@ def _check_impl(impl: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _attn_dense(cfg: ModelConfig, q, k, v, q_pos, k_pos) -> torch.Tensor:
+def _attn_dense(cfg: ModelConfig, q, k, v, q_pos, k_pos,
+                window: Optional[int] = None) -> torch.Tensor:
     qg = _group(cfg, q)                                   # (B,Sq,K,G,hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k) * _scale(cfg)
     s = softcap(s, cfg.attn_logit_softcap)
     mask = k_pos[:, None, None, None, :] <= q_pos[:, None, None, :, None]
+    if window is not None:
+        mask &= (q_pos[:, None, None, :, None]
+                 - k_pos[:, None, None, None, :]) < window
     s = s.masked_fill(~mask, NEG_INF)
     pr = torch.softmax(s.float(), dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", pr, v)
     return out.reshape(q.shape)
 
 
-def _attn_kernel(cfg: ModelConfig, q, k, v) -> torch.Tensor:
+def _attn_kernel(cfg: ModelConfig, q, k, v,
+                 window: Optional[int] = None) -> torch.Tensor:
     """The flash kernel path (positions are ``arange(S)`` from 0)."""
-    return ops.flash_attention(q, k, v, causal=True, scale=_scale(cfg),
+    return ops.flash_attention(q, k, v, causal=True, window=window,
+                               scale=_scale(cfg),
                                logit_softcap=cfg.attn_logit_softcap)
 
 
@@ -114,12 +126,21 @@ def check_train_impl(impl: str) -> None:
 
 def multihead_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
                         positions: torch.Tensor, *,
+                        window: Optional[int] = None,
                         impl: str = "dense") -> torch.Tensor:
-    """Full-sequence causal global self-attention (train / prefill without
-    a cache), differentiable by autograd.  x (B,S,D); positions (B,S)."""
-    check_train_impl(impl)
+    """Full-sequence causal self-attention (train / prefill without a
+    cache), global or within ``window``.  x (B,S,D); positions (B,S),
+    ``arange(S)`` rows for the kernel.  ``dense`` is differentiable by
+    autograd; the kernel has no backward, so it raises while autograd is
+    on."""
+    _check_impl(impl)
+    if torch.is_grad_enabled():
+        check_train_impl(impl)
     q, k, v = _project_qkv(cfg, p, x, positions)
-    out = _attn_dense(cfg, q, k, v, positions, positions)
+    if impl == "dense":
+        out = _attn_dense(cfg, q, k, v, positions, positions, window)
+    else:
+        out = _attn_kernel(cfg, q, k, v, window)
     return _out_proj(p, out)
 
 
@@ -129,37 +150,52 @@ def multihead_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                  device=None) -> Params:
-    """Full-length KV of a global-attention layer; ``pos`` holds each
-    entry's absolute position per row (-1 = empty).  (Local layers' ring
-    caches come with local attention, ROADMAP Queue 1 item 11.)"""
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+                  device=None, window: Optional[int] = None) -> Params:
+    """Full-length KV of a global-attention layer, or a ring of
+    ``min(window, max_len)`` entries for a local one; ``pos`` holds each
+    entry's absolute position per row (-1 = empty)."""
+    size = max_len if window is None else min(window, max_len)
+    shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+        "pos": torch.full((batch, size), -1, dtype=torch.int32,
                           device=device),
     }
 
 
 def cache_write(cache: Params, k: torch.Tensor, v: torch.Tensor,
-                pos) -> Params:
+                pos, *, ring: bool = False) -> Params:
     """Write S new KV entries starting at absolute position ``pos``, in
     place.  ``pos`` is an int (all rows at the same position: prefill) or
     a ``(B,)`` tensor of per-row positions (single-token decode writes,
     which wrap modulo the cache length: an empty slot's garbage decode
-    runs past it)."""
+    runs past it).
+
+    A ``ring`` (a local layer's cache) takes entry ``p`` at slot
+    ``p % size``; a write of S >= size entries keeps the last ``size``.
+    A global cache raises where the write would run past its end."""
     b, s = k.shape[0], k.shape[1]
+    size = cache["k"].shape[1]
     if isinstance(pos, torch.Tensor):
         if s != 1:
             raise ValueError("per-row cache writes are single-token only")
         rows = torch.arange(b, device=k.device)
-        idx = (pos % cache["k"].shape[1]).long()
+        idx = (pos % size).long()
         cache["k"][rows, idx] = k[:, 0]
         cache["v"][rows, idx] = v[:, 0]
         cache["pos"][rows, idx] = pos.to(torch.int32)
         return cache
-    if pos + s > cache["k"].shape[1]:
+    if ring:
+        keep = min(s, size)
+        newpos = pos + s - keep + torch.arange(keep, dtype=torch.int32,
+                                               device=k.device)
+        slots = (newpos % size).long()
+        cache["k"][:, slots] = k[:, s - keep:]
+        cache["v"][:, slots] = v[:, s - keep:]
+        cache["pos"][:, slots] = newpos
+        return cache
+    if pos + s > size:
         raise ValueError(f"{s} entries at position {pos} overflow the cache")
     cache["k"][:, pos:pos + s] = k
     cache["v"][:, pos:pos + s] = v
@@ -170,16 +206,18 @@ def cache_write(cache: Params, k: torch.Tensor, v: torch.Tensor,
 
 def prefill_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
                       positions: torch.Tensor, cache: Params, *,
+                      window: Optional[int] = None,
                       impl: str = "dense") -> Tuple[torch.Tensor, Params]:
-    """Full-sequence causal attention that also fills the KV cache (in
-    place).  Positions start at 0, as every prefill does."""
+    """Full-sequence causal attention, global or within ``window``, that
+    also fills the KV cache (in place; a local layer's ring keeps the last
+    entries).  Positions start at 0, as every prefill does."""
     _check_impl(impl)
     q, k, v = _project_qkv(cfg, p, x, positions)
     if impl == "dense":
-        out = _attn_dense(cfg, q, k, v, positions, positions)
+        out = _attn_dense(cfg, q, k, v, positions, positions, window)
     else:
-        out = _attn_kernel(cfg, q, k, v)
-    cache = cache_write(cache, k, v, 0)
+        out = _attn_kernel(cfg, q, k, v, window)
+    cache = cache_write(cache, k, v, 0, ring=window is not None)
     return _out_proj(p, out), cache
 
 
@@ -247,14 +285,18 @@ def _attend_one(cfg: ModelConfig, q, kc, vc, valid) -> torch.Tensor:
 
 
 def decode_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                     cache: Params, pos: torch.Tensor
+                     cache: Params, pos: torch.Tensor, *,
+                     window: Optional[int] = None
                      ) -> Tuple[torch.Tensor, Params]:
-    """One-token attention against a contiguous cache.  x: (B,1,D); ``pos``
-    is a ``(B,)`` tensor of per-row absolute positions (or a scalar one)."""
+    """One-token attention against a contiguous cache or a local layer's
+    ring (``window``).  x: (B,1,D); ``pos`` is a ``(B,)`` tensor of per-row
+    absolute positions (or a scalar one)."""
     b = x.shape[0]
     pos_b = pos.to(torch.int32).expand(b)
     q, k, v = _project_qkv(cfg, p, x, pos_b[:, None])
     cache = cache_write(cache, k, v, pos_b)
     pc = cache["pos"]
     valid = (pc >= 0) & (pc <= pos_b[:, None])
+    if window is not None:
+        valid &= (pos_b[:, None] - pc) < window
     return _out_proj(p, _attend_one(cfg, q, cache["k"], cache["v"], valid)), cache

@@ -155,6 +155,36 @@ def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return h @ p["wd"].to(dtype)
 
 
+# ---------------------------------------------------------------------------
+# Recurrent blocks' shared pieces
+# ---------------------------------------------------------------------------
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv, x (B,S,C), w (k,C): ``sum_i w[i] *
+    x[t - k + 1 + i]`` added in x's dtype in the order i = 0..k-1, as the
+    JAX module adds it (``F.conv1d`` would round differently)."""
+    k, s = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + w[i] * pad[:, i:i + s]
+    return out
+
+
+def conv_tail(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The conv window a decode step continues from: the last ``k``
+    positions of x (B,S,C), zeros before the sequence's start."""
+    if x.shape[1] < k:
+        x = F.pad(x, (0, 0, k - x.shape[1], 0))
+    return x[:, x.shape[1] - k:]
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x

@@ -1,52 +1,64 @@
-"""The decoder for serving: init, prefill and one-token decode.
+"""The decoder: init, the full-sequence forward, prefill and one-token
+decode, for every ported layer kind.
 
-The PyTorch twin of the serving half of ``repro/models/transformer.py``.
-The parameter tree keeps the JAX layout — ``params["stack"]`` is a list
-(one entry per layer of the repeating super-block) of trees whose leaves
-carry a leading layer axis ``(L, ...)``; ``params["rem"]`` holds the
-remainder layers — so the bridge from JAX is a plain copy and the layer
-loop indexes views ``w[i]``.  Caches mirror the same layout and are
-updated in place.
+The PyTorch twin of ``repro/models/transformer.py``.  The parameter tree
+keeps the JAX layout — ``params["stack"]`` is a list (one entry per layer
+of the repeating super-block) of trees whose leaves carry a leading layer
+axis ``(L, ...)``; ``params["rem"]`` holds the remainder layers — so the
+bridge from JAX is a plain copy and the layer loop indexes views ``w[i]``.
+Caches mirror the same layout and are updated in place.
+
+Layer kinds: global and local (sliding-window) attention, the Mamba-2 SSD
+block (``models/ssm.py``) and the RG-LRU block (``models/rglru.py``), with
+a dense MLP or none.  ``impl="kernel"`` (alias ``"pallas"``) sends the
+full-sequence forward through the flash, SSD-scan and RG-LRU kernels, as
+the JAX forward's ``"pallas"`` does; prefill into a cache runs the
+recurrent blocks' plain scans, which return the final state the kernels do
+not.  MoE raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 
 For training, a stacked leaf may also be a Python list of per-layer
 tensors (``core/round.py`` binds each layer's slice as a leaf of its own,
 so autograd accumulates into the slice and not into a full-size buffer
 per layer); the layer loops index both forms the same way.  ``remat``
 recomputes the activations of each span of super-blocks in the backward
-(``torch.utils.checkpoint``), which changes no number.
-
-So far only global attention with a dense MLP is ported; any other mixer
-or MLP kind raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+(``torch.utils.checkpoint``), which changes no number.  The round trains
+global-attention stacks only (``core/round.py::check_trainable``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.config import (ATTN_GLOBAL, MLP_DENSE, LayerSpec,
-                                ModelConfig)
+from repro_torch.config import (ATTN_GLOBAL, ATTN_LOCAL, MIX_RGLRU, MIX_SSM,
+                                MLP_DENSE, MLP_NONE, LayerSpec, ModelConfig)
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_param,
                                        resolve_device, softcap,
                                        text_positions, torch_dtype)
 
 Params = Dict[str, Any]
 
+_MIXERS = (ATTN_GLOBAL, ATTN_LOCAL, MIX_SSM, MIX_RGLRU)
+_KERNEL_IMPLS = ("kernel", "pallas")
+
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer != ATTN_GLOBAL:
-        raise NotImplementedError(
-            f"mixer {spec.mixer!r} is not ported yet: local attention, SSM and "
-            f"RG-LRU come with ROADMAP Queue 1, item 11 (the other model "
-            f"families)")
-    if spec.mlp != MLP_DENSE:
+    if spec.mixer not in _MIXERS:
+        raise ValueError(f"unknown mixer {spec.mixer!r}")
+    if spec.mlp not in (MLP_DENSE, MLP_NONE):
         raise NotImplementedError(
             f"mlp {spec.mlp!r} is not ported yet (ROADMAP Queue 1, item 11: "
             f"models/moe.py)")
+
+
+def _is_attn(spec: LayerSpec) -> bool:
+    return spec.mixer in (ATTN_GLOBAL, ATTN_LOCAL)
 
 
 def _superblock_layout(cfg: ModelConfig) -> Tuple[List[LayerSpec], int, int]:
@@ -59,17 +71,17 @@ def _superblock_layout(cfg: ModelConfig) -> Tuple[List[LayerSpec], int, int]:
     return specs[:p], n_full, cfg.num_layers - n_full * p
 
 
-def _layers(params: Params, cache: Params, cfg: ModelConfig):
-    """Yield (layer params, layer cache) for every layer in order: the
-    stacked super-blocks (views ``w[i]``), then the remainder layers."""
+def _layers(params: Params, cache: Params, cfg: ModelConfig
+            ) -> Iterator[Tuple[LayerSpec, Params, Params]]:
+    """Yield (spec, layer params, layer cache) for every layer in order:
+    the stacked super-blocks (views ``w[i]``), then the remainder layers."""
     period_specs, n_full, _ = _superblock_layout(cfg)
     for i in range(n_full):
-        for j in range(len(period_specs)):
-            lp = _tree_index(params["stack"][j], i)
-            lc = _tree_index(cache["stack"][j], i)
-            yield lp, lc
-    for lp, lc in zip(params["rem"], cache["rem"]):
-        yield lp, lc
+        for j, spec in enumerate(period_specs):
+            yield (spec, _tree_index(params["stack"][j], i),
+                   _tree_index(cache["stack"][j], i))
+    rem_specs = cfg.layer_specs()[n_full * len(period_specs):]
+    yield from zip(rem_specs, params["rem"], cache["rem"])
 
 
 def _tree_index(tree, i: int):
@@ -83,7 +95,8 @@ def _tree_index(tree, i: int):
 # ---------------------------------------------------------------------------
 
 
-def _layer_init(gen, cfg: ModelConfig, layers: int, dtype, device) -> Params:
+def _layer_init(gen, cfg: ModelConfig, spec: LayerSpec, layers: int, dtype,
+                device) -> Params:
     """One layer's params, ``layers > 0`` stacked on a leading axis."""
     d, hq, hkv, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim, cfg.d_ff)
@@ -96,19 +109,29 @@ def _layer_init(gen, cfg: ModelConfig, layers: int, dtype, device) -> Params:
     def zeros():
         return torch.zeros(lead + (d,), dtype=torch.float32, device=device)
 
+    p: Params = {"norm1": {"scale": zeros()}}
+    # the MLP is drawn before the mixer, so a seed keeps giving the dense
+    # models the weights it gave them before the other mixers came
     mlp = {}
-    if cfg.activation in ("swiglu", "geglu"):
-        mlp["wg"] = w((d, f))
-    mlp["wu"] = w((d, f))
-    mlp["wd"] = w((f, d), scale=1.0 / f ** 0.5)
-    return {
-        "norm1": {"scale": zeros()},
-        "mixer": {"wq": w((d, hq, hd)), "wk": w((d, hkv, hd)),
-                  "wv": w((d, hkv, hd)),
-                  "wo": w((hq, hd, d), scale=1.0 / (hq * hd) ** 0.5)},
-        "norm2": {"scale": zeros()},
-        "mlp": mlp,
-    }
+    if spec.mlp != MLP_NONE:
+        if cfg.activation in ("swiglu", "geglu"):
+            mlp["wg"] = w((d, f))
+        mlp["wu"] = w((d, f))
+        mlp["wd"] = w((f, d), scale=1.0 / f ** 0.5)
+    if _is_attn(spec):
+        p["mixer"] = {"wq": w((d, hq, hd)), "wk": w((d, hkv, hd)),
+                      "wv": w((d, hkv, hd)),
+                      "wo": w((hq, hd, d), scale=1.0 / (hq * hd) ** 0.5)}
+    elif spec.mixer == MIX_SSM:
+        p["mixer"] = ssm_mod.ssm_init(gen, cfg, layers=layers, dtype=dtype,
+                                      device=device)
+    else:
+        p["mixer"] = rglru_mod.rglru_init(gen, cfg, layers=layers,
+                                          dtype=dtype, device=device)
+    if spec.mlp != MLP_NONE:
+        p["norm2"] = {"scale": zeros()}
+        p["mlp"] = mlp
+    return p
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
@@ -117,17 +140,22 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     package's init scales and tree layout.  Matrices are stored in
     ``dtype`` — by default ``cfg.dtype``, what serving computes in;
     training passes ``cfg.param_dtype`` (fp32 master weights, cast to
-    ``cfg.dtype`` on use as in JAX) — norm scales in fp32."""
+    ``cfg.dtype`` on use as in JAX) — and the leaves the model reads in
+    fp32 in fp32 (norm scales; the SSD block's ``A_log``, ``D``,
+    ``dt_bias``, ``norm_scale``; the RG-LRU gates ``w_r``, ``w_i``, ``b_r``,
+    ``b_i`` and ``lambda``)."""
     device = resolve_device(device)
     period_specs, n_full, n_rem = _superblock_layout(cfg)
+    rem_specs = cfg.layer_specs()[n_full * len(period_specs):]
     dtype = dtype or torch_dtype(cfg.dtype)
     params: Params = {
         "embed": {"tok": dense_param(gen, (cfg.vocab_size, cfg.d_model),
                                      scale=cfg.d_model ** -0.5, dtype=dtype,
                                      device=device)},
-        "stack": [_layer_init(gen, cfg, n_full, dtype, device)
-                  for _ in period_specs],
-        "rem": [_layer_init(gen, cfg, 0, dtype, device) for _ in range(n_rem)],
+        "stack": [_layer_init(gen, cfg, spec, n_full, dtype, device)
+                  for spec in period_specs],
+        "rem": [_layer_init(gen, cfg, spec, 0, dtype, device)
+                for spec in rem_specs],
         "final_norm": {"scale": torch.zeros((cfg.d_model,), dtype=torch.float32,
                                             device=device)},
     }
@@ -164,18 +192,34 @@ def _unembed(cfg: ModelConfig, params: Params, x: torch.Tensor
     return softcap(logits.float(), cfg.final_logit_softcap)
 
 
+def _mlp_block(cfg: ModelConfig, spec: LayerSpec, p: Params,
+               x: torch.Tensor) -> torch.Tensor:
+    if spec.mlp == MLP_NONE:
+        return x
+    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+
+
 # ---------------------------------------------------------------------------
 # Caches
 # ---------------------------------------------------------------------------
 
 
-def _layer_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                      device, paged: Optional[Tuple[int, int]],
-                      layers: int) -> Params:
-    if paged is not None:
-        one = attn.init_paged_kv_cache(cfg, paged[0], paged[1], dtype, device)
+def _layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                      max_len: int, dtype, device,
+                      paged: Optional[Tuple[int, int]], layers: int) -> Params:
+    if _is_attn(spec):
+        if paged is not None and spec.window is None:
+            # only global layers page: a local ring is already bounded at
+            # `window` entries and gains nothing from a pool
+            one = attn.init_paged_kv_cache(cfg, paged[0], paged[1], dtype,
+                                           device)
+        else:
+            one = attn.init_kv_cache(cfg, batch, max_len, dtype, device,
+                                     window=spec.window)
+    elif spec.mixer == MIX_SSM:
+        one = ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
     else:
-        one = attn.init_kv_cache(cfg, batch, max_len, dtype, device)
+        one = rglru_mod.init_rglru_cache(cfg, batch, dtype, device)
     if not layers:
         return one
     return {k: v[None].repeat((layers,) + (1,) * v.dim())
@@ -185,17 +229,20 @@ def _layer_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                paged: Optional[Tuple[int, int]] = None,
                device="cuda") -> Params:
-    """Cache tree matching the stack/rem layout.  ``paged=(num_blocks,
+    """Cache tree matching the stack/rem layout: KV for attention layers
+    (full length for global ones, a ring for local ones), the state and
+    conv windows for SSD and RG-LRU layers.  ``paged=(num_blocks,
     block_size)`` pools every global-attention layer's KV into a shared
     block pool; the decode entry points then need a block ``table``."""
     device = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     period_specs, n_full, n_rem = _superblock_layout(cfg)
+    rem_specs = cfg.layer_specs()[n_full * len(period_specs):]
     return {
-        "stack": [_layer_cache_init(cfg, batch, max_len, dtype, device, paged,
-                                    n_full) for _ in period_specs],
-        "rem": [_layer_cache_init(cfg, batch, max_len, dtype, device, paged, 0)
-                for _ in range(n_rem)],
+        "stack": [_layer_cache_init(cfg, spec, batch, max_len, dtype, device,
+                                    paged, n_full) for spec in period_specs],
+        "rem": [_layer_cache_init(cfg, spec, batch, max_len, dtype, device,
+                                  paged, 0) for spec in rem_specs],
     }
 
 
@@ -204,18 +251,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 # ---------------------------------------------------------------------------
 
 
-def _decode_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                  cache: Params, pos: torch.Tensor,
+def _decode_layer(cfg: ModelConfig, spec: LayerSpec, p: Params,
+                  x: torch.Tensor, cache: Params, pos: torch.Tensor,
                   table: Optional[torch.Tensor],
                   paged_kernel: bool) -> torch.Tensor:
     h = apply_norm(cfg, p["norm1"], x)
     if "pk" in cache:
         mixed, _ = attn.paged_decode_attention(cfg, p["mixer"], h, cache, pos,
                                                table, kernel=paged_kernel)
+    elif _is_attn(spec):
+        mixed, _ = attn.decode_attention(cfg, p["mixer"], h, cache, pos,
+                                         window=spec.window)
+    elif spec.mixer == MIX_SSM:
+        mixed, _ = ssm_mod.decode_ssm(cfg, p["mixer"], h, cache)
     else:
-        mixed, _ = attn.decode_attention(cfg, p["mixer"], h, cache, pos)
-    x = x + mixed
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+        mixed, _ = rglru_mod.decode_rglru(cfg, p["mixer"], h, cache)
+    return _mlp_block(cfg, spec, p, x + mixed)
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -230,8 +281,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     caches ignore it); ``paged_kernel`` sends paged layers through the
     CUDA block-table kernel instead of the gather."""
     x = _embed(cfg, params, tokens)
-    for lp, lc in _layers(params, cache, cfg):
-        x = _decode_layer(cfg, lp, x, lc, pos, table, paged_kernel)
+    for spec, lp, lc in _layers(params, cache, cfg):
+        x = _decode_layer(cfg, spec, lp, x, lc, pos, table, paged_kernel)
     x = apply_norm(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x), cache
 
@@ -241,33 +292,41 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _prefill_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                   cache: Params, positions: torch.Tensor,
+def _prefill_layer(cfg: ModelConfig, spec: LayerSpec, p: Params,
+                   x: torch.Tensor, cache: Params, positions: torch.Tensor,
                    impl: str) -> torch.Tensor:
     h = apply_norm(cfg, p["norm1"], x)
-    mixed, _ = attn.prefill_attention(cfg, p["mixer"], h, positions, cache,
-                                      impl=impl)
-    x = x + mixed
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    if _is_attn(spec):
+        mixed, _ = attn.prefill_attention(cfg, p["mixer"], h, positions,
+                                          cache, window=spec.window,
+                                          impl=impl)
+    elif spec.mixer == MIX_SSM:
+        mixed, _ = ssm_mod.prefill_ssm(cfg, p["mixer"], h, cache)
+    else:
+        mixed, _ = rglru_mod.prefill_rglru(cfg, p["mixer"], h, cache)
+    return _mlp_block(cfg, spec, p, x + mixed)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             cache: Optional[Params] = None, max_len: Optional[int] = None,
             impl: str = "dense", last_only: bool = False
             ) -> Tuple[torch.Tensor, Params]:
-    """Full-sequence forward that fills a contiguous KV cache (in place).
+    """Full-sequence forward that fills a contiguous cache (in place).
 
     Returns (logits (B, S, V) fp32, or (B, 1, V) with ``last_only``, and
     the cache).  ``max_len`` sizes a fresh cache when ``cache`` is not
     given (default: the prompt length).  ``last_only`` unembeds only the
-    final position, which is all the serving path reads."""
+    final position, which is all the serving path reads.  ``impl`` picks
+    the attention layers' path; the recurrent blocks run their plain
+    scans, which yield the final state."""
+    attn._check_impl(impl)
     x = _embed(cfg, params, tokens)
     b, s, _ = x.shape
     if cache is None:
         cache = init_cache(cfg, b, max_len or s, device=x.device)
     positions = text_positions(b, s, x.device)
-    for lp, lc in _layers(params, cache, cfg):
-        x = _prefill_layer(cfg, lp, x, lc, positions, impl)
+    for spec, lp, lc in _layers(params, cache, cfg):
+        x = _prefill_layer(cfg, spec, lp, x, lc, positions, impl)
     x = apply_norm(cfg, params["final_norm"], x)
     if last_only:
         x = x[:, -1:]
@@ -287,12 +346,20 @@ def _resolve_span(n_full: int, requested: int) -> int:
     return span
 
 
-def _apply_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                 positions: torch.Tensor, impl: str) -> torch.Tensor:
+def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Params,
+                 x: torch.Tensor, positions: torch.Tensor,
+                 impl: str) -> torch.Tensor:
     h = apply_norm(cfg, p["norm1"], x)
-    x = x + attn.multihead_attention(cfg, p["mixer"], h, positions,
-                                     impl=impl)
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    use_kernel = impl in _KERNEL_IMPLS
+    if _is_attn(spec):
+        mixed = attn.multihead_attention(cfg, p["mixer"], h, positions,
+                                         window=spec.window, impl=impl)
+    elif spec.mixer == MIX_SSM:
+        mixed = ssm_mod.apply_ssm(cfg, p["mixer"], h, use_kernel=use_kernel)
+    else:
+        mixed = rglru_mod.apply_rglru(cfg, p["mixer"], h,
+                                      use_kernel=use_kernel)
+    return _mlp_block(cfg, spec, p, x + mixed)
 
 
 def _num_blocks(stack: List[Params]) -> int:
@@ -318,9 +385,9 @@ def _stack_forward(stack: List[Params], cfg: ModelConfig, x: torch.Tensor,
 
     def span_block(x, first):
         for t in range(first, first + span):
-            for j in range(len(period_specs)):
-                x = _apply_layer(cfg, _tree_index(stack[j], t), x, positions,
-                                 impl)
+            for j, spec in enumerate(period_specs):
+                x = _apply_layer(cfg, spec, _tree_index(stack[j], t), x,
+                                 positions, impl)
         return x
 
     for first in range(0, n, span):
@@ -337,19 +404,32 @@ def _zero_aux(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _rem_forward(rem: List[Params], cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor, impl: str) -> torch.Tensor:
+    """The remainder layers (the last ``len(rem)`` of the model) over x."""
+    specs = cfg.layer_specs()[cfg.num_layers - len(rem):]
+    for spec, lp in zip(specs, rem):
+        x = _apply_layer(cfg, spec, lp, x, positions, impl)
+    return x
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None, impl: str = "dense",
             remat: bool = True, remat_span: int = 1,
             last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward -> (logits (B, S, V) fp32, aux loss)."""
+    """Full-sequence forward -> (logits (B, S, V) fp32, aux loss).
+
+    ``impl="kernel"`` (or ``"pallas"``) runs attention, SSD and RG-LRU
+    layers through their kernels; with autograd on, attention raises (no
+    backward kernel)."""
+    attn._check_impl(impl)
     x = _embed(cfg, params, tokens)
     b, s, _ = x.shape
     if positions is None:
         positions = text_positions(b, s, x.device)
     x = _stack_forward(params["stack"], cfg, x, positions, impl, remat,
                        remat_span)
-    for lp in params["rem"]:
-        x = _apply_layer(cfg, lp, x, positions, impl)
+    x = _rem_forward(params["rem"], cfg, x, positions, impl)
     x = apply_norm(cfg, params["final_norm"], x)
     if last_only:
         x = x[:, -1:]
@@ -481,8 +561,7 @@ def server_hidden(server_params: Params, cfg: ModelConfig,
         positions = text_positions(b, s, x.device)
     x = _stack_forward(server_params["stack"], cfg, x, positions, impl,
                        remat, remat_span)
-    for lp in server_params["rem"]:
-        x = _apply_layer(cfg, lp, x, positions, impl)
+    x = _rem_forward(server_params["rem"], cfg, x, positions, impl)
     return apply_norm(cfg, server_params["final_norm"], x), _zero_aux(x)
 
 

@@ -9,8 +9,11 @@ is what the JAX counters pin.  The engine is params-free: parameters are
 an argument of every call, so replicas share one engine.
 
 Caches are updated in place where the JAX engine donated its buffers.
-Speculative decode (``spec_chunk``) and split mode (``cuts``) are not
-ported yet and raise.
+Every ported layer kind serves: global attention (contiguous or paged),
+local attention (a ring per slot), and the SSM and RG-LRU states (one row
+per slot).  Prefill is exact-length, never padded, so no pad token enters
+a recurrent state.  Speculative decode (``spec_chunk``), split mode
+(``cuts``) and decode-window overrides are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -73,16 +76,22 @@ def _layer_caches(cache: Params):
         yield False, d
 
 
+def _copy_row(d: Params, s: Params, slot: int, stacked: bool) -> None:
+    """Replace row ``slot`` of every leaf of layer cache ``d`` with row 0
+    of ``s``, in place."""
+    for key in d:
+        if stacked:
+            d[key][:, slot] = s[key][:, 0]
+        else:
+            d[key][slot] = s[key][0]
+
+
 def _scatter_slot(dst: Params, src: Params, slot: int) -> None:
     """Write a batch-1 contiguous cache into row ``slot`` of a batched one,
     in place.  The whole row is replaced, which also wipes any stale
-    validity from the slot's previous occupant."""
+    validity (and recurrent state) from the slot's previous occupant."""
     for (stacked, d), (_, s) in zip(_layer_caches(dst), _layer_caches(src)):
-        for key in d:
-            if stacked:
-                d[key][:, slot] = s[key][:, 0]
-            else:
-                d[key][slot] = s[key][0]
+        _copy_row(d, s, slot, stacked)
 
 
 def _scatter_slot_paged(dst: Params, src: Params, slot: int,
@@ -93,9 +102,13 @@ def _scatter_slot_paged(dst: Params, src: Params, slot: int,
     wiping their previous owner).  The slot's scratch block gets its
     ``ppos`` row wiped to -1: its stale K/V is never read, but a stale
     position from the slot's empty-phase garbage decode would pass the
-    validity mask."""
+    validity mask.  Layers that are not paged — local rings, SSM and
+    RG-LRU states — keep the per-row layout and take the row copy."""
     nr = len(blocks)
     for (stacked, d), (_, s) in zip(_layer_caches(dst), _layer_caches(src)):
+        if "pk" not in d:
+            _copy_row(d, s, slot, stacked)
+            continue
         idx = torch.as_tensor(np.asarray(blocks), dtype=torch.long,
                               device=d["pk"].device)
         lead = 1 if stacked else 0
@@ -127,12 +140,17 @@ class DecodeEngine:
 
     def __init__(self, cfg: ModelConfig, *, impl: str = "dense",
                  cuts: Optional[Sequence[int]] = None,
+                 decode_window_override: Optional[int] = None,
                  paged_kernel: bool = False, device="cuda"):
         attn._check_impl(impl)
         if cuts:
             raise NotImplementedError(
                 "split-mode serving (cuts) is not ported yet (ROADMAP "
                 "Queue 1, item 12)")
+        if decode_window_override:
+            raise NotImplementedError(
+                "decode_window_override (the long-context decode window) is "
+                "not ported yet (ROADMAP Queue 1, item 11)")
         tf._superblock_layout(cfg)        # raises on an unported layer kind
         self.cfg = cfg
         self.impl = impl

@@ -23,6 +23,10 @@ from repro_torch.kernels import ref
 
 FP32 = dict(atol=1e-4, rtol=1e-4)
 BF16 = dict(atol=5e-2, rtol=5e-2)
+NO_LAUNCHES = {"flash_attention": 0, "paged_decode_attention": 0,
+               "ssd_scan": 0, "rg_lru_scan": 0, "fused_adamw": 0,
+               "weighted_average": 0, "quantize_stochastic": 0,
+               "dequantize": 0, "topk_mask": 0}
 
 
 def _flash_inputs(b, hq, hkv, s, hd, seed):
@@ -34,12 +38,13 @@ def _flash_inputs(b, hq, hkv, s, hd, seed):
 
 
 # (B, Hq, Hkv, S, hd, window, softcap): MQA as in Gemma, ragged S, GQA,
-# window + softcap, MHA
+# window + softcap, MHA, RecurrentGemma's 10 heads over 1 with a window
 FLASH_CASES = [
     (2, 4, 1, 32, 16, None, None),
     (1, 8, 1, 45, 32, None, None),
     (1, 4, 2, 37, 32, 8, 30.0),
     (2, 2, 2, 13, 16, None, 5.0),
+    (2, 10, 1, 50, 16, 16, None),
 ]
 
 
@@ -144,11 +149,14 @@ def test_cpu_dispatch_takes_plain_version_and_launches_nothing():
     ops.fused_adamw(p, torch.randn(3, 5), m, m.clone(), w,
                     torch.tensor([1e-3, 0.9, 0.95, 0.1, 0.05, 1e-8, 0.0,
                                   0.1, 0.05]))
-    assert ops.launch_counts() == {"flash_attention": 0,
-                                   "paged_decode_attention": 0,
-                                   "fused_adamw": 0, "weighted_average": 0,
-                                   "quantize_stochastic": 0, "dequantize": 0,
-                                   "topk_mask": 0}
+    x, dt = torch.randn(1, 8, 2, 4), torch.rand(1, 8, 2)
+    a, bc = -torch.rand(2), torch.randn(1, 8, 3)
+    assert torch.equal(ops.ssd_scan(x, dt, a, bc, bc, chunk=4, block_h=2),
+                       ref.ssd_scan(x, dt, a, bc, bc))
+    la, b = -torch.rand(2, 8, 6), torch.randn(2, 8, 6)
+    assert torch.equal(ops.rg_lru_scan(la, b, chunk=4, block_w=3),
+                       ref.rg_lru_scan(la, b))
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -156,14 +164,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_bshd(q, q[:, :, :1].contiguous(),
                                 q[:, :, :1].contiguous())
+    # any whole query-head group up to the 64-row tile (10 for
+    # RecurrentGemma) gets as far as the device check; 65 does not
+    q10, k1 = torch.zeros(1, 8, 10, 32), torch.zeros(1, 8, 1, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_bshd(q10, k1, k1)
+    with pytest.raises(ValueError, match="group size"):
+        fa.flash_attention_bshd(torch.zeros(1, 8, 65, 32), k1, k1)
     args = [torch.as_tensor(a) for a in _paged_inputs(4)]
     with pytest.raises(ValueError, match="CUDA"):
         pa.paged_decode_attention(*args)
-    assert ops.launch_counts() == {"flash_attention": 0,
-                                   "paged_decode_attention": 0,
-                                   "fused_adamw": 0, "weighted_average": 0,
-                                   "quantize_stochastic": 0, "dequantize": 0,
-                                   "topk_mask": 0}
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 def test_dispatch_refuses_other_devices():

@@ -4,7 +4,8 @@
   ``jax`` or anything of the JAX package ``repro`` (AST scan).
 * Entry points default to the card and raise when there is none; the port
   never goes on on the CPU unless the caller passes ``device="cpu"``.
-* Layer kinds that are not ported yet raise ``NotImplementedError``.
+* Layer kinds and options that are not ported yet raise
+  ``NotImplementedError``.
 """
 
 import ast
@@ -73,18 +74,26 @@ def test_entry_points_raise_without_a_card():
 def test_unported_layer_kinds_raise():
     cfg = reduced(get_arch("gemma-2b"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeEngine(cfg.replace(pattern=(ATTN_LOCAL,), window=16),
-                     device="cpu")
+        DecodeEngine(cfg.replace(mlp_pattern=("moe",)), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DecodeEngine(cfg, decode_window_override=16, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tf.init_params(cfg.replace(mlp_pattern=("moe",)), torch.Generator(),
                        device="cpu")
+    # local attention is ported: it builds and serves
+    DecodeEngine(cfg.replace(pattern=(ATTN_LOCAL,), window=16), device="cpu")
 
 
-def test_cli_serves_requests_on_cpu(capsys):
-    launch_serve.main(["--arch", "gemma-2b", "--reduced", "--device", "cpu",
+@pytest.mark.parametrize("arch,extra", [
+    ("gemma-2b", ["--prompt-len", "12", "--block-size", "8",
+                  "--paged-kernel"]),
+    # a Mamba-2 prompt of at most one reduced SSD chunk (32 tokens)
+    ("mamba2-370m", ["--prompt-len", "32"]),
+])
+def test_cli_serves_requests_on_cpu(capsys, arch, extra):
+    launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                        "--requests", "3", "--replicas", "1", "--slots", "2",
-                       "--prompt-len", "12", "--gen", "6", "--block-size", "8",
-                       "--paged-kernel", "--impl", "kernel"])
+                       "--gen", "6", "--impl", "kernel", *extra])
     out = capsys.readouterr().out
-    assert "device=cpu" in out and "tok/s" in out
+    assert "device=cpu" in out and "tok/s" in out and arch in out
     assert "WARNING" not in out
