@@ -6,19 +6,23 @@
 Phases, each printing its lines before the last:
 
 1. build   — compile the CUDA kernels of ``src/repro_torch/kernels/csrc``
-             with nvcc for sm_90a.
+             with nvcc for sm_90a, one nvcc per source, all at once;
+             print the build's time and, for the two attention sources
+             (built with -Xptxas -v), each kernel's registers and spills.
 2d. scan kernels (run first, on an empty card) — the Mamba-2 SSD scan
              and the RG-LRU recurrence against their plain versions at the
              prefill step's shapes (SSD x (2, 4096, 32, 64) bf16, N 128;
              RG-LRU (2, 4096, 2560) fp32; timed) and at edge cases (S =
              chunk, S = 64 < chunk, B = 3, fp32, a ragged P; W not a
-             multiple of 512, S < chunk, bf16); the flash kernel at
-             RecurrentGemma's 10 query heads over 1, window 2048, S 4096.
+             multiple of 512, S < chunk, bf16); the flash kernel's
+             tensor-core body at RecurrentGemma's 10 query heads over 1,
+             window 2048, S 4096 (every launch on that body).
 10. prefill step — ``launch/steps.py::make_prefill_step`` of full
              Mamba-2-370M (48 layers) and full RecurrentGemma-2B (26
              layers), random weights from seed 0, tokens B 2 x S 4096,
              through the kernels (exactly 48 SSD scans; 18 RG-LRU scans
-             and 8 flash launches) and then the plain path: last-position
+             and 8 flash launches, bf16 ones all on the tensor-core
+             body) and then the plain path: last-position
              logits within ``FAMILY_LOGIT_BAND`` and the greedy argmax
              equal wherever the plain path's top-2 margin exceeds 0.5, in
              bf16 (timed: medians of 3) and in fp32.
@@ -29,12 +33,23 @@ Phases, each printing its lines before the last:
              wraps), paged (which pages none of its layers); 32 new
              tokens each, one replica of 4 slots, decode chunk 8.  Tokens
              equal wherever the margin exceeds 0.5; flash launches 8 per
-             RecurrentGemma admission and nothing else launches (the
-             engine's prefill runs the recurrent blocks' plain scans).
+             RecurrentGemma admission, all on the tensor-core body, and
+             nothing else launches (the engine's prefill runs the
+             recurrent blocks' plain scans).
 2. kernels — hold each serving kernel against its plain PyTorch version
              (``kernels/ref.py``) on the card, in bf16 and fp32, at the
-             serving path's shapes and a few edge cases; time the kernel,
-             the plain version and, as a yardstick only, one library call.
+             serving path's shapes and a few edge cases (flash at hd 256,
+             128, 64 and 32, S 1 and 5, once not causal: bf16 on the
+             tensor-core body within one bf16
+             ulp at max|plain| and at most 1% of outputs differing, fp32
+             on the SIMT body within 1e-4; paged decode, split-K, also at
+             B 1 and with short rows whose splits are mostly neutral);
+             time the kernel, the plain version and, as a yardstick only,
+             one library call.  The attention kernels and SDPA are timed
+             as CUDA-graph replays (device time: at the serving shapes a
+             call's host cost exceeds its device time), with the eager
+             per-call rate beside, and at the serving shapes each
+             kernel's device time per call from the profiler.
 2b. training kernels — the same for fused masked AdamW and the weighted
              client average, at one full-size Gemma-2B client leaf (the
              MLP gate of the 4-layer client stage, 2 clients: (2,
@@ -43,7 +58,8 @@ Phases, each printing its lines before the last:
 3. serve   — serve full Gemma-2B (18 layers, bf16, random weights from a
              seed) through the port's serving path: 16 requests, one
              replica of 8 slots, paged KV, both kernels; every kernel must
-             have launched on this run.
+             have launched on this run, flash always on the tensor-core
+             body and paged decode always split-K.
 4. parity  — serve the same requests through the plain path (dense
              prefill, gathered paged decode) on the same weights; prefill
              logits must agree within a band, and greedy tokens wherever the
@@ -177,6 +193,7 @@ LOGIT_BAND = 0.25
 # aggregate within the wavg band of BANDS.
 TRAIN_LOSS_RTOL = 1e-6
 TRAIN_STAGE_BAND = 1e-8
+FLASH_DIFFERING_MAX = 0.01
 
 
 def _time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -193,6 +210,44 @@ def _time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _time_graph_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
+    graph, the replay timed with CUDA events over the count.  For kernels
+    whose device time is below the host's cost of a call (the attention
+    kernels at the serving shapes), where ``_time_ms`` would time the
+    host's enqueue rate instead; the eager rate is kept beside it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * reps)
+    del graph
+    return ms
+
+
+def _kernel_device_ms(torch, fn, reps: int = 20):
+    """Device ms per call of each kernel that ``fn`` launches, by name,
+    from ``torch.profiler`` over ``reps`` calls: where a graph-timed call's
+    time goes between its kernels."""
+    prof = _device_profile(torch, lambda: [fn() for _ in range(reps)], top=8)
+    return {k["name"][:60]: k["device_ms"] / reps for k in prof["kernels"]}
+
+
 def _bound(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -200,25 +255,42 @@ def _bound(nbytes: float, flops: float, dtype: str):
 
 
 def check_flash(torch, ops, ref, *, b, hq, hkv, s, hd, dtype, window=None,
-                softcap=None, seed=0):
-    """Flash kernel vs its plain version on one case; returns its record."""
+                softcap=None, seed=0, causal=True, profile=False):
+    """Flash kernel vs its plain version on one case; returns its record.
+    bf16 takes the tensor-core body: its band is one bf16 ulp at
+    max|plain|, and at most FLASH_DIFFERING_MAX of its outputs may differ
+    from the plain version's; fp32 takes the SIMT body, band 1e-4."""
     import torch.nn.functional as F
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, s, hq, hd), generator=g, device="cuda").to(dt)
     k = torch.randn((b, s, hkv, hd), generator=g, device="cuda").to(dt)
     v = torch.randn((b, s, hkv, hd), generator=g, device="cuda").to(dt)
-    kw = dict(causal=True, window=window, logit_softcap=softcap)
+    kw = dict(causal=causal, window=window, logit_softcap=softcap)
     out = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     plain = ref.flash_attention(qt, kt, vt, **kw).transpose(1, 2)
     torch.cuda.synchronize()
     err = (out.float() - plain.float()).abs().max().item()
+    bf16 = dtype == "bfloat16"
     rec = {"kernel": "flash_attention", "B": b, "S": s, "Hq": hq, "Hkv": hkv,
-           "hd": hd, "dtype": dtype, "window": window, "softcap": softcap,
-           "max_abs_err": err, "band": BANDS["flash_attention"][dtype]}
-    rec["ms"] = _time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw))
+           "hd": hd, "dtype": dtype, "causal": causal, "window": window,
+           "softcap": softcap,
+           "body": "tensor cores" if bf16 else "simt", "max_abs_err": err,
+           "band": (_ulps(torch, plain, 1, dtype) if bf16
+                    else BANDS["flash_attention"][dtype]),
+           "old_band": BANDS["flash_attention"][dtype],
+           "differing_share": (out != plain).float().mean().item()}
+    if bf16 and rec["differing_share"] > FLASH_DIFFERING_MAX:
+        raise AssertionError(f"flash kernel: {rec['differing_share']:.4%} of the "
+                             f"bf16 outputs differ from the plain version "
+                             f"(at most {FLASH_DIFFERING_MAX:.0%}): {rec}")
+    call = lambda: ops.flash_attention(q, k, v, **kw)
+    rec["ms"] = _time_graph_ms(torch, call)
+    rec["eager_ms"] = _time_ms(torch, call)
+    if profile:
+        rec["device_ms_by_kernel"] = _kernel_device_ms(torch, call)
     rec["plain_ms"] = _time_ms(torch, lambda: ref.flash_attention(
         qt, kt, vt, **kw))
     rec["library_ms"] = None
@@ -229,15 +301,16 @@ def check_flash(torch, ops, ref, *, b, hq, hkv, s, hd, dtype, window=None,
         ve = vt.repeat_interleave(hq // hkv, dim=1)
         if window is None:
             sdpa = lambda: F.scaled_dot_product_attention(qt, ke, ve,
-                                                          is_causal=True)
+                                                          is_causal=causal)
         else:
             i = torch.arange(s, device="cuda")
-            band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
-                                                 < window)
+            band = ((i[None, :] <= i[:, None]) | (not causal)) & (
+                i[:, None] - i[None, :] < window)
             sdpa = lambda: F.scaled_dot_product_attention(qt, ke, ve,
                                                           attn_mask=band)
-        rec["library_ms"] = _time_ms(torch, sdpa)
-    pairs = sum(min(i + 1, window or s) for i in range(s))
+        rec["library_ms"] = _time_graph_ms(torch, sdpa)
+        rec["library_eager_ms"] = _time_ms(torch, sdpa)
+    pairs = sum(min(i + 1 if causal else s, window or s) for i in range(s))
     isz = q.element_size()
     nbytes = isz * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
     rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 4.0 * b * hq * hd * pairs,
@@ -246,16 +319,17 @@ def check_flash(torch, ops, ref, *, b, hq, hkv, s, hd, dtype, window=None,
 
 
 def _paged_inputs(torch, *, b, hq, hkv, hd, bs, nb, dtype, pos_lo, seed,
-                  dead_row):
+                  dead_row, pos_hi=None):
     """Pool blocks dealt to rows by a random permutation; each row's entries
-    hold their logical position up to pos[b].  Row 0 sits on a block
-    boundary; with ``dead_row``, row 1 has no valid entry at all.  Returns
-    the kernel's arguments on the card and (ppos, table, pos) in numpy."""
+    hold their logical position up to pos[b], drawn from [pos_lo, pos_hi)
+    (default: the table's length).  Row 0 sits on a block boundary; with
+    ``dead_row``, row 1 has no valid entry at all.  Returns the kernel's
+    arguments on the card and (ppos, table, pos) in numpy."""
     import numpy as np
     rng = np.random.default_rng(seed)
     n_blocks = b * nb + b
     perm = rng.permutation(n_blocks)[:b * nb].reshape(b, nb)
-    pos = rng.integers(pos_lo, nb * bs, size=(b,))
+    pos = rng.integers(pos_lo, pos_hi or nb * bs, size=(b,))
     pos[0] = (pos[0] // bs) * bs
     ppos = np.full((n_blocks, bs), -1, np.int32)
     for r in range(b):
@@ -275,11 +349,12 @@ def _paged_inputs(torch, *, b, hq, hkv, hd, bs, nb, dtype, pos_lo, seed,
 
 
 def check_paged(torch, ops, ref, *, b, hq, hkv, hd, bs, nb, dtype,
-                pos_lo=0, seed=0, dead_row=True):
+                pos_lo=0, pos_hi=None, seed=0, dead_row=True, profile=False):
     """Paged decode kernel vs its plain version on one case."""
+    from repro_torch.kernels.paged_attention import split_plan
     args, (ppos, table, pos) = _paged_inputs(
         torch, b=b, hq=hq, hkv=hkv, hd=hd, bs=bs, nb=nb, dtype=dtype,
-        pos_lo=pos_lo, seed=seed, dead_row=dead_row)
+        pos_lo=pos_lo, pos_hi=pos_hi, seed=seed, dead_row=dead_row)
     out = ops.paged_decode_attention(*args)
     torch.cuda.synchronize()
     plain = ref.paged_decode_attention(*args)
@@ -294,11 +369,20 @@ def check_paged(torch, ops, ref, *, b, hq, hkv, hd, bs, nb, dtype,
     valid = sum(int(((ppos[blks] >= 0) & (ppos[blks] <= pos[r])).sum())
                 for r, blks in enumerate(walked))
     n_walked = sum(len(blks) for blks in walked)
+    splits, bps = split_plan(b, hkv, nb, bs)
+    live = [min(int(p) // bs, nb - 1) if p >= 0 else -1 for p in pos]
     rec = {"kernel": "paged_decode_attention", "B": b, "Hq": hq, "Hkv": hkv,
            "hd": hd, "bs": bs, "nb": nb, "dtype": dtype, "dead_row": dead_row,
+           "pos_range": [int(pos.min()), int(pos.max())], "splits": splits,
+           "blocks_per_split": bps,
+           "neutral_ctas": hkv * sum(splits - (j // bps + 1) for j in live),
            "valid_entries": valid, "max_abs_err": err,
            "band": BANDS["paged_decode_attention"][dtype]}
-    rec["ms"] = _time_ms(torch, lambda: ops.paged_decode_attention(*args))
+    call = lambda: ops.paged_decode_attention(*args)
+    rec["ms"] = _time_graph_ms(torch, call)
+    rec["eager_ms"] = _time_ms(torch, call)
+    if profile:
+        rec["device_ms_by_kernel"] = _kernel_device_ms(torch, call)
     rec["plain_ms"] = _time_ms(torch, lambda: ref.paged_decode_attention(*args))
     rec["library_ms"] = None     # no single PyTorch call computes it
     isz = args[0].element_size()
@@ -1196,8 +1280,10 @@ def run_scan_kernels(torch, ops, ref):
         if not rec["ok"]:
             raise AssertionError(f"{rec['kernel']} disagrees with its plain "
                                  f"version: {rec}")
+    ops.reset_launch_counts()
     flash = check_flash(torch, ops, ref, b=2, hq=10, hkv=1, s=4096, hd=256,
                         dtype="bfloat16", window=2048, seed=45)
+    flash["bodies"] = _check_bodies(ops, "flash g = 10")
     _check_band(flash)
     torch.cuda.empty_cache()
     return checks, main_ssd, main_rg, flash
@@ -1264,6 +1350,8 @@ def run_prefill_step(torch, ops):
                 if counts != want:
                     raise AssertionError(f"prefill step {arch} {dtype} {impl}: "
                                          f"launches {counts}, expected {want}")
+                _check_bodies(ops, f"prefill step {arch} {dtype} {impl}",
+                              flash_bf16=dtype == "bfloat16")
                 if lg.shape != (b, 1, cfg.vocab_size) or not bool(
                         torch.isfinite(lg).all()):
                     raise AssertionError(f"prefill step {arch} {dtype} "
@@ -1422,6 +1510,7 @@ def run_family_serve(torch, ops):
             if counts != want:
                 raise AssertionError(f"serve {arch} {impl}: launches "
                                      f"{counts}, expected {want}")
+            _check_bodies(ops, f"serve {arch} {impl}")
             runs[impl] = {"report": report, "seconds": secs,
                           "tokens_per_s": report.tokens_out / secs,
                           "launches": counts, "admissions": admissions,
@@ -1479,15 +1568,46 @@ def run_family_serve(torch, ops):
     return out
 
 
+def _check_bodies(ops, where, flash_bf16=True):
+    """The counted run's flash launches all took the tensor-core body (bf16;
+    none of them in fp32) and its paged launches the split-K pair."""
+    counts, bodies = ops.launch_counts(), ops.body_launches()
+    want = {"flash_attention_tc": counts["flash_attention"] if flash_bf16
+            else 0,
+            "paged_decode_attention_split": counts["paged_decode_attention"]}
+    if bodies != want:
+        raise AssertionError(f"{where}: launches by body {bodies}, expected "
+                             f"{want} (launches {counts})")
+    return bodies
+
+
 def _check_band(rec):
     line = (f"  {rec['kernel']} " + " ".join(
         f"{k}={rec[k]}" for k in ("B", "S", "Hq", "Hkv", "hd", "bs", "nb",
-                                  "N", "M", "dtype", "window", "softcap")
+                                  "N", "M", "dtype", "causal", "window",
+                                  "softcap")
         if k in rec)
             + f": max|diff| {rec['max_abs_err']:.3g} (band {rec['band']:g}), "
             f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
             f"library {rec['library_ms'] if rec['library_ms'] is None else round(rec['library_ms'], 4)} ms, "
             f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    if "eager_ms" in rec:
+        line += (f"; graph-timed, eager per call: kernel "
+                 f"{rec['eager_ms']:.4f} ms"
+                 + (f", library {rec['library_eager_ms']:.4f} ms"
+                    if rec.get("library_eager_ms") is not None else ""))
+    if "device_ms_by_kernel" in rec:
+        line += "; device ms a call by kernel (profiler): " + ", ".join(
+            f"{name[:40]} {ms:.4f}"
+            for name, ms in rec["device_ms_by_kernel"].items())
+    if "old_band" in rec:
+        line += (f"; {rec['body']} body, {rec['differing_share']:.4%} of "
+                 f"outputs differ from the plain version; old absolute band "
+                 f"{rec['old_band']:g}")
+    if "splits" in rec:
+        line += (f"; positions {rec['pos_range']}, {rec['splits']} splits of "
+                 f"{rec['blocks_per_split']} blocks, {rec['neutral_ctas']} "
+                 f"neutral CTAs")
     print(line, flush=True)
     if not rec["max_abs_err"] <= rec["band"]:
         raise AssertionError(f"{rec['kernel']} disagrees with its plain "
@@ -1532,8 +1652,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     paths = _build.build()
     record["build_s"] = time.perf_counter() - t0
+    record["ptxas"] = dict(_build.BUILD_LOG)
     print(f"build: {len(paths)} kernels in {record['build_s']:.1f} s "
           f"({', '.join(p.name for p in paths.values())})", flush=True)
+    for name, lines in _build.BUILD_LOG.items():
+        for ln in lines:
+            print(f"  ptxas {name}: {ln}", flush=True)
 
     # -- 2d. the scan kernels (and flash at g = 10) against their plain
     # versions; first, while the card is empty
@@ -1558,15 +1682,32 @@ def main(argv=None) -> int:
                                   seed=3))
         checks.append(check_flash(torch, ops, ref, b=2, hq=4, hkv=2, s=200,
                                   hd=64, dtype=dtype, seed=4))
+        checks.append(check_flash(torch, ops, ref, b=2, hq=4, hkv=1, s=150,
+                                  hd=32, dtype=dtype, seed=9))
+        # prompts shorter than one tile (a 5-token prompt, one token at
+        # g = 10) and attention that is not causal
+        checks.append(check_flash(torch, ops, ref, b=1, hq=8, hkv=1, s=5,
+                                  hd=256, dtype=dtype, seed=10))
+        checks.append(check_flash(torch, ops, ref, b=3, hq=10, hkv=1, s=1,
+                                  hd=256, dtype=dtype, seed=11))
+        checks.append(check_flash(torch, ops, ref, b=2, hq=4, hkv=1, s=200,
+                                  hd=64, dtype=dtype, seed=12, causal=False))
         checks.append(check_paged(torch, ops, ref, b=8, hq=8, hkv=1, hd=256,
                                   bs=16, nb=40, dtype=dtype, seed=5))
+        # one row (37 splits, 1 CTA each); short rows, most splits neutral
+        checks.append(check_paged(torch, ops, ref, b=1, hq=8, hkv=1, hd=256,
+                                  bs=16, nb=37, dtype=dtype, seed=8,
+                                  dead_row=False))
+        checks.append(check_paged(torch, ops, ref, b=8, hq=8, hkv=1, hd=256,
+                                  bs=16, nb=37, dtype=dtype, pos_hi=48,
+                                  seed=9))
     # the serving path's own shapes: one 512-token prefill; 8 decode rows
     # over a 37-block table, live positions 256..591, every row live
     main_flash = check_flash(torch, ops, ref, b=1, hq=8, hkv=1, s=512,
-                             hd=256, dtype="bfloat16", seed=6)
+                             hd=256, dtype="bfloat16", seed=6, profile=True)
     main_paged = check_paged(torch, ops, ref, b=8, hq=8, hkv=1, hd=256, bs=16,
                              nb=37, dtype="bfloat16", pos_lo=256, seed=7,
-                             dead_row=False)
+                             dead_row=False, profile=True)
     checks += [main_flash, main_paged]
     for rec in checks:
         _check_band(rec)
@@ -1623,14 +1764,17 @@ def main(argv=None) -> int:
             "paged_decode_attention": cfg.num_layers * chunks * sp.chunk}
     if counts != want:
         raise AssertionError(f"serve: launches {counts}, expected {want}")
+    bodies = _check_bodies(ops, "serve gemma-2b")
     record["serve"] = {"requests": len(reqs), "tokens": report.tokens_out,
                        "seconds": secs, "tokens_per_s": report.tokens_out / secs,
                        "chunks": chunks, "decode_steps": chunks * sp.chunk,
-                       "launches": counts, "peak_bytes": peak,
+                       "launches": counts, "bodies": bodies,
+                       "peak_bytes": peak,
                        "max_len": sp.max_len}
     print(f"serve: gemma-2b bf16, {len(reqs)} requests, {report.tokens_out} "
           f"tokens in {secs:.2f} s ({report.tokens_out / secs:.1f} tok/s), "
-          f"{chunks * sp.chunk} decode steps, launches {counts}, peak memory "
+          f"{chunks * sp.chunk} decode steps, launches {counts}, by body "
+          f"{bodies}, peak memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
 
     # -- 4. parity with the plain path on the same weights ---------------

@@ -4,13 +4,18 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/repro_torch_kernels/lib<name>-<hash>.so
+         -Xcompiler -fPIC -I csrc [-Xptxas -v]
+         -o build/repro_torch_kernels/lib<name>-<hash>.so
 
 into ``build/`` at the root of the checkout (listed in ``.gitignore``), then
-loaded with ``ctypes``.  The library name carries a hash of the source, so
-an edited kernel is rebuilt and a stale library is never loaded.  All
-missing libraries build in parallel, one ``nvcc`` per source.  A failed
-build raises with the compiler's output; there is no fallback.
+loaded with ``ctypes``.  The library name carries a hash of the source,
+of every header in ``csrc/`` (``*.cuh``, which any source may include) and
+of the flags with their include path, so an edited kernel or header is
+rebuilt and a stale library is never loaded.  All missing libraries build
+in parallel, one ``nvcc`` per source.  The attention sources build with
+``-Xptxas -v``: ``BUILD_LOG`` keeps each of their kernels' register and
+spill lines.  A failed build raises with the compiler's output; there is
+no fallback.
 """
 
 from __future__ import annotations
@@ -21,16 +26,20 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("flash_attention", "paged_attention", "ssd_scan", "rg_lru",
            "fused_adam", "wavg", "compress")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC))
+# sources whose resource use the build reports
+VERBOSE_PTXAS = ("flash_attention", "paged_attention")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# kernel -> ptxas lines of its last build in this process
+BUILD_LOG: Dict[str, List[str]] = {}
 
 
 def _nvcc() -> str:
@@ -45,11 +54,24 @@ def _nvcc() -> str:
                        "the CUDA kernels are built on the machine with the card")
 
 
+def _flags(name: str) -> List[str]:
+    return [*NVCC_FLAGS, *(("-Xptxas", "-v") if name in VERBOSE_PTXAS else ())]
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _ptxas_lines(log: str) -> List[str]:
+    """The lines of ``-Xptxas -v`` that name a kernel, its registers and
+    its spills."""
+    return [ln.strip() for ln in log.splitlines()
+            if "spill" in ln or (ln.startswith("ptxas") and (
+                "Compiling entry" in ln or "registers" in ln))]
 
 
 def build(names: Sequence[str] = KERNELS) -> Dict[str, Path]:
@@ -63,7 +85,7 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, Path]:
         procs = {}
         for n in todo:
             tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            cmd = [nvcc, *_flags(n), "-o", str(tmp), str(CSRC / f"{n}.cu")]
             procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                               stderr=subprocess.STDOUT,
                                               text=True))
@@ -74,6 +96,7 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, Path]:
                 tmp.unlink(missing_ok=True)
                 failed.append(f"nvcc {n}.cu exited {proc.returncode}:\n{log}")
             else:
+                BUILD_LOG[n] = _ptxas_lines(log)
                 os.replace(tmp, paths[n])
         if failed:
             raise RuntimeError("kernel build failed\n" + "\n".join(failed))

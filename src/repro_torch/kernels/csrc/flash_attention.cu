@@ -5,41 +5,71 @@
 // and computes the same function: scores in fp32 times `scale`, an optional
 // logit softcap c*tanh(s/c), the causal mask k <= q and an optional window
 // q - k < w (positions are arange from 0 on both sides), an online softmax
-// with running (m, l, acc) in fp32, and the output cast to the input type.
-// Unlike the TPU kernel, any sequence length S >= 1 is taken: the ragged
-// edge of the last query and key tiles is masked here.
+// with running (m, l, acc) in fp32, and the output cast to the input type
+// once.  Unlike the TPU kernel, any sequence length S >= 1 is taken: the
+// ragged edge of the last query and key tiles is masked here.
 //
 // Layout: the model's (B, S, H, hd), contiguous; q head h reads kv head
-// h / g with g = Hq / Hkv.
+// h / g with g = Hq / Hkv.  Both bodies below tile the same way: one CTA
+// per (batch, kv head, 64-row tile of the grouped query matrix), the tile
+// packing floor(64 / g) positions times all g query heads of its kv head,
+// so every K/V tile serves the g heads at once (g = 8 for Gemma's MQA:
+// 8 x 8 rows; g = 10 for RecurrentGemma: 6 x 10 = 60 rows, the last 4
+// padding that never attends and is never stored).  Any g <= 64 is taken.
+// A loop inside the CTA walks the 64-key tiles from the first one the
+// window can reach to the causal limit; tiles wholly above the diagonal or
+// outside the window are never loaded.
 //
-// Design.  One CTA of 256 threads per (batch, kv head, 64-row tile of the
-// grouped query matrix).  The tile packs floor(BM / g) positions times all
-// g query heads of its kv head, so every K/V tile staged in shared memory
-// serves the g heads at once (g = 8 for Gemma's MQA: 8 x 8 rows; g = 10
-// for RecurrentGemma: 6 x 10 = 60 rows, the last 4 rows padding that is
-// never loaded, never attends and never stored) and the fp32 accumulator
-// of the 64 rows (64 x hd) fits in registers.  Any g <= 64 is taken.  A
-// loop inside the CTA walks the kv tiles from the first one the window can
-// reach to the causal limit;
-// tiles wholly above the diagonal or outside the window are never loaded.
-// Shared memory holds fp32 copies of the Q tile, the K tile (transposed, so
-// the score loop reads it without bank conflicts), the V tile and the
-// probability tile: about 214 KB at hd = 256, above the 48 KB default, so
-// the launch raises the dynamic shared-memory limit first.
+// Which body serves which dtype (chosen in the C entry point, by dtype):
 //
-// What bounds it.  At the serving shapes (B = 1, S = 512, Hq = 8, Hkv = 1,
-// hd = 256, bf16) the least time is set by bytes and flops about equally:
-// ~4.7 MB over 3.35 TB/s is ~1.4 us, ~1.08 GFLOP of the causal triangle
-// over 989 TFLOP/s is ~1.1 us.  This first version multiplies with plain
-// fp32 FMAs out of shared memory (no tensor cores), so it is bound by the
-// SM's FMA and shared-memory rate, far above both; wgmma on TMA-fed tiles
-// is the next step.
+// * bfloat16 — the tensor-core body (flash_tc_kernel).  One producer warp
+//   issues TMA loads of the K and V tiles (64 keys x hd, as 128-byte-
+//   swizzled boxes of 64 columns; 64-byte boxes of 32 at hd 32) into a
+//   2-stage shared-memory ring guarded by mbarriers; the grouped Q tile is
+//   one 4-d box (hd, g heads, positions, batch) per 64 columns, loaded
+//   once, its padding rows zeroed first.  One consumer warpgroup owns the
+//   64 rows: wgmma computes S = Q K^T from shared memory (bf16 products
+//   are exact in fp32; only the order of the sums differs from the plain
+//   version), then scale, softcap, mask and the online-softmax update run
+//   in registers, then wgmma accumulates O += P V with P from registers
+//   and the V tile read from shared memory as the MN-major B operand.  The
+//   plain version multiplies fp32 P into V; rounding P to bf16 would move
+//   about a quarter of the bf16 outputs, so P is split into P_hi + P_lo,
+//   both bf16, and both products run into the same fp32 accumulator (1.5x
+//   the minimal tensor-core work, ~16 bits of P kept); l sums the fp32 P.
+//   Shared memory: Q plus two stages of K and V, 640 * hd bytes (160 KB at
+//   hd 256), so one CTA per SM; the accumulator is hd / 2 registers a
+//   thread.
+// * float32 — the SIMT body (flash_fwd_kernel), fp32 FMAs out of shared
+//   memory.  Tensor cores in fp32 would mean TF32, about three decimal
+//   digits, which the fp32 callers' bands (1e-4 against the plain
+//   version) do not allow.  This is a choice by dtype, not a fallback: a
+//   bf16 call that fails to encode its tensor maps or to launch returns
+//   the error, and the wrapper raises.
+//
+// What bounds it.  At the serving shape (B = 1, S = 512, Hq = 8, Hkv = 1,
+// hd = 256, bf16) the least time is set by bytes and operations about
+// equally: ~4.7 MB over 3.35 TB/s is ~1.4 us, ~1.08 GFLOP of the causal
+// triangle over 989 TFLOP/s is ~1.1 us.  At RecurrentGemma's prefill (B 2,
+// S 4096, g 10, window 2048) operations bound it: ~0.13 ms.  The bf16 body
+// runs its products on the tensor cores; one warpgroup per CTA serialises
+// each tile's softmax with its products, which the next redesign (two
+// consumer warpgroups in ping-pong) would overlap.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+#include <stdio.h>
+
+#include "sm90.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// float32: the SIMT body
+// ---------------------------------------------------------------------------
 
 constexpr int BM = 64;         // rows of the grouped query tile
 constexpr int BN = 64;         // keys per kv tile
@@ -47,9 +77,7 @@ constexpr int THREADS = 256;   // a 16 x 16 thread grid over the 64 x 64 tile
 constexpr float NEG = -1e30f;  // masked-score sentinel
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 template <int HD>
 struct Smem {
@@ -226,13 +254,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int Hq, int Hkv, float scale, float softcap,
-           int window, int causal, cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, void* out, int B,
+                int Sq, int Sk, int Hq, int Hkv, float scale, float softcap,
+                int window, int causal, cudaStream_t stream) {
   const size_t smem = Smem<HD>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  static size_t granted[sm90::MAX_DEVICES] = {};
+  const int err = sm90::ensure_smem(flash_fwd_kernel<T, HD>, smem, granted);
+  if (err) return err;
   const int tile_pos = BM / (Hq / Hkv);
   dim3 grid((Sq + tile_pos - 1) / tile_pos, Hkv, B);
   flash_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
@@ -241,23 +269,360 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* out,
-                int B, int Sq, int Sk, int Hq, int Hkv, float scale,
-                float softcap, int window, int causal, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core body
+// ---------------------------------------------------------------------------
+
+constexpr int TC_THREADS = 160;   // warps 0-3: the consumer warpgroup; warp 4: TMA
+constexpr int STAGES = 2;         // K/V ring depth
+
+template <int HD>
+struct Tc {
+  static constexpr int SW = HD < 64 ? HD : 64;        // columns per swizzled box
+  static constexpr int CHUNKS = HD / SW;
+  static constexpr int ROW_BYTES = SW * 2;            // 128 (64 at hd 32)
+  static constexpr uint32_t LAYOUT = SW == 64 ? 1 : 2;  // descriptor: 128 / 64 B swizzle
+  static constexpr int CHUNK_BYTES = BN * ROW_BYTES;  // 64 rows of one box
+  static constexpr int TILE_BYTES = CHUNKS * CHUNK_BYTES;  // 64 x hd bf16
+  static constexpr int Q_OFF = 0;
+  static constexpr int KV_OFF = TILE_BYTES;            // stage s: K, then V
+  static constexpr int BAR_OFF = TILE_BYTES * (1 + 2 * STAGES);
+  // barriers: q, full[STAGES], empty[STAGES]; + slack to align the base
+  static constexpr size_t bytes = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (HD == 256) sm90::wgmma_rs_m64n256k16(o, a, db);
+  else if constexpr (HD == 128) sm90::wgmma_rs_m64n128k16(o, a, db);
+  else if constexpr (HD == 64) sm90::wgmma_rs_m64n64k16(o, a, db);
+  else sm90::wgmma_rs_m64n32k16(o, a, db);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                __nv_bfloat16* __restrict__ out, int Sq, int Sk, int Hq,
+                int Hkv, float scale, float softcap, int window, int causal) {
+  using C = Tc<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled boxes and wgmma descriptors assume 1024-byte-aligned tiles
+  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = sm90::smem_u32(smem);
+  const uint32_t bar_q = sbase + C::BAR_OFF;
+  const uint32_t bar_full = bar_q + 8;                 // + 8 s
+  const uint32_t bar_empty = bar_full + 8 * STAGES;    // + 8 s
+
+  const int g = Hq / Hkv;
+  const int tile_pos = BM / g;
+  const int rows = tile_pos * g;
+  // the heaviest tiles (last positions, most keys under the causal limit)
+  // go first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * tile_pos;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+
+  const int p_lo = q0;
+  const int p_hi = min(q0 + tile_pos, Sq) - 1;
+  const int k_hi = causal ? min(p_hi, Sk - 1) : Sk - 1;
+  const int k_lo = window > 0 ? max(0, p_lo - window + 1) : 0;
+  const int t_lo = k_lo / BN;
+  const int t_hi = k_hi < 0 ? -1 : k_hi / BN;
+
+  // zero the padding rows of the Q tile (TMA writes rows 0 .. rows - 1)
+  {
+    const int pad16 = (BM - rows) * C::ROW_BYTES / 16;
+    for (int idx = tid; idx < C::CHUNKS * pad16; idx += TC_THREADS) {
+      const int c = idx / pad16, j = idx % pad16;
+      reinterpret_cast<uint4*>(smem + C::Q_OFF + c * C::CHUNK_BYTES +
+                               rows * C::ROW_BYTES)[j] = make_uint4(0, 0, 0, 0);
+    }
+  }
+  if (tid == 0) {
+    sm90::mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(bar_full + 8 * s, 1);
+      sm90::mbar_init(bar_empty + 8 * s, 128);
+    }
+    sm90::fence_barrier_init();
+  }
+  sm90::fence_proxy_async();
+  __syncthreads();
+
+  if (tid >= 128) {
+    // producer: one thread issues every TMA load of the CTA
+    if (tid == 128) {
+      sm90::mbar_expect_tx(bar_q, C::CHUNKS * rows * C::ROW_BYTES);
+      for (int c = 0; c < C::CHUNKS; ++c)
+        sm90::tma_load_4d(sbase + C::Q_OFF + c * C::CHUNK_BYTES, &tq, bar_q,
+                          c * C::SW, kvh * g, q0, b);
+      for (int t = t_lo, i = 0; t <= t_hi; ++t, ++i) {
+        const int s = i % STAGES;
+        sm90::mbar_wait(bar_empty + 8 * s, ((i / STAGES) & 1) ^ 1);
+        sm90::mbar_expect_tx(bar_full + 8 * s, 2 * C::TILE_BYTES);
+        const uint32_t k_dst = sbase + C::KV_OFF + s * 2 * C::TILE_BYTES;
+        for (int c = 0; c < C::CHUNKS; ++c) {
+          sm90::tma_load_4d(k_dst + c * C::CHUNK_BYTES, &tk, bar_full + 8 * s,
+                            c * C::SW, kvh, t * BN, b);
+          sm90::tma_load_4d(k_dst + C::TILE_BYTES + c * C::CHUNK_BYTES, &tv,
+                            bar_full + 8 * s, c * C::SW, kvh, t * BN, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: thread tid holds rows r0 and r0 + 8 of every
+  // accumulator (sm90.cuh), columns 8 j + 2 (tid % 4) + {0, 1}
+  const int lane = tid & 31;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);
+  const int r1 = r0 + 8;
+  // a padding row takes position Sq: out of range, masked, never stored
+  const int qp0 = r0 < rows ? q0 + r0 / g : Sq;
+  const int qp1 = r1 < rows ? q0 + r1 / g : Sq;
+  const int cq = 2 * (lane & 3);
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
+  constexpr uint32_t SBO = 8 * C::ROW_BYTES;           // 8 rows
+
+  sm90::mbar_wait(bar_q, 0);
+  for (int t = t_lo, i = 0; t <= t_hi; ++t, ++i) {
+    const int s = i % STAGES;
+    sm90::mbar_wait(bar_full + 8 * s, (i / STAGES) & 1);
+    const uint32_t k_addr = sbase + C::KV_OFF + s * 2 * C::TILE_BYTES;
+    const uint32_t v_addr = k_addr + C::TILE_BYTES;
+
+    // S = Q K^T over hd in steps of 16 (32 bytes inside a swizzled row)
+    float sc[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sc[j] = 0.f;
+    sm90::fence_regs(sc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk / (C::SW / 16)) * C::CHUNK_BYTES + (kk % (C::SW / 16)) * 32;
+      sm90::wgmma_ss_m64n64k16(
+          sc, sm90::smem_desc(sbase + C::Q_OFF + off, 16, SBO, C::LAYOUT),
+          sm90::smem_desc(k_addr + off, 16, SBO, C::LAYOUT), kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(sc);
+
+    // scale, softcap, mask; a masked score is -inf, so its probability is
+    // exactly 0 whatever the running max
+    const int n0 = t * BN;
+    float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int kp = n0 + 8 * (j / 4) + cq + (j & 1);
+      const int qp = (j & 2) ? qp1 : qp0;
+      float z = sc[j] * scale;
+      if (softcap > 0.f) z = softcap * tanhf(z / softcap);
+      bool valid = kp < Sk && qp < Sq;
+      if (causal) valid = valid && kp <= qp;
+      if (window > 0) valid = valid && (qp - kp) < window;
+      z = valid ? z : -INFINITY;
+      sc[j] = z;
+      if (j & 2) mx1 = fmaxf(mx1, z);
+      else mx0 = fmaxf(mx0, z);
+    }
+    // a row's 64 scores lie in the 4 lanes of a quad
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float corr0 = expf(m0 - mn0), corr1 = expf(m1 - mn1);
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const float p = expf(sc[j] - ((j & 2) ? mn1 : mn0));
+      sc[j] = p;
+      if (j & 2) rs1 += p;
+      else rs0 += p;
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
+    }
+    l0 = l0 * corr0 + rs0;
+    l1 = l1 * corr1 + rs1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int j = 0; j < HD / 2; ++j) o[j] *= (j & 2) ? corr1 : corr0;
+
+    // P = P_hi + P_lo, both bf16, as A fragments: slice k (keys 16 k ..
+    // 16 k + 15) packs score registers 8 k .. 8 k + 7 in pairs
+    uint32_t ahi[4][4], alo[4][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float x = sc[8 * k + 2 * j], y = sc[8 * k + 2 * j + 1];
+        const float xh = __bfloat162float(__float2bfloat16(x));
+        const float yh = __bfloat162float(__float2bfloat16(y));
+        ahi[k][j] = sm90::pack_bf16(xh, yh);
+        alo[k][j] = sm90::pack_bf16(x - xh, y - yh);
+      }
+
+    // O += P V: V's tile is the MN-major B operand; 16 keys a step, the
+    // next 64 columns of hd one box (CHUNK_BYTES) further on
+    sm90::fence_regs(o);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      sm90::fence_regs(ahi[k]);
+      sm90::fence_regs(alo[k]);
+    }
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint64_t db = sm90::smem_desc(v_addr + k * 16 * C::ROW_BYTES,
+                                          C::CHUNK_BYTES, SBO, C::LAYOUT);
+      wgmma_pv<HD>(o, ahi[k], db);
+      wgmma_pv<HD>(o, alo[k], db);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(o);
+    sm90::mbar_arrive(bar_empty + 8 * s);   // this stage's K and V are free
+  }
+
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  const size_t q_pos_stride = (size_t)Hq * HD;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? r1 : r0;
+    const int qp = half ? qp1 : qp0;
+    if (qp >= Sq) continue;
+    const float den = half ? d1 : d0;
+    __nv_bfloat16* orow = out + ((size_t)b * Sq + qp) * q_pos_stride +
+                          (size_t)(kvh * g + r % g) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const float x = o[4 * j + 2 * half] / den;
+      const float y = o[4 * j + 2 * half + 1] / den;
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + cq) = __floats2bfloat162_rn(x, y);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda: reached through the runtime's
+// entry-point query, so the library links without -lcuda
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// codes above this are CUresults of cuTensorMapEncodeTiled
+constexpr int ENCODE_ERR = 100000;
+
+// a (hd, heads, S, B) bf16 tensor, boxes of (box0, box1, box2, 1)
+int encode_bshd(CUtensorMap* map, const void* base, int hd, int heads, int S,
+                int B, int box0, int box1, int box2, CUtensorMapSwizzle swz) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)S * heads * hd * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box0, (cuuint32_t)box1, (cuuint32_t)box2, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                        dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_ERR + (int)r;
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
+              int Sq, int Sk, int Hq, int Hkv, float scale, float softcap,
+              int window, int causal, cudaStream_t stream) {
+  using C = Tc<HD>;
+  // TMA reads 16-byte-aligned global addresses
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  static size_t granted[sm90::MAX_DEVICES] = {};
+  int err = sm90::ensure_smem(flash_tc_kernel<HD>, C::bytes, granted);
+  if (err) return err;
+  const int g = Hq / Hkv;
+  const int tile_pos = BM / g;
+  const CUtensorMapSwizzle swz =
+      C::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap tq, tk, tv;
+  if ((err = encode_bshd(&tq, q, HD, Hq, Sq, B, C::SW, g, tile_pos, swz))) return err;
+  if ((err = encode_bshd(&tk, k, HD, Hkv, Sk, B, C::SW, 1, BN, swz))) return err;
+  if ((err = encode_bshd(&tv, v, HD, Hkv, Sk, B, C::SW, 1, BN, swz))) return err;
+  dim3 grid((Sq + tile_pos - 1) / tile_pos, Hkv, B);
+  flash_tc_kernel<HD><<<grid, TC_THREADS, C::bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, Hq, Hkv, scale,
+      softcap, window, causal);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_hd_f32(int hd, const void* q, const void* k, const void* v,
+                    void* out, int B, int Sq, int Sk, int Hq, int Hkv,
+                    float scale, float softcap, int window, int causal,
+                    cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
-    case 256: return launch<T, 256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
+    case 32: return launch_simt<float, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
+    case 64: return launch_simt<float, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
+    case 128: return launch_simt<float, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
+    case 256: return launch_simt<float, 256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int dispatch_hd_bf16(int hd, const void* q, const void* k, const void* v,
+                     void* out, int B, int Sq, int Sk, int Hq, int Hkv,
+                     float scale, float softcap, int window, int causal,
+                     cudaStream_t stream) {
+  switch (hd) {
+    case 32: return launch_tc<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
+    case 64: return launch_tc<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
+    case 128: return launch_tc<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
+    case 256: return launch_tc<256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  softcap <= 0 and window <= 0 mean
-// "none".  Returns 0 or the cudaError_t of the attribute call or the launch.
+// dtype: 0 = float32 (the SIMT body), 1 = bfloat16 (the tensor-core body).
+// softcap <= 0 and window <= 0 mean "none".  Returns 0, a cudaError_t of the
+// attribute call or the launch, or ENCODE_ERR + the CUresult of a failed
+// tensor-map encoding.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, int B, int Sq, int Sk, int Hq,
                                    int Hkv, int hd, int dtype, float scale,
@@ -267,12 +632,18 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, st);
+    return dispatch_hd_f32(hd, q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, st);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, st);
+    return dispatch_hd_bf16(hd, q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* flash_attention_error_string(int err) {
+  static char buf[96];
+  if (err >= ENCODE_ERR) {
+    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed (CUresult %d)",
+             err - ENCODE_ERR);
+    return buf;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

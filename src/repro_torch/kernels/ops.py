@@ -31,6 +31,10 @@ _COUNTED = {"flash_attention": (_fa, "launches"),
             "quantize_stochastic": (_comp, "quantize_launches"),
             "dequantize": (_comp, "dequantize_launches"),
             "topk_mask": (_comp, "topk_launches")}
+# launches by body, beside the counts above: the flash kernel's tensor-core
+# body (bf16) and the paged kernel's split-K pair
+_BODIES = {"flash_attention_tc": (_fa, "tc_launches"),
+           "paged_decode_attention_split": (_pa, "split_launches")}
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -180,6 +184,12 @@ def launch_counts() -> Dict[str, int]:
     return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTED.items()}
 
 
+def body_launches() -> Dict[str, int]:
+    """Launches of this process by kernel body (see ``_BODIES``)."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in _BODIES.items()}
+
+
 def reset_launch_counts() -> None:
-    for mod, attr in _COUNTED.values():
+    """Zero the counts of :func:`launch_counts` and :func:`body_launches`."""
+    for mod, attr in (*_COUNTED.values(), *_BODIES.values()):
         setattr(mod, attr, 0)

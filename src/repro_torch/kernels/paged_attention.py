@@ -3,21 +3,30 @@
 ``repro/kernels/paged_attention.py::paged_decode_attention``).
 
 The wrapper takes CUDA tensors only; ``kernels/ops.py`` dispatches CPU
-tensors to the plain version in ``kernels/ref.py``.  ``launches`` counts
-the kernel launches of this process.
+tensors to the plain version in ``kernels/ref.py``.  Each call runs the
+split-K design: a split kernel over runs of the block table, then a merge
+kernel, both launched by one C call on the current stream.  ``launches``
+counts the calls of this process; ``split_launches`` those that ran the
+split-K pair (every call).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 launches = 0
+split_launches = 0
+
+# two CTAs on each of the H100's 132 SMs
+_TARGET_CTAS = 264
+# the fewest keys a split CTA scores
+_MIN_SPLIT_KEYS = 16
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -29,7 +38,7 @@ def _lib_fns():
     if _fns is None:
         lib = _build.load("paged_attention")
         fn = lib.paged_decode_attention
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         err_str = lib.paged_decode_error_string
@@ -37,6 +46,18 @@ def _lib_fns():
         err_str.restype = ctypes.c_char_p
         _fns = (fn, err_str)
     return _fns
+
+
+def split_plan(b: int, hkv: int, nb: int, bs: int) -> Tuple[int, int]:
+    """``(splits, blocks_per_split)`` of one call: the table's ``nb``
+    logical blocks in runs of ``blocks_per_split``, one CTA per (run, kv
+    head, row).  From the shapes alone, never from ``pos``: it lies on the
+    card, and reading it here would synchronise the stream.  Runs are one
+    block while the grid reaches ``_TARGET_CTAS``, longer past it, and hold
+    at least ``_MIN_SPLIT_KEYS`` keys."""
+    bps = max(1, (b * hkv * nb) // _TARGET_CTAS, -(-_MIN_SPLIT_KEYS // bs))
+    bps = min(bps, nb)
+    return -(-nb // bps), bps
 
 
 def paged_decode_attention(q: torch.Tensor, pk: torch.Tensor,
@@ -49,7 +70,7 @@ def paged_decode_attention(q: torch.Tensor, pk: torch.Tensor,
     table: (B, nb) int32 logical->physical block map; pos: (B,) int32
     current absolute position per row -> (B, Hq, hd).  All contiguous
     tensors on one CUDA device; q, pk and pv float32 or bfloat16."""
-    global launches
+    global launches, split_launches
     if q.dim() != 3 or pk.dim() != 4 or pv.shape != pk.shape:
         raise ValueError(f"want q (B, Hq, hd) and pk/pv (NB, bs, Hkv, hd); "
                          f"got {tuple(q.shape)}, {tuple(pk.shape)}, "
@@ -80,14 +101,20 @@ def paged_decode_attention(q: torch.Tensor, pk: torch.Tensor,
     fn, err_str = _lib_fns()
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
+    splits, bps = split_plan(b, hkv, nb, bs)
+    # per split and query head: acc[hd], then (m, l) of every split
+    scratch = torch.empty(b * hq * splits * (hd + 2), dtype=torch.float32,
+                          device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), pk.data_ptr(), pv.data_ptr(), ppos.data_ptr(),
                  table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                 b, nb, bs, hq, hkv, hd, _DTYPE_CODES[q.dtype], float(scale),
+                 scratch.data_ptr(), b, nb, bs, hq, hkv, hd,
+                 _DTYPE_CODES[q.dtype], bps, float(scale),
                  float(logit_softcap or 0.0), stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: "
                            f"{err_str(err).decode()} (cudaError {err})")
     launches += 1
+    split_launches += 1
     return out
