@@ -7,23 +7,31 @@ Phases, each printing its lines before the last:
 
 1. build   — compile the CUDA kernels of ``src/repro_torch/kernels/csrc``
              with nvcc for sm_90a, one nvcc per source, all at once;
-             print the build's time and, for the two attention sources
-             (built with -Xptxas -v), each kernel's registers and spills.
+             print the build's time and, for the attention and scan
+             sources (built with -Xptxas -v), each kernel's registers and
+             spills.
 2d. scan kernels (run first, on an empty card) — the Mamba-2 SSD scan
              and the RG-LRU recurrence against their plain versions at the
-             prefill step's shapes (SSD x (2, 4096, 32, 64) bf16, N 128;
-             RG-LRU (2, 4096, 2560) fp32; timed) and at edge cases (S =
-             chunk, S = 64 < chunk, B = 3, fp32, a ragged P; W not a
-             multiple of 512, S < chunk, bf16); the flash kernel's
-             tensor-core body at RecurrentGemma's 10 query heads over 1,
-             window 2048, S 4096 (every launch on that body).
+             prefill step's shapes (SSD x (2, 4096, 32, 64) bf16, N 128,
+             on the tensor-core pair; RG-LRU (2, 4096, 2560) fp32,
+             bit-exact; both timed as CUDA-graph replays, the eager
+             per-call rate beside, and the SSD pair's device time split
+             by kernel from the profiler) and at edge cases (S = chunk,
+             S = 64 < chunk, B = 3, fp32 on the SIMT body, a ragged P; the
+             reduced config's P 32 / N 32 at S 100 on the tensor-core
+             pair, and a bf16 P 40 / N 24 outside the pair's shapes on the
+             SIMT body — each case's body asserted; W not a multiple of
+             the RG-LRU CTA's 32 channels, S not a multiple of its 64-step
+             stages, bf16); the flash kernel's tensor-core body at
+             RecurrentGemma's 10 query heads over 1, window 2048, S 4096
+             (every launch on that body).
 10. prefill step — ``launch/steps.py::make_prefill_step`` of full
              Mamba-2-370M (48 layers) and full RecurrentGemma-2B (26
              layers), random weights from seed 0, tokens B 2 x S 4096,
              through the kernels (exactly 48 SSD scans; 18 RG-LRU scans
-             and 8 flash launches, bf16 ones all on the tensor-core
-             body) and then the plain path: last-position
-             logits within ``FAMILY_LOGIT_BAND`` and the greedy argmax
+             and 8 flash launches; the bf16 SSD and flash launches all on
+             their tensor-core bodies) and then the plain path: last-
+             position logits within ``FAMILY_LOGIT_BAND`` and the greedy argmax
              equal wherever the plain path's top-2 margin exceeds 0.5, in
              bf16 (timed: medians of 3) and in fp32.
 11. family serve — both models through the router and engine
@@ -1140,13 +1148,13 @@ FAMILY_RUN = dict(device="cuda", reduced=False, batch=2, seq=4096,
 FAMILY_ARCHS = ("mamba2-370m", "recurrentgemma-2b")
 
 
-def _ssd_inputs(torch, *, b, s, h, p, n, dtype, seed):
+def _ssd_inputs(torch, *, b, s, h, p, n, dtype, seed, dt_hi=0.5):
     """SSD scan inputs as the Mamba-2 block makes them: x, B and C of unit
-    scale in ``dtype``; dt in [0.01, 0.5) and a in [-16, -1) in fp32."""
+    scale in ``dtype``; dt in [0.01, dt_hi) and a in [-16, -1) in fp32."""
     dt_, dev = getattr(torch, dtype), FAMILY_RUN["device"]
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((b, s, h, p), generator=g, device=dev).to(dt_)
-    dt = torch.rand((b, s, h), generator=g, device=dev) * 0.49 + 0.01
+    dt = torch.rand((b, s, h), generator=g, device=dev) * (dt_hi - 0.01) + 0.01
     a = -(torch.rand((h,), generator=g, device=dev) * 15.0 + 1.0)
     b_ = torch.randn((b, s, n), generator=g, device=dev).to(dt_)
     c_ = torch.randn((b, s, n), generator=g, device=dev).to(dt_)
@@ -1154,19 +1162,26 @@ def _ssd_inputs(torch, *, b, s, h, p, n, dtype, seed):
 
 
 def check_ssd(torch, ops, ref, *, b, s, h, p, n, dtype, seed, chunk=128,
-              timed=False):
+              timed=False, profile=False, dt_hi=0.5):
     """SSD scan kernel vs its plain (sequential fp32) version.  Band: bf16
     output one bf16 ulp at max|y| (both sides keep fp32 and round once);
-    fp32 the JAX kernel tests' band, |diff| <= 5e-4 + 1e-3 |y|."""
+    fp32 the JAX kernel tests' band, |diff| <= 5e-4 + 1e-3 |y|.  Records
+    the body the call took: the tensor-core pair for bf16 with P % 32 == 0,
+    N % 8 == 0 and N <= 128, the SIMT body otherwise (``_ssd_tc_shape``)."""
     args = _ssd_inputs(torch, b=b, s=s, h=h, p=p, n=n, dtype=dtype,
-                       seed=seed)
+                       seed=seed, dt_hi=dt_hi)
     block_h = max(d for d in range(1, min(8, h) + 1) if h % d == 0)
     kw = dict(chunk=chunk, block_h=block_h)
     before = ops.launch_counts()["ssd_scan"]
+    tc_before = ops.body_launches()["ssd_scan_tc"]
     y = ops.ssd_scan(*args, **kw)
     torch.cuda.synchronize()
     if ops.launch_counts()["ssd_scan"] - before != 1:
         raise AssertionError("ssd_scan: the kernel did not launch once")
+    tc = ops.body_launches()["ssd_scan_tc"] - tc_before == 1
+    if tc != _ssd_tc_shape(dtype, p, n):
+        raise AssertionError(f"ssd_scan {dtype} P {p} N {n}: took the "
+                             f"{'tensor-core' if tc else 'SIMT'} body")
     plain = ref.ssd_scan(*args)
     torch.cuda.synchronize()
     diff = (y.float() - plain.float()).abs()
@@ -1179,11 +1194,17 @@ def check_ssd(torch, ops, ref, *, b, s, h, p, n, dtype, seed, chunk=128,
         band = atol
         ok = bool((diff <= atol + rtol * plain.float().abs()).all())
     rec = {"kernel": "ssd_scan", "B": b, "S": s, "H": h, "P": p, "N": n,
-           "dtype": dtype, "chunk": chunk, "max_abs_err": err, "band": band,
-           "ok": ok, "max_abs_y": plain.float().abs().max().item()}
+           "dtype": dtype, "dt_hi": dt_hi, "chunk": chunk,
+           "max_abs_err": err, "band": band, "ok": ok, "max_abs_y": plain.float().abs().max().item(),
+           "body": "tensor cores" if tc else "simt",
+           "differing_share": (y != plain).float().mean().item()}
     del y, plain, diff
     if timed:
-        rec["ms"] = _time_ms(torch, lambda: ops.ssd_scan(*args, **kw))
+        call = lambda: ops.ssd_scan(*args, **kw)
+        rec["ms"] = _time_graph_ms(torch, call)
+        rec["eager_ms"] = _time_ms(torch, call)
+        if profile:
+            rec["device_ms_by_kernel"] = _kernel_device_ms(torch, call)
         rec["plain_ms"] = _time_ms(torch, lambda: ref.ssd_scan(*args),
                                    reps=2, warmup=1)
         # no PyTorch call computes the SSD scan
@@ -1200,6 +1221,12 @@ def check_ssd(torch, ops, ref, *, b, s, h, p, n, dtype, seed, chunk=128,
         rec["flops"] = flops
         rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops, dtype)
     return rec
+
+
+def _ssd_tc_shape(dtype, p, n):
+    """Whether an SSD call takes the tensor-core pair (``csrc/ssd_scan.cu``,
+    ``tc_body``)."""
+    return dtype == "bfloat16" and p % 32 == 0 and n % 8 == 0 and n <= 128
 
 
 def check_rglru(torch, ops, ref, *, b, s, w, dtype, seed, timed=False):
@@ -1229,7 +1256,9 @@ def check_rglru(torch, ops, ref, *, b, s, w, dtype, seed, timed=False):
            "max_abs_h": plain.float().abs().max().item()}
     del h, plain
     if timed:
-        rec["ms"] = _time_ms(torch, lambda: ops.rg_lru_scan(log_a, bb, **kw))
+        call = lambda: ops.rg_lru_scan(log_a, bb, **kw)
+        rec["ms"] = _time_graph_ms(torch, call)
+        rec["eager_ms"] = _time_ms(torch, call)
         rec["plain_ms"] = _time_ms(torch, lambda: ref.rg_lru_scan(log_a, bb),
                                    reps=2, warmup=1)
         # no PyTorch call computes a linear recurrence
@@ -1245,21 +1274,29 @@ def run_scan_kernels(torch, ops, ref):
     versions at the prefill step's shapes (timed) and at edge cases, and
     the flash kernel at RecurrentGemma's 10-over-1 heads and window."""
     main_ssd = check_ssd(torch, ops, ref, b=2, s=4096, h=32, p=64, n=128,
-                         dtype="bfloat16", seed=31, timed=True)
+                         dtype="bfloat16", seed=31, timed=True, profile=True)
     main_rg = check_rglru(torch, ops, ref, b=2, s=4096, w=2560,
                           dtype="float32", seed=32, timed=True)
     checks = [main_ssd, main_rg]
-    # S = chunk, S = 64 < chunk, B = 3, fp32, a ragged P and a small N
+    # S = chunk, S = 64 < chunk, B = 3, fp32, a ragged P and a small N;
+    # the reduced config's P 32 / N 32 with S not a multiple of 64 (the
+    # tensor-core pair), and a bf16 P 40 / N 24 outside the pair's shapes
+    # (the SIMT body); dt up to 8, where a chunk's decay spans far beyond
+    # fp32's range (the tensor-core pair's factored decay must not
+    # overflow)
     for kw in (dict(b=2, s=128, h=32, p=64, n=128, dtype="bfloat16"),
                dict(b=1, s=64, h=32, p=64, n=128, dtype="bfloat16"),
                dict(b=3, s=384, h=8, p=64, n=128, dtype="bfloat16"),
                dict(b=2, s=512, h=16, p=64, n=128, dtype="float32"),
-               dict(b=1, s=96, h=4, p=40, n=24, dtype="float32", chunk=32)):
+               dict(b=1, s=96, h=4, p=40, n=24, dtype="float32", chunk=32),
+               dict(b=2, s=100, h=4, p=32, n=32, dtype="bfloat16", chunk=4),
+               dict(b=1, s=96, h=4, p=40, n=24, dtype="bfloat16", chunk=32),
+               dict(b=1, s=512, h=8, p=64, n=128, dtype="bfloat16", dt_hi=8.0)):
         checks.append(check_ssd(torch, ops, ref, seed=33 + len(checks),
                                 **kw))
-    # W not a multiple of 512 (nor of the 64-thread block), S below one
-    # 128-step chunk and not a multiple of the kernel's 16-step blocks,
-    # and bf16 b
+    # W not a multiple of 512 nor of the kernel's 32-channel CTAs, S below
+    # one 128-step chunk and not a multiple of the kernel's 64-step
+    # stages, and bf16 b
     for kw in (dict(b=3, s=384, w=1000, dtype="float32"),
                dict(b=2, s=100, w=2560, dtype="float32"),
                dict(b=1, s=128, w=768, dtype="bfloat16")):
@@ -1268,13 +1305,20 @@ def run_scan_kernels(torch, ops, ref):
     torch.cuda.empty_cache()
     for rec in checks:
         dims = " ".join(f"{k}={rec[k]}" for k in ("B", "S", "H", "P", "N",
-                                                   "W", "dtype")
+                                                   "W", "dtype", "dt_hi")
                         if k in rec)
-        timing = (f", kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+        timing = (f", kernel {rec['ms']:.4f} ms (graph-timed; eager per "
+                  f"call {rec['eager_ms']:.4f} ms), plain {rec['plain_ms']:.4f} "
                   f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
                   if "ms" in rec else "")
         extra = (f", {rec['differing']} elements differ bit for bit"
-                 if "differing" in rec else "")
+                 if "differing" in rec else
+                 f", {rec['body']} body, {rec['differing_share']:.4%} of "
+                 f"outputs differ")
+        if "device_ms_by_kernel" in rec:
+            timing += "; device ms a call by kernel (profiler): " + ", ".join(
+                f"{name[:40]} {ms:.4f}"
+                for name, ms in rec["device_ms_by_kernel"].items())
         print(f"  {rec['kernel']} {dims}: max|diff| {rec['max_abs_err']:.3g} "
               f"(band {rec['band']:.3g}){extra}{timing}", flush=True)
         if not rec["ok"]:
@@ -1351,7 +1395,7 @@ def run_prefill_step(torch, ops):
                     raise AssertionError(f"prefill step {arch} {dtype} {impl}: "
                                          f"launches {counts}, expected {want}")
                 _check_bodies(ops, f"prefill step {arch} {dtype} {impl}",
-                              flash_bf16=dtype == "bfloat16")
+                              bf16=dtype == "bfloat16")
                 if lg.shape != (b, 1, cfg.vocab_size) or not bool(
                         torch.isfinite(lg).all()):
                     raise AssertionError(f"prefill step {arch} {dtype} "
@@ -1568,13 +1612,14 @@ def run_family_serve(torch, ops):
     return out
 
 
-def _check_bodies(ops, where, flash_bf16=True):
-    """The counted run's flash launches all took the tensor-core body (bf16;
-    none of them in fp32) and its paged launches the split-K pair."""
+def _check_bodies(ops, where, bf16=True):
+    """The counted run's flash and SSD-scan launches all took their
+    tensor-core bodies (bf16, at the models' shapes; none of them in fp32)
+    and its paged launches the split-K pair."""
     counts, bodies = ops.launch_counts(), ops.body_launches()
-    want = {"flash_attention_tc": counts["flash_attention"] if flash_bf16
-            else 0,
-            "paged_decode_attention_split": counts["paged_decode_attention"]}
+    want = {"flash_attention_tc": counts["flash_attention"] if bf16 else 0,
+            "paged_decode_attention_split": counts["paged_decode_attention"],
+            "ssd_scan_tc": counts["ssd_scan"] if bf16 else 0}
     if bodies != want:
         raise AssertionError(f"{where}: launches by body {bodies}, expected "
                              f"{want} (launches {counts})")

@@ -12,10 +12,10 @@ loaded with ``ctypes``.  The library name carries a hash of the source,
 of every header in ``csrc/`` (``*.cuh``, which any source may include) and
 of the flags with their include path, so an edited kernel or header is
 rebuilt and a stale library is never loaded.  All missing libraries build
-in parallel, one ``nvcc`` per source.  The attention sources build with
-``-Xptxas -v``: ``BUILD_LOG`` keeps each of their kernels' register and
-spill lines.  A failed build raises with the compiler's output; there is
-no fallback.
+in parallel, one ``nvcc`` per source.  The attention and scan sources
+build with ``-Xptxas -v``: ``BUILD_LOG`` keeps each of their kernels'
+register and spill lines.  A failed build raises with the compiler's
+output; there is no fallback.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ KERNELS = ("flash_attention", "paged_attention", "ssd_scan", "rg_lru",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC))
 # sources whose resource use the build reports
-VERBOSE_PTXAS = ("flash_attention", "paged_attention")
+VERBOSE_PTXAS = ("flash_attention", "paged_attention", "ssd_scan", "rg_lru")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # kernel -> ptxas lines of its last build in this process

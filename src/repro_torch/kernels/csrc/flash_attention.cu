@@ -56,12 +56,10 @@
 // each tile's softmax with its products, which the next redesign (two
 // consumer warpgroups in ping-pong) would overlap.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
-#include <stdio.h>
 
 #include "sm90.cuh"
 
@@ -517,53 +515,6 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda: reached through the runtime's
-// entry-point query, so the library links without -lcuda
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// codes above this are CUresults of cuTensorMapEncodeTiled
-constexpr int ENCODE_ERR = 100000;
-
-// a (hd, heads, S, B) bf16 tensor, boxes of (box0, box1, box2, 1)
-int encode_bshd(CUtensorMap* map, const void* base, int hd, int heads, int S,
-                int B, int box0, int box1, int box2, CUtensorMapSwizzle swz) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,
-                                 (cuuint64_t)S * heads * hd * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)box0, (cuuint32_t)box1, (cuuint32_t)box2, 1};
-  const cuuint32_t estride[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                        dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ENCODE_ERR + (int)r;
-}
-
 template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
               int Sq, int Sk, int Hq, int Hkv, float scale, float softcap,
@@ -581,9 +532,9 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
   const CUtensorMapSwizzle swz =
       C::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   CUtensorMap tq, tk, tv;
-  if ((err = encode_bshd(&tq, q, HD, Hq, Sq, B, C::SW, g, tile_pos, swz))) return err;
-  if ((err = encode_bshd(&tk, k, HD, Hkv, Sk, B, C::SW, 1, BN, swz))) return err;
-  if ((err = encode_bshd(&tv, v, HD, Hkv, Sk, B, C::SW, 1, BN, swz))) return err;
+  if ((err = sm90::encode_bshd(&tq, q, HD, Hq, Sq, B, C::SW, g, tile_pos, swz))) return err;
+  if ((err = sm90::encode_bshd(&tk, k, HD, Hkv, Sk, B, C::SW, 1, BN, swz))) return err;
+  if ((err = sm90::encode_bshd(&tv, v, HD, Hkv, Sk, B, C::SW, 1, BN, swz))) return err;
   dim3 grid((Sq + tile_pos - 1) / tile_pos, Hkv, B);
   flash_tc_kernel<HD><<<grid, TC_THREADS, C::bytes, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, Hq, Hkv, scale,
@@ -621,7 +572,7 @@ int dispatch_hd_bf16(int hd, const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32 (the SIMT body), 1 = bfloat16 (the tensor-core body).
 // softcap <= 0 and window <= 0 mean "none".  Returns 0, a cudaError_t of the
-// attribute call or the launch, or ENCODE_ERR + the CUresult of a failed
+// attribute call or the launch, or sm90::ENCODE_ERR + the CUresult of a failed
 // tensor-map encoding.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, int B, int Sq, int Sk, int Hq,
@@ -639,11 +590,5 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
 }
 
 extern "C" const char* flash_attention_error_string(int err) {
-  static char buf[96];
-  if (err >= ENCODE_ERR) {
-    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed (CUresult %d)",
-             err - ENCODE_ERR);
-    return buf;
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return sm90::error_string(err);
 }

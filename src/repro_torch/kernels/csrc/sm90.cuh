@@ -1,15 +1,17 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: on the
-// host, the dynamic shared-memory limit; on the device, as inline PTX,
-// shared-memory addresses, mbarriers, TMA tensor loads and the warpgroup
-// matrix multiply (wgmma) with its shared-memory descriptors.  Nothing here
-// launches or allocates; each device helper is one or a few PTX
-// instructions.
+// host, the dynamic shared-memory limit and TMA tensor maps; on the device,
+// as inline PTX, shared-memory addresses, mbarriers, TMA and bulk copies,
+// cp.async, named barriers and the warpgroup matrix multiply (wgmma) with
+// its shared-memory descriptors.  Nothing here launches or allocates; each
+// device helper is one or a few PTX instructions.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace sm90 {
 
@@ -33,6 +35,67 @@ int ensure_smem(K kernel, size_t bytes, size_t* granted) {
   if (err != cudaSuccess) return (int)err;
   granted[dev] = bytes;
   return 0;
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda: reached through the runtime's
+// entry-point query, so the library links without -lcuda
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// codes above this are CUresults of cuTensorMapEncodeTiled
+constexpr int ENCODE_ERR = 100000;
+
+// a (d0, d1, d2, d3) bf16 tensor, innermost first, contiguous; boxes of
+// (box0, box1, box2, 1).  A box may reach past the tensor's edge: TMA fills
+// what lies outside with zeros.
+inline int encode_bshd(CUtensorMap* map, const void* base, int d0, int d1,
+                       int d2, int d3, int box0, int box1, int box2,
+                       CUtensorMapSwizzle swz) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2,
+                              (cuuint64_t)d3};
+  const cuuint64_t strides[3] = {(cuuint64_t)d0 * 2, (cuuint64_t)d1 * d0 * 2,
+                                 (cuuint64_t)d2 * d1 * d0 * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box0, (cuuint32_t)box1, (cuuint32_t)box2, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                        dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_ERR + (int)r;
+}
+
+// the message of a code returned by a launch that may encode tensor maps
+inline const char* error_string(int err) {
+  static char buf[96];
+  if (err >= ENCODE_ERR) {
+    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed (CUresult %d)",
+             err - ENCODE_ERR);
+    return buf;
+  }
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -100,6 +163,65 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// a 4-d box from shared memory at `src` to the tensor map's (c0, c1, c2, c3),
+// innermost first; what lies outside the tensor is not written.  One bulk
+// group per commit; bulk_wait_read waits until the issuing thread's groups
+// have read their shared memory, bulk_wait until they are complete.
+__device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes from global `src` into shared
+// memory at `dst`, both 16-byte aligned; completion is reported to `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// -- cp.async ---------------------------------------------------------------------
+
+// 16 bytes from global `src` into shared memory at `dst`, both 16-byte
+// aligned, bypassing L1; complete for this thread after cp_async_wait
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// -- named barriers -------------------------------------------------------------
+
+// `threads` threads (a multiple of 32) meet at barrier `id` (1-15; 0 is
+// __syncthreads')
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // -- wgmma ----------------------------------------------------------------------
 
 // Shared-memory matrix descriptor: start address, leading and stride byte
@@ -158,6 +280,19 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da,
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D(64 x 32) (+)= A(64 x 16, smem) . B(16 x 32, smem), each operand K-major
+// (TA / TB = 0) or MN-major (1, bf16 only)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16], uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // D(64 x 32) += A(64 x 16, registers) . B(16 x 32, smem, MN-major)

@@ -32,9 +32,11 @@ _COUNTED = {"flash_attention": (_fa, "launches"),
             "dequantize": (_comp, "dequantize_launches"),
             "topk_mask": (_comp, "topk_launches")}
 # launches by body, beside the counts above: the flash kernel's tensor-core
-# body (bf16) and the paged kernel's split-K pair
+# body (bf16), the paged kernel's split-K pair and the SSD scan's
+# tensor-core pair (bf16 at the shapes it takes)
 _BODIES = {"flash_attention_tc": (_fa, "tc_launches"),
-           "paged_decode_attention_split": (_pa, "split_launches")}
+           "paged_decode_attention_split": (_pa, "split_launches"),
+           "ssd_scan_tc": (_ssd, "tc_launches")}
 
 
 def _on_cpu(t: torch.Tensor) -> bool:

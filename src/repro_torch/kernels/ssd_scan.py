@@ -4,7 +4,11 @@
 
 The wrapper takes CUDA tensors only; ``kernels/ops.py`` dispatches CPU
 tensors to the plain version in ``kernels/ref.py``.  ``launches`` counts
-the kernel launches of this process.
+the calls of this process that launched the kernel; ``tc_launches`` those
+that took the tensor-core pair (the chunk pass, then the scan: bf16 with
+P a multiple of 32, N a multiple of 8 and at most 128 — the source says
+so through ``ssd_scan_workspace_floats``; every other call takes the SIMT
+body).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0
+tc_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_STATE = 256       # state size N (MAX_N in the source)
@@ -28,12 +33,15 @@ def _lib_fns():
     if _fns is None:
         lib = _build.load("ssd_scan")
         fn = lib.ssd_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        ws = lib.ssd_scan_workspace_floats
+        ws.argtypes = [ctypes.c_int] * 6
+        ws.restype = ctypes.c_longlong
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
-        _fns = (fn, lib.ssd_scan_error_string)
+        _fns = (fn, ws, lib.ssd_scan_error_string)
     return _fns
 
 
@@ -42,7 +50,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """x (B, S, H, P) float32 or bfloat16; dt (B, S, H) float32; a (H,)
     float32; b_, c_ (B, S, N) in x's dtype; all contiguous on one CUDA
     device -> y (B, S, H, P) in x's dtype.  Any S >= 1."""
-    global launches
+    global launches, tc_launches
     if x.dim() != 4:
         raise ValueError(f"x must be (B, S, H, P), got {tuple(x.shape)}")
     bsz, s, h, p = x.shape
@@ -67,14 +75,21 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     y = torch.empty_like(x)
-    fn, err_str = _lib_fns()
+    fn, ws_floats, err_str = _lib_fns()
+    code = _DTYPE_CODES[x.dtype]
+    # the chunk pass's records for the tensor-core pair; none for the SIMT
+    # body
+    n_ws = ws_floats(bsz, s, h, p, n, code)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_.data_ptr(),
-                 c_.data_ptr(), y.data_ptr(), bsz, s, h, p, n,
-                 _DTYPE_CODES[x.dtype], stream)
+                 c_.data_ptr(), y.data_ptr(), ws.data_ptr() if n_ws else None,
+                 bsz, s, h, p, n, code, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: {err_str(err).decode()} "
                            f"(cudaError {err})")
     launches += 1
+    if n_ws:
+        tc_launches += 1
     return y

@@ -2,9 +2,12 @@
 CPU (nothing is compiled here: ``library_path`` only names the library a
 source and its headers would build)."""
 
+import pytest
+
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ssd_scan as ssd
 
 
 def test_library_path_hashes_source_headers_and_flags(tmp_path, monkeypatch):
@@ -22,9 +25,11 @@ def test_library_path_hashes_source_headers_and_flags(tmp_path, monkeypatch):
     assert _build.library_path("k") not in (first, second)
 
 
-def test_attention_sources_build_with_ptxas_report():
-    for name in ("flash_attention", "paged_attention"):
-        assert ("-Xptxas", "-v") == tuple(_build._flags(name)[-2:])
+@pytest.mark.parametrize("name", ["flash_attention", "paged_attention",
+                                  "ssd_scan", "rg_lru"])
+def test_attention_sources_build_with_ptxas_report(name):
+    """The redesigned sources (attention, scans) report their resources."""
+    assert ("-Xptxas", "-v") == tuple(_build._flags(name)[-2:])
     assert "-v" not in _build._flags("wavg")
     assert any(f.endswith("csrc") for f in _build._flags("wavg"))
 
@@ -42,12 +47,14 @@ def test_ptxas_lines_keep_registers_and_spills():
 
 
 def test_reset_launch_counts_zeroes_the_body_counters():
-    fa.tc_launches, pa.split_launches = 3, 5
+    fa.tc_launches, pa.split_launches, ssd.tc_launches = 3, 5, 7
     assert ops.body_launches() == {"flash_attention_tc": 3,
-                                   "paged_decode_attention_split": 5}
+                                   "paged_decode_attention_split": 5,
+                                   "ssd_scan_tc": 7}
     ops.reset_launch_counts()
     assert ops.body_launches() == {"flash_attention_tc": 0,
-                                   "paged_decode_attention_split": 0}
+                                   "paged_decode_attention_split": 0,
+                                   "ssd_scan_tc": 0}
     assert set(ops.launch_counts()) == {
         "flash_attention", "paged_decode_attention", "ssd_scan",
         "rg_lru_scan", "fused_adamw", "weighted_average",
