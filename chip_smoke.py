@@ -20,7 +20,8 @@ Phases, each printing its lines before the last:
              S = 64 < chunk, B = 3, fp32 on the SIMT body, a ragged P; the
              reduced config's P 32 / N 32 at S 100 on the tensor-core
              pair, and a bf16 P 40 / N 24 outside the pair's shapes on the
-             SIMT body — each case's body asserted; W not a multiple of
+             SIMT body — each case's body asserted, and at most 1% of
+             every bf16 case's outputs differing; W not a multiple of
              the RG-LRU CTA's 32 channels, S not a multiple of its 64-step
              stages, bf16); the flash kernel's tensor-core body at
              RecurrentGemma's 10 query heads over 1, window 2048, S 4096
@@ -202,6 +203,12 @@ LOGIT_BAND = 0.25
 TRAIN_LOSS_RTOL = 1e-6
 TRAIN_STAGE_BAND = 1e-8
 FLASH_DIFFERING_MAX = 0.01
+# the share of a bf16 SSD call's outputs that may differ from the plain
+# version's.  The tensor-core pair carries the state, G and w x as bf16
+# hi + lo; on the H100 its cases read 0.06-0.13%, the SIMT body's bf16
+# case 0.10%, while the CPU rehearsal moves ~30% with those operands (or G
+# alone) in bf16 alone, at a max|diff| still inside the one-ulp band.
+SSD_DIFFERING_MAX = 0.01
 
 
 def _time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1161,13 +1168,14 @@ def _ssd_inputs(torch, *, b, s, h, p, n, dtype, seed, dt_hi=0.5):
     return x, dt, a, b_, c_
 
 
-def check_ssd(torch, ops, ref, *, b, s, h, p, n, dtype, seed, chunk=128,
-              timed=False, profile=False, dt_hi=0.5):
+def check_ssd(torch, ops, ref, *, b, s, h, p, n, dtype, seed, body,
+              chunk=128, timed=False, profile=False, dt_hi=0.5):
     """SSD scan kernel vs its plain (sequential fp32) version.  Band: bf16
-    output one bf16 ulp at max|y| (both sides keep fp32 and round once);
-    fp32 the JAX kernel tests' band, |diff| <= 5e-4 + 1e-3 |y|.  Records
-    the body the call took: the tensor-core pair for bf16 with P % 32 == 0,
-    N % 8 == 0 and N <= 128, the SIMT body otherwise (``_ssd_tc_shape``)."""
+    output one bf16 ulp at max|y| (both sides keep fp32 and round once),
+    and at most SSD_DIFFERING_MAX of the outputs differing; fp32 the JAX
+    kernel tests' band, |diff| <= 5e-4 + 1e-3 |y|.  ``body`` is the body
+    the case must take, "tc" (the tensor-core pair) or "simt"; the source's
+    ``tc_body`` decides it."""
     args = _ssd_inputs(torch, b=b, s=s, h=h, p=p, n=n, dtype=dtype,
                        seed=seed, dt_hi=dt_hi)
     block_h = max(d for d in range(1, min(8, h) + 1) if h % d == 0)
@@ -1179,16 +1187,18 @@ def check_ssd(torch, ops, ref, *, b, s, h, p, n, dtype, seed, chunk=128,
     if ops.launch_counts()["ssd_scan"] - before != 1:
         raise AssertionError("ssd_scan: the kernel did not launch once")
     tc = ops.body_launches()["ssd_scan_tc"] - tc_before == 1
-    if tc != _ssd_tc_shape(dtype, p, n):
+    if tc != (body == "tc"):
         raise AssertionError(f"ssd_scan {dtype} P {p} N {n}: took the "
-                             f"{'tensor-core' if tc else 'SIMT'} body")
+                             f"{'tensor-core' if tc else 'SIMT'} body, "
+                             f"want {body}")
     plain = ref.ssd_scan(*args)
     torch.cuda.synchronize()
     diff = (y.float() - plain.float()).abs()
     err = diff.max().item()
+    differing = (y != plain).float().mean().item()
     if dtype == "bfloat16":
         band = _ulps(torch, plain, 1, dtype)
-        ok = err <= band
+        ok = err <= band and differing <= SSD_DIFFERING_MAX
     else:
         atol, rtol = BANDS["ssd_scan"]["float32"]
         band = atol
@@ -1197,7 +1207,7 @@ def check_ssd(torch, ops, ref, *, b, s, h, p, n, dtype, seed, chunk=128,
            "dtype": dtype, "dt_hi": dt_hi, "chunk": chunk,
            "max_abs_err": err, "band": band, "ok": ok, "max_abs_y": plain.float().abs().max().item(),
            "body": "tensor cores" if tc else "simt",
-           "differing_share": (y != plain).float().mean().item()}
+           "differing_share": differing}
     del y, plain, diff
     if timed:
         call = lambda: ops.ssd_scan(*args, **kw)
@@ -1221,12 +1231,6 @@ def check_ssd(torch, ops, ref, *, b, s, h, p, n, dtype, seed, chunk=128,
         rec["flops"] = flops
         rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops, dtype)
     return rec
-
-
-def _ssd_tc_shape(dtype, p, n):
-    """Whether an SSD call takes the tensor-core pair (``csrc/ssd_scan.cu``,
-    ``tc_body``)."""
-    return dtype == "bfloat16" and p % 32 == 0 and n % 8 == 0 and n <= 128
 
 
 def check_rglru(torch, ops, ref, *, b, s, w, dtype, seed, timed=False):
@@ -1274,7 +1278,8 @@ def run_scan_kernels(torch, ops, ref):
     versions at the prefill step's shapes (timed) and at edge cases, and
     the flash kernel at RecurrentGemma's 10-over-1 heads and window."""
     main_ssd = check_ssd(torch, ops, ref, b=2, s=4096, h=32, p=64, n=128,
-                         dtype="bfloat16", seed=31, timed=True, profile=True)
+                         dtype="bfloat16", seed=31, body="tc", timed=True,
+                         profile=True)
     main_rg = check_rglru(torch, ops, ref, b=2, s=4096, w=2560,
                           dtype="float32", seed=32, timed=True)
     checks = [main_ssd, main_rg]
@@ -1284,14 +1289,22 @@ def run_scan_kernels(torch, ops, ref):
     # (the SIMT body); dt up to 8, where a chunk's decay spans far beyond
     # fp32's range (the tensor-core pair's factored decay must not
     # overflow)
-    for kw in (dict(b=2, s=128, h=32, p=64, n=128, dtype="bfloat16"),
-               dict(b=1, s=64, h=32, p=64, n=128, dtype="bfloat16"),
-               dict(b=3, s=384, h=8, p=64, n=128, dtype="bfloat16"),
-               dict(b=2, s=512, h=16, p=64, n=128, dtype="float32"),
-               dict(b=1, s=96, h=4, p=40, n=24, dtype="float32", chunk=32),
-               dict(b=2, s=100, h=4, p=32, n=32, dtype="bfloat16", chunk=4),
-               dict(b=1, s=96, h=4, p=40, n=24, dtype="bfloat16", chunk=32),
-               dict(b=1, s=512, h=8, p=64, n=128, dtype="bfloat16", dt_hi=8.0)):
+    for kw in (dict(b=2, s=128, h=32, p=64, n=128, dtype="bfloat16",
+                    body="tc"),
+               dict(b=1, s=64, h=32, p=64, n=128, dtype="bfloat16",
+                    body="tc"),
+               dict(b=3, s=384, h=8, p=64, n=128, dtype="bfloat16",
+                    body="tc"),
+               dict(b=2, s=512, h=16, p=64, n=128, dtype="float32",
+                    body="simt"),
+               dict(b=1, s=96, h=4, p=40, n=24, dtype="float32", chunk=32,
+                    body="simt"),
+               dict(b=2, s=100, h=4, p=32, n=32, dtype="bfloat16", chunk=4,
+                    body="tc"),
+               dict(b=1, s=96, h=4, p=40, n=24, dtype="bfloat16", chunk=32,
+                    body="simt"),
+               dict(b=1, s=512, h=8, p=64, n=128, dtype="bfloat16",
+                    dt_hi=8.0, body="tc")):
         checks.append(check_ssd(torch, ops, ref, seed=33 + len(checks),
                                 **kw))
     # W not a multiple of 512 nor of the kernel's 32-channel CTAs, S below
@@ -1314,7 +1327,9 @@ def run_scan_kernels(torch, ops, ref):
         extra = (f", {rec['differing']} elements differ bit for bit"
                  if "differing" in rec else
                  f", {rec['body']} body, {rec['differing_share']:.4%} of "
-                 f"outputs differ")
+                 f"outputs differ"
+                 + (f" (at most {SSD_DIFFERING_MAX:.0%})"
+                    if rec["dtype"] == "bfloat16" else ""))
         if "device_ms_by_kernel" in rec:
             timing += "; device ms a call by kernel (profiler): " + ", ".join(
                 f"{name[:40]} {ms:.4f}"

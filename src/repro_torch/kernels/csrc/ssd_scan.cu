@@ -28,9 +28,9 @@
 // body runs is chosen in the C entry point (ssd_scan_workspace_floats), by
 // dtype and shape:
 //
-// * bfloat16 with P % 32 == 0, N % 8 == 0, N <= 128 (every shape the
-//   repo's configs give: N 128 / P 64 at full size, N 32 / P 32 reduced)
-//   — the tensor-core pair.
+// * bfloat16 at the shapes tc_body admits (every shape the repo's configs
+//   give: N 128 / P 64 at full size, N 32 / P 32 reduced) — the
+//   tensor-core pair.
 //   1. ssd_chunk_kernel, one warp per (batch, chunk, head): the chunk's
 //      cumsum of dt a and from it every exp the scan needs — exp(cum),
 //      the state update's weights w and G's decay factored through the
@@ -60,6 +60,11 @@
 //        exp(cum_i) y_i leaves through a shared-memory tile and a TMA
 //        store one chunk later, so no global store and no exp stands in
 //        the chain from one chunk's state to the next.
+//      C.B^T is computed in every CTA: the 64 CTAs of a batch row repeat
+//      it.  On the tensor cores that costs ~0.14 us of one SM a chunk
+//      (64 x 64 x 128 MACs), off the state's chain, from the B and C tiles
+//      the stage holds anyway; a shared fp32 C.B^T from a first pass would
+//      add a 16 KB L2 read a chunk, as much as the B tile.
 //      Every product is wgmma; none needs mma.sync.  x, B and C are exact
 //      in bf16.  The three fp32 operands (S, G and w x) each enter as bf16
 //      hi + lo, two products into one fp32 accumulator: the CPU rehearsal

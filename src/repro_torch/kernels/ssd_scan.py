@@ -5,15 +5,15 @@
 The wrapper takes CUDA tensors only; ``kernels/ops.py`` dispatches CPU
 tensors to the plain version in ``kernels/ref.py``.  ``launches`` counts
 the calls of this process that launched the kernel; ``tc_launches`` those
-that took the tensor-core pair (the chunk pass, then the scan: bf16 with
-P a multiple of 32, N a multiple of 8 and at most 128 — the source says
-so through ``ssd_scan_workspace_floats``; every other call takes the SIMT
-body).
+that took the tensor-core pair (the chunk pass, then the scan).  The
+source's ``tc_body`` picks the body, and ``ssd_scan_workspace_floats``
+reports it: a workspace for the tensor-core pair, none for the SIMT body.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -43,6 +43,13 @@ def _lib_fns():
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
         _fns = (fn, ws, lib.ssd_scan_error_string)
     return _fns
+
+
+@functools.lru_cache(maxsize=64)
+def _workspace_floats(bsz, s, h, p, n, code):
+    """The chunk pass's record floats for the tensor-core pair; 0 for the
+    SIMT body."""
+    return _lib_fns()[1](bsz, s, h, p, n, code)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -75,16 +82,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     y = torch.empty_like(x)
-    fn, ws_floats, err_str = _lib_fns()
+    fn, _, err_str = _lib_fns()
     code = _DTYPE_CODES[x.dtype]
-    # the chunk pass's records for the tensor-core pair; none for the SIMT
-    # body
-    n_ws = ws_floats(bsz, s, h, p, n, code)
-    ws = torch.empty(n_ws, dtype=torch.float32, device=x.device)
+    n_ws = _workspace_floats(bsz, s, h, p, n, code)
+    ws = (torch.empty(n_ws, dtype=torch.float32, device=x.device)
+          if n_ws else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_.data_ptr(),
-                 c_.data_ptr(), y.data_ptr(), ws.data_ptr() if n_ws else None,
+                 c_.data_ptr(), y.data_ptr(),
+                 ws.data_ptr() if n_ws else None,
                  bsz, s, h, p, n, code, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: {err_str(err).decode()} "

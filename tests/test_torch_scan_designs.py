@@ -13,8 +13,9 @@ The CUDA kernels run only on the card (``chip_smoke.py`` holds them
 against the plain versions there).  What is rehearsed here is the order of
 their arithmetic:
 
-* SSD scan, bf16 tensor-core body (``csrc/ssd_scan.cu``): C.B^T once per
-  (batch, 64-position chunk) in fp32 from the exact bf16 inputs; per
+* SSD scan, bf16 tensor-core body (``csrc/ssd_scan.cu``): C.B^T per
+  (batch, 64-position chunk) in fp32 from the exact bf16 inputs (the
+  kernel computes it in every CTA, the same values; here once); per
   (batch, head, 32-column slice of P) a sequential loop over the chunks
   with the fp32 state carried across them; per chunk
   y = G.x + exp(cum_i) (C.S) with G[i][j] = CB[i][j] exp(cum_i - cum_j)
@@ -87,7 +88,8 @@ def emulate_ssd_tc(x, dt, a, b_, c_, split=HI_LO, out_fp32=False):
     dtp = padded(dt).reshape(bsz, nch, Q, h)
     bp = padded(b_).reshape(bsz, nch, Q, n)
     cp = padded(c_).reshape(bsz, nch, Q, n)
-    # the first pass: C.B^T once per (batch, chunk), shared by the heads
+    # C.B^T per (batch, chunk): every CTA of the kernel computes the same
+    # values, so one product here serves the heads and column slices
     cb = torch.einsum("bcin,bcjn->bcij", cp, bp)
     cum = torch.cumsum(dtp * a.float(), dim=2)                 # (B, nch, Q, H)
     mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool))
