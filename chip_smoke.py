@@ -117,8 +117,39 @@ Phases, each printing its lines before the last:
              versions, the same seed and so the same draws: masks, losses,
              trained stages, the aggregate and the residuals bit-exact.
 
-Then one JSON line with every kernel's numbers (nine kernels), and as the
-last line
+12. family training — 3 WSSL rounds of full Mamba-2-370M (48 layers, 4
+             clients, cut 8, seq 256: two SSD chunks) and full
+             RecurrentGemma-2B (26 layers, 2 clients, cut 3, seq 128)
+             through ``launch/train.py``: fp32 params, bf16 activations,
+             participation 0.5, fused AdamW, the plain scans (as the JAX
+             package trains).  Checks: finite losses; fused-AdamW launches
+             = leaves x rounds; no SSD-scan, RG-LRU or flash launch; a
+             masked client's AdamW moment rows unchanged by the round that
+             masked it (fp64 row sums).  Reports round 0 and rounds 1-2,
+             the peak memory and one more round under the profiler.
+13. family train parity — both families at full width and a cut depth
+             (Mamba-2 4 layers, cut 2; RecurrentGemma 8 layers, cut 3),
+             through the AdamW kernel and then ``ops.fused_adamw_plain``,
+             the same seed and Gumbel draws: masks equal, losses and
+             stages within phase 7's bands.
+14. the paper experiment — ``core/paper_loop.py`` at full width in fp32
+             on the synthetic stand-ins: the gait FFN WSSL at 2 and 10
+             clients (20 rounds x 10 local steps, ``make_gait_like(n=
+             20000)``, split by subject) and its centralized baseline;
+             ResNet-18 (``CifarConfig``) WSSL at 4 clients (10 x 10, batch
+             128, lr 2e-3, ``make_image_like`` 12,000 images, stratified)
+             and its baseline.  Checks: fused-AdamW launches = leaves x
+             local steps taken, exactly, and nothing else launches; finite
+             losses; final test accuracy above chance (a sanity floor).
+             Reports accuracy by round, the best, a round's seconds, the
+             peak memory and one profiled round of each model.
+15. paper parity — gait and ResNet-18 WSSL, 2 clients x 3 rounds x 3
+             steps, through the AdamW kernel and its plain version under
+             ``cudnn.flags(deterministic=True, allow_tf32=False)``:
+             selections, losses, accuracies and final params bit-exact.
+
+Each of phases 12-15 prints its wall time.  Then one JSON line with every
+kernel's numbers (nine kernels), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
 exits non-zero before that line; it also exits non-zero, printing no
 result, when no card is present or the package is not beside it.
@@ -1627,6 +1658,430 @@ def run_family_serve(torch, ops):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training the recurrent families and the paper's experiment (12-15)
+# ---------------------------------------------------------------------------
+
+# module values, so a CPU rehearsal can shrink them.  Phase 12: each
+# family's full depth (``layers`` None), clients, cut, sequence and batch a
+# client; phase 13: the reduced depth and cut of the parity runs.
+FAMILY_TRAIN_RUN = dict(device="cuda", reduced=False, rounds=3, val_batch=2,
+                        seed=0, parity_seq=128)
+FAMILY_TRAIN = {
+    # 11.7 GB of p, m, v and g (16 B x 732,544,768 elements); sequence
+    # 256 is two SSD chunks, so the state crosses a chunk boundary
+    "mamba2-370m": dict(layers=None, clients=4, cut=8, seq=256, batch=2,
+                        parity_layers=4, parity_cut=2),
+    # 71.4 GB (16 B x 4,462,200,320 elements): 2 clients
+    "recurrentgemma-2b": dict(layers=None, clients=2, cut=3, seq=128,
+                              batch=2, parity_layers=8, parity_cut=3),
+}
+SCAN_KERNELS = ("ssd_scan", "rg_lru_scan", "flash_attention")
+
+
+def _family_train_setup(arch, layers, cut, clients):
+    from repro_torch.config import TrainConfig, WSSLConfig, get_arch, reduced
+    cfg = get_arch(arch)
+    if FAMILY_TRAIN_RUN["reduced"]:
+        cfg = reduced(cfg)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    wssl_cfg = WSSLConfig(num_clients=clients, participation_fraction=0.5,
+                          split_layer=cut)
+    train_cfg = TrainConfig(rounds=FAMILY_TRAIN_RUN["rounds"],
+                            learning_rate=1e-3,
+                            remat=not FAMILY_TRAIN_RUN["reduced"],
+                            fused_adam=True)
+    return cfg, wssl_cfg, train_cfg
+
+
+def _moment_sums(torch, state):
+    """Per client, the fp64 sums of its rows of every AdamW moment leaf:
+    a masked client's rows are frozen bit for bit, so its sums are equal
+    before and after the round that masked it."""
+    rows = [t.reshape(t.shape[0], -1).double().sum(1)
+            for t in _leaves((state.opt_client.m, state.opt_client.v))]
+    return torch.stack(rows, 1).cpu()
+
+
+def _profile_family_round(torch, state, cfg, wssl_cfg, train_cfg, run):
+    """One more round under ``torch.profiler``, after the counted run (its
+    launches are not counted; it moves the state, which nothing reads
+    after)."""
+    from repro_torch.core.round import make_round_fn
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch.train import round_batch
+    dev = state.importance.device
+    batch = round_batch(cfg, run["clients"], run["batch"], run["seq"], 99,
+                        dev)
+    val = {k: torch.as_tensor(v, device=dev) for k, v in lm_batch(
+        FAMILY_TRAIN_RUN["val_batch"], run["seq"], cfg.vocab_size,
+        seed=10_000).items()}
+    round_fn = make_round_fn(cfg, wssl_cfg, train_cfg)
+    return _device_profile(torch, lambda: round_fn(state, batch, val))
+
+
+def run_family_train(torch, ops):
+    """Phase 12: 3 WSSL rounds of full Mamba-2-370M and full
+    RecurrentGemma-2B through ``launch/train.py`` (fp32 params, bf16
+    activations, participation 0.5, fused AdamW, the plain scans as the
+    JAX package trains)."""
+    from repro_torch.launch.train import train
+    dev = torch.device(FAMILY_TRAIN_RUN["device"])
+    rounds = FAMILY_TRAIN_RUN["rounds"]
+    out = {}
+    for arch, run in FAMILY_TRAIN.items():
+        t_phase = time.perf_counter()
+        cfg, wssl_cfg, train_cfg = _family_train_setup(
+            arch, run["layers"], run["cut"], run["clients"])
+        sums = []
+        _free(torch)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        state, hist = train(
+            cfg, wssl_cfg, train_cfg, rounds=rounds,
+            batch_per_client=run["batch"], seq_len=run["seq"],
+            val_batch=FAMILY_TRAIN_RUN["val_batch"],
+            seed=FAMILY_TRAIN_RUN["seed"], device=dev,
+            before_round=lambda st, r: sums.append(_moment_sums(torch, st)),
+            log=lambda line: print(f"  {arch} " + line, flush=True))
+        _sync(torch, dev)
+        counts = ops.launch_counts()
+        peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+                else 0)
+        sums.append(_moment_sums(torch, state))
+        stages = (state.client_stack, state.server_params, state.edge_stages)
+        leaves = len(_leaves(stages))
+        n_elems = sum(t.numel() for t in _leaves(stages))
+        want = leaves * rounds
+        if counts["fused_adamw"] != want or any(counts[k]
+                                                for k in SCAN_KERNELS):
+            raise AssertionError(f"family train {arch}: launches {counts}, "
+                                 f"expected {want} fused_adamw ({leaves} "
+                                 f"leaves x {rounds} rounds) and no scan or "
+                                 f"flash launch")
+        if not all(math.isfinite(h["loss"]) and math.isfinite(
+                h["mean_val_loss"]) for h in hist):
+            raise AssertionError(f"family train {arch}: non-finite loss "
+                                 f"{hist}")
+        frozen = []
+        for r, h in enumerate(hist):
+            for i, sel in enumerate(h["mask"]):
+                same = torch.equal(sums[r][i], sums[r + 1][i])
+                if same != (sel == 0.0):
+                    raise AssertionError(
+                        f"family train {arch}: round {r} client {i} (mask "
+                        f"{sel}) moments {'unchanged' if same else 'moved'}")
+                frozen += [(r, i)] if same else []
+        if not frozen:
+            raise AssertionError(f"family train {arch}: no client was masked "
+                                 f"in {[h['mask'] for h in hist]}")
+        prof = (_profile_family_round(torch, state, cfg, wssl_cfg, train_cfg,
+                                      run) if dev.type == "cuda" else None)
+        rec = {"arch": arch, "layers": cfg.num_layers,
+               "clients": run["clients"], "cut": run["cut"],
+               "seq": run["seq"], "batch_per_client": run["batch"],
+               "rounds": hist, "round0_s": hist[0]["dt_s"],
+               "round_s": [h["dt_s"] for h in hist[1:]],
+               "peak_bytes": peak, "leaves": leaves,
+               "stepped_elements": n_elems, "state_bytes": 16 * n_elems,
+               "launches": counts, "masked_frozen": frozen,
+               "profile": prof, "phase_s": time.perf_counter() - t_phase}
+        print(f"family train: {arch} {cfg.num_layers} layers, "
+              f"{run['clients']} clients, cut {run['cut']}, seq "
+              f"{run['seq']}, {leaves} leaves, {n_elems} elements stepped "
+              f"(p, m, v, g {16 * n_elems / 1e9:.1f} GB); round 0 "
+              f"{rec['round0_s']:.3f} s, rounds 1-{rounds - 1} "
+              f"{', '.join(f'{t:.3f}' for t in rec['round_s'])} s; losses "
+              f"{[round(h['loss'], 4) for h in hist]}; launches {counts}; "
+              f"masked rows frozen {frozen}; peak memory "
+              f"{peak / 2**30:.2f} GiB; phase {rec['phase_s']:.1f} s",
+              flush=True)
+        if prof is not None:
+            print(f"family train: {arch} one more round, profiled: "
+                  + _profile_line(prof, top=5), flush=True)
+        out[arch] = rec
+        del state
+        _free(torch)
+    return out
+
+
+def run_family_train_parity(torch, ops):
+    """Phase 13: both families at full width and a cut depth, 3 rounds
+    through the AdamW kernel and then through its plain version, the same
+    seed and Gumbel draws: masks equal, losses and stages within phase 7's
+    bands."""
+    from unittest import mock
+    import numpy as np
+    from repro_torch.launch.train import train
+    dev = torch.device(FAMILY_TRAIN_RUN["device"])
+    rounds = FAMILY_TRAIN_RUN["rounds"]
+    out = {}
+    for arch, run in FAMILY_TRAIN.items():
+        t_phase = time.perf_counter()
+        rng = np.random.default_rng(17)
+        gumbels = [torch.as_tensor(rng.gumbel(size=run["clients"]).astype(
+            np.float32)) for _ in range(rounds)]
+        runs = {}
+        for name, kernel in (("kernel", True), ("plain", False)):
+            cfg, wssl_cfg, train_cfg = _family_train_setup(
+                arch, run["parity_layers"], run["parity_cut"],
+                run["clients"])
+            ops.reset_launch_counts()
+            with mock.patch.object(ops, "fused_adamw", ops.fused_adamw
+                                   if kernel else ops.fused_adamw_plain):
+                state, hist = train(
+                    cfg, wssl_cfg, train_cfg, rounds=rounds,
+                    batch_per_client=run["batch"],
+                    seq_len=FAMILY_TRAIN_RUN["parity_seq"],
+                    val_batch=FAMILY_TRAIN_RUN["val_batch"],
+                    seed=FAMILY_TRAIN_RUN["seed"], device=dev,
+                    gumbels=gumbels, log=lambda line: None)
+            _sync(torch, dev)
+            counts = ops.launch_counts()
+            if (counts["fused_adamw"] > 0) != kernel or any(
+                    counts[k] for k in SCAN_KERNELS):
+                raise AssertionError(f"family parity {arch} {name}: "
+                                     f"launches {counts}")
+            runs[name] = (hist, [t.detach().cpu() for t in _leaves((
+                state.client_stack, state.server_params))])
+            del state
+            _free(torch)
+        (hk, sk), (hp, sp) = runs["kernel"], runs["plain"]
+        if [h["mask"] for h in hk] != [h["mask"] for h in hp]:
+            raise AssertionError(f"family parity {arch}: masks differ "
+                                 f"{hk} {hp}")
+        loss_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                       for a, b in zip(hk, hp)
+                       for k in ("loss", "mean_val_loss"))
+        stage_max = max((a - b).abs().max().item() for a, b in zip(sk, sp))
+        rec = {"arch": arch, "layers": run["parity_layers"],
+               "cut": run["parity_cut"], "masks": [h["mask"] for h in hk],
+               "kernel_losses": [h["loss"] for h in hk],
+               "plain_losses": [h["loss"] for h in hp],
+               "loss_rel_err": loss_err, "stage_max_abs_err": stage_max,
+               "bands": {"loss_rtol": TRAIN_LOSS_RTOL,
+                         "stage_max": TRAIN_STAGE_BAND},
+               "phase_s": time.perf_counter() - t_phase}
+        print(f"family train parity: {arch} {run['parity_layers']} layers, "
+              f"cut {run['parity_cut']}: masks {rec['masks']} equal; "
+              f"loss/val rel diff {loss_err:.3g} (band {TRAIN_LOSS_RTOL:g});"
+              f" trained stages max|diff| {stage_max:.3g} (band "
+              f"{TRAIN_STAGE_BAND:g}); {rec['phase_s']:.1f} s", flush=True)
+        if not (loss_err <= TRAIN_LOSS_RTOL
+                and stage_max <= TRAIN_STAGE_BAND):
+            raise AssertionError(f"family parity {arch} outside its bands: "
+                                 f"{rec}")
+        out[arch] = rec
+    return out
+
+
+# phases 14-15: the paper's experiment (gait FFN, ResNet-18) at full width
+PAPER_RUN = dict(device="cuda", parity_clients=2, parity_rounds=3,
+                 parity_steps=3,
+                 gait=dict(n=20_000, clients=(2, 10), rounds=20, steps=10,
+                           lr=1e-3, cfg="GaitConfig", batch=128),
+                 resnet=dict(n=12_000, clients=(4,), rounds=10, steps=10,
+                             lr=2e-3, cfg="CifarConfig", batch=128))
+# a sanity floor on the final test accuracy (chance: 0.5 and 0.1), not a
+# claim about the paper's numbers
+PAPER_ACC_FLOOR = {"gait": 0.5, "resnet": 0.1}
+
+
+def _paper_experiment(kind):
+    """The paper benchmark's 70 / 10 / 20 split of the synthetic stand-in,
+    the adapter, the leaves a step updates, and a loader factory (by
+    subject for gait, stratified for images)."""
+    import numpy as np
+    from repro_torch.configs import wssl_paper
+    from repro_torch.core import paper_loop as pl
+    from repro_torch.data import partition, pipeline, synthetic
+    run = PAPER_RUN[kind]
+    n = run["n"]
+    cfg = getattr(wssl_paper, run["cfg"])(batch_size=run["batch"])
+    if kind == "gait":
+        data, ad = synthetic.make_gait_like(n=n, seed=0), pl.gait_adapter(cfg)
+    else:
+        data = synthetic.make_image_like(n=n, seed=0)
+        ad = pl.resnet_adapter(cfg)
+    n_tr, n_val = int(n * 0.7), int(n * 0.1)
+    xy = lambda lo, hi: {k: data[k][lo:hi] for k in ("x", "y")}
+    tr, val, test = xy(0, n_tr), xy(n_tr, n_tr + n_val), xy(n_tr + n_val, n)
+
+    def loaders(nc):
+        parts = (partition.partition_by_subject(data["subject"][:n_tr], nc)
+                 if kind == "gait" else
+                 partition.partition_stratified(tr["y"], nc, seed=0))
+        return [pipeline.ClientLoader(tr, p, cfg.batch_size, seed=i)
+                for i, p in enumerate(parts)]
+
+    def central():
+        return pipeline.ClientLoader(tr, np.arange(n_tr), cfg.batch_size,
+                                     seed=0)
+
+    return ad, cfg, val, test, loaders, central
+
+
+def _paper_leaves(torch, ad):
+    stages = ad.init_split(torch.Generator().manual_seed(0))
+    return len(_leaves(stages[0])), len(_leaves(stages[1]))
+
+
+def _paper_summary(h, n_test):
+    return {k: h[k] for k in ("test_acc", "test_loss", "best_acc",
+                              "final_acc", "round_s", "train_loss",
+                              "val_loss", "selected", "importance",
+                              "participation", "bytes_up_total",
+                              "bytes_sync_total") if k in h} | {
+        "n_test": n_test}
+
+
+def run_paper(torch, ops):
+    """Phase 14: the paper's experiment at full width in fp32 — the gait
+    FFN WSSL at 2 and 10 clients and its centralized baseline, then
+    ResNet-18 WSSL at 4 clients and its baseline — with exact AdamW launch
+    counts, finite losses, an accuracy floor, and one profiled round of
+    each model."""
+    from repro_torch.config import WSSLConfig
+    from repro_torch.core import paper_loop as pl
+    dev = torch.device(PAPER_RUN["device"])
+    out = {}
+    for kind in ("gait", "resnet"):
+        ad, cfg, val, test, loaders, central = _paper_experiment(kind)
+        n_client, n_server = _paper_leaves(torch, ad)
+        per_step = n_client + n_server
+        run = PAPER_RUN[kind]
+        rounds, steps, lr, clients = (run["rounds"], run["steps"], run["lr"],
+                                      tuple(run["clients"]))
+        runs = {}
+        for nc in clients + (None,):
+            name = f"wssl-{nc}" if nc else "centralized"
+            _free(torch)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            ops.reset_launch_counts()
+            if nc:
+                h = pl.train_wssl(ad, loaders(nc), val, test,
+                                  WSSLConfig(num_clients=nc,
+                                             participation_fraction=0.5),
+                                  rounds=rounds, local_steps=steps, lr=lr,
+                                  seed=0, device=dev)
+                taken = steps * sum(len(s) for s in h["selected"])
+            else:
+                h = pl.train_centralized(ad, central(), test, rounds=rounds,
+                                         steps_per_round=steps, lr=lr,
+                                         seed=0, device=dev)
+                taken = steps * rounds
+            _sync(torch, dev)
+            counts = ops.launch_counts()
+            wall = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+                    else 0)
+            want = per_step * taken
+            losses = h["test_loss"] + h.get("train_loss", []) + [
+                v for vs in h.get("val_loss", []) for v in vs]
+            if counts["fused_adamw"] != want or sum(counts.values()) != want:
+                raise AssertionError(
+                    f"paper {kind} {name}: launches {counts}, expected "
+                    f"{want} fused_adamw ({per_step} leaves x {taken} "
+                    f"steps) and nothing else")
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"paper {kind} {name}: non-finite loss")
+            if not h["final_acc"] > PAPER_ACC_FLOOR[kind]:
+                raise AssertionError(
+                    f"paper {kind} {name}: final test accuracy "
+                    f"{h['final_acc']} at or below {PAPER_ACC_FLOOR[kind]}")
+            rec = _paper_summary(h, len(test["y"])) | {
+                "steps_taken": taken, "leaves_per_step": per_step,
+                "client_leaves": n_client, "server_leaves": n_server,
+                "launches": counts, "wall_s": wall, "peak_bytes": peak}
+            print(f"paper: {kind} {name}, {rounds} rounds x {steps} steps, "
+                  f"{taken} steps taken x {per_step} leaves = "
+                  f"{counts['fused_adamw']} AdamW launches; test accuracy "
+                  f"by round {[round(a, 4) for a in h['test_acc']]}, best "
+                  f"{h['best_acc']:.4f}; median round "
+                  f"{sorted(h['round_s'])[len(h['round_s']) // 2]:.3f} s; "
+                  f"{wall:.1f} s in all; peak memory {peak / 2**30:.2f} GiB",
+                  flush=True)
+            runs[name] = rec
+        # one more round 0 (every client selected) of the largest WSSL run,
+        # under the profiler; its launches are not counted
+        nc = max(clients)
+        prof = _device_profile(torch, lambda: pl.train_wssl(
+            ad, loaders(nc), val, test,
+            WSSLConfig(num_clients=nc, participation_fraction=0.5),
+            rounds=1, local_steps=steps, lr=lr, seed=1, device=dev)) \
+            if dev.type == "cuda" else None
+        if prof is not None:
+            print(f"paper: {kind} one profiled round ({nc} clients, all "
+                  f"selected): " + _profile_line(prof, top=5), flush=True)
+        runs["profile"] = prof
+        out[kind] = runs
+    return out
+
+
+def run_paper_parity(torch, ops):
+    """Phase 15: gait and ResNet-18 WSSL, 2 clients x 3 rounds x 3 local
+    steps, through the AdamW kernel and through its plain version, cuDNN
+    deterministic and without TF32: selections, losses, accuracies and
+    the final params bit-exact."""
+    from unittest import mock
+    from repro_torch.config import WSSLConfig
+    from repro_torch.core import paper_loop as pl
+    dev = torch.device(PAPER_RUN["device"])
+    nc = PAPER_RUN["parity_clients"]
+    out = {}
+    for kind in ("gait", "resnet"):
+        ad, cfg, val, test, loaders, _ = _paper_experiment(kind)
+        lr = PAPER_RUN[kind]["lr"]
+        runs = {}
+        for name, kernel in (("kernel", True), ("plain", False)):
+            ops.reset_launch_counts()
+            with mock.patch.object(ops, "fused_adamw", ops.fused_adamw
+                                   if kernel else ops.fused_adamw_plain), \
+                    torch.backends.cudnn.flags(
+                        enabled=True, benchmark=False, deterministic=True,
+                        allow_tf32=False):
+                h = pl.train_wssl(ad, loaders(nc), val, test,
+                                  WSSLConfig(num_clients=nc,
+                                             participation_fraction=0.5),
+                                  rounds=PAPER_RUN["parity_rounds"],
+                                  local_steps=PAPER_RUN["parity_steps"],
+                                  lr=lr, seed=0, device=dev)
+            _sync(torch, dev)
+            counts = ops.launch_counts()
+            if (counts["fused_adamw"] > 0) != kernel:
+                raise AssertionError(f"paper parity {kind} {name}: launches "
+                                     f"{counts}")
+            runs[name] = (h, [t.detach().cpu() for t in _leaves(
+                h.pop("params"))])
+        (hk, pk), (hp, pp) = runs["kernel"], runs["plain"]
+        fields = ("selected", "test_acc", "test_loss", "train_loss",
+                  "val_loss", "importance")
+        differ = [f for f in fields if hk[f] != hp[f]]
+        params_bits = sum(_bit_diffs(torch, a, b) for a, b in zip(pk, pp))
+        rec = {"clients": nc, "rounds": PAPER_RUN["parity_rounds"],
+               "local_steps": PAPER_RUN["parity_steps"],
+               "selected": hk["selected"], "test_acc": hk["test_acc"],
+               "fields_differing": differ,
+               "param_elements_differing": params_bits,
+               "param_elements": sum(t.numel() for t in pk)}
+        print(f"paper parity: {kind}, {nc} clients x "
+              f"{PAPER_RUN['parity_rounds']} rounds x "
+              f"{PAPER_RUN['parity_steps']} steps: selections "
+              f"{hk['selected']}, test accuracy {hk['test_acc']}; fields "
+              f"differing {differ}; {params_bits} of {rec['param_elements']} "
+              f"final param elements differ (bit-exact required)",
+              flush=True)
+        if differ or params_bits:
+            raise AssertionError(f"paper parity {kind}: kernel and plain "
+                                 f"runs differ: {rec}")
+        out[kind] = rec
+    return out
+
+
 def _check_bodies(ops, where, bf16=True):
     """The counted run's flash and SSD-scan launches all took their
     tensor-core bodies (bf16, at the models' shapes; none of them in fp32)
@@ -1902,6 +2357,18 @@ def main(argv=None) -> int:
     record["comp_train"] = run_comp_train(torch, ops)
     # -- 9. compressed kernel path vs plain path ---------------------------
     record["comp_parity"] = run_comp_parity(torch, ops, ref)
+    # -- 12-15. the families' training and the paper's experiment ---------
+    for key, label, fn in (
+            ("family_train", "12. family training", run_family_train),
+            ("family_train_parity", "13. family train parity",
+             run_family_train_parity),
+            ("paper", "14. the paper experiment", run_paper),
+            ("paper_parity", "15. paper parity", run_paper_parity)):
+        t0 = time.perf_counter()
+        record[key] = fn(torch, ops)
+        record[f"{key}_s"] = time.perf_counter() - t0
+        print(f"{label}: {record[f'{key}_s']:.1f} s", flush=True)
+        _free(torch)
 
     sources = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:74"),

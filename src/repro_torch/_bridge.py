@@ -4,7 +4,10 @@
 example ``jax.tree.map(np.asarray, params)``) and returns the port's tree:
 the same nesting of dicts and lists, each leaf a tensor on ``device``.
 ``state_from_jax`` does the same for a whole training state, and
-``state_to_numpy`` goes back, for comparisons.  Only numpy is needed on
+``state_to_numpy`` goes back, for comparisons.  ``paper_params_from_jax``
+and ``paper_params_to_numpy`` do it for the paper's gait FFN and ResNet-18
+(``models/paper_models.py``), whose trees keep the JAX layout, HWIO
+convolutions included, so no leaf is permuted.  Only numpy is needed on
 the JAX side.
 
 Matrices are stored in ``dtype``: serving passes the activation dtype (the
@@ -120,3 +123,32 @@ def state_to_numpy(state: Any) -> dict:
             "importance": arr(state.importance),
             "ef_residual": arr(state.ef_residual),
             "round_index": np.asarray(int(state.round_index), np.int32)}
+
+
+def paper_params_from_jax(np_params: Any, *, device="cuda") -> Any:
+    """A paper model's JAX param tree (numpy leaves; a stage or a
+    ``(client, server)`` pair) -> the port's, every leaf fp32 and
+    contiguous on ``device``."""
+    device = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(conv(v) for v in node)
+        return torch.from_numpy(np.array(node, dtype=np.float32)).to(device)
+
+    return conv(np_params)
+
+
+def paper_params_to_numpy(params: Any) -> Any:
+    """The inverse of :func:`paper_params_from_jax`: fp32 numpy leaves in
+    the same nesting."""
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(conv(v) for v in node)
+        return node.detach().float().cpu().numpy()
+
+    return conv(params)

@@ -49,11 +49,14 @@ What differs from the JAX round, and why:
 * Dense stacks have no MoE aux loss, so the edge and server aux terms of
   the JAX objective are 0 here (MoE is ROADMAP Queue 1, item 11).
 
-Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-item rather than being ignored: fault scenarios and dynamic ``AggParams``
-(item 8), client-axis sharding (item 13), ``TrainConfig.client_chunk``
-(item 7), and models with local attention, SSM or RG-LRU layers (item
-11).
+Every ported layer kind trains: global and local attention, the Mamba-2
+SSD block and the RG-LRU block, the recurrent ones through their plain
+scans (``ssd_chunked``, the doubling scan), as the JAX round trains them
+with ``impl="dense"``.  Not ported yet, and raising
+``NotImplementedError`` naming the ROADMAP item rather than being
+ignored: fault scenarios and dynamic ``AggParams`` (item 8), client-axis
+sharding (item 13), ``TrainConfig.client_chunk`` (item 7) and frontend
+embeddings (item 11).
 """
 
 from __future__ import annotations
@@ -66,8 +69,7 @@ import torch
 from torch.utils._pytree import tree_map
 
 from repro_torch import compress
-from repro_torch.config import (ATTN_GLOBAL, ModelConfig, TrainConfig,
-                                WSSLConfig)
+from repro_torch.config import ModelConfig, TrainConfig, WSSLConfig
 from repro_torch.core import aggregation, wssl
 from repro_torch.core.protocol import sync_round_bytes, tree_bytes
 from repro_torch.models import attention as attn
@@ -176,24 +178,10 @@ def _row(tree: Params, i: int) -> Params:
     return tree_map(lambda a: a[i], tree)
 
 
-def check_trainable(model_cfg: ModelConfig) -> None:
-    """The port trains global-attention stacks only: local attention, SSM
-    and RG-LRU layers serve and prefill, but their training (through the
-    plain scans, as the JAX package trains them) is not ported yet."""
-    mixers = sorted({spec.mixer for spec in model_cfg.layer_specs()}
-                    - {ATTN_GLOBAL})
-    if mixers:
-        raise NotImplementedError(
-            f"training {model_cfg.name} (mixers {mixers}) is not ported yet: "
-            f"ROADMAP Queue 1, item 11 (training of the other model "
-            f"families)")
-
-
 def _check_ported(batch, scenario, agg_p, shard_ctx,
                   train_cfg: TrainConfig, wssl_cfg: WSSLConfig,
-                  impl: str, model_cfg: ModelConfig) -> None:
+                  impl: str) -> None:
     """Refuse, before any state moves, what the port does not run yet."""
-    check_trainable(model_cfg)
     if scenario is not None:
         raise NotImplementedError(
             "fault scenarios are not ported yet (ROADMAP Queue 1, item 8: "
@@ -299,7 +287,7 @@ def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
     compression draws (tests feed the JAX draws); ``comp_p`` overrides the
     compression block's runtime values."""
     _check_ported(batch, scenario, agg_p, shard_ctx, train_cfg, wssl_cfg,
-                  impl, model_cfg)
+                  impl)
     cfg = model_cfg
     n = wssl_cfg.num_clients
     num_edges = len(state.edge_stages)
@@ -469,7 +457,6 @@ def make_round_fn(model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
     ``round_fn(state, batch, val_batch=None, scenario=None, agg_p=None,
     comp_p=None, *, gumbel=None, comp_uniform=None)``.  The state is updated in place (the
     counterpart of the JAX factory's ``donate=True``)."""
-    check_trainable(model_cfg)
     schedule = make_schedule(train_cfg.schedule, train_cfg.learning_rate,
                              train_cfg.warmup_steps, train_cfg.rounds)
     return functools.partial(wssl_round, model_cfg=model_cfg,

@@ -14,7 +14,7 @@ The parameter aggregation itself is the registry in
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 from torch.utils._pytree import tree_leaves, tree_map
@@ -106,6 +106,26 @@ def participation_mask(weights: torch.Tensor, cfg: WSSLConfig, round_index,
     if int(round_index) == 0:
         return torch.ones_like(mask)
     return mask
+
+
+def select_clients(weights: torch.Tensor, cfg: WSSLConfig,
+                   round_index: int = 1, *,
+                   generator: Optional[torch.Generator] = None,
+                   gumbel: Optional[torch.Tensor] = None,
+                   penalty: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full Algorithm 1 for one epoch, the host-side view with concrete
+    indices: (the selected indices, the (N,) mask).  The sample is drawn
+    in every round; round 0 returns every client (the rule of
+    :func:`participation_mask`)."""
+    sampled = weighted_sample(weights, cfg.num_selected(), generator=generator,
+                              gumbel=gumbel, penalty=penalty,
+                              beta=cfg.select_staleness_beta)
+    mask = participation_mask(weights, cfg, round_index, idx=sampled)
+    if int(round_index) == 0:
+        return torch.arange(cfg.num_clients, dtype=torch.int32,
+                            device=weights.device), mask
+    return sampled, mask
 
 
 # ---------------------------------------------------------------------------

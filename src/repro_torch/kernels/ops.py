@@ -146,19 +146,30 @@ def fused_adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                           scalars.tolist())
 
 
+# columns per slice of the plain AdamW: its elementwise transients stay a
+# few hundred MB a slice, where a whole (2, 655,360,000) embedding leaf
+# would need ~5 GB each
+PLAIN_ADAM_COLS = 1 << 24
+
+
 def fused_adamw_plain(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                       v: torch.Tensor, mask: Optional[torch.Tensor],
                       scalars: torch.Tensor) -> None:
     """:func:`fused_adamw` through its plain version on any device, in
     place: what a CPU tensor takes, and the reference a card's run is
-    held against."""
+    held against.  The update is elementwise, so it runs in column slices
+    of ``PLAIN_ADAM_COLS`` with the same result bit for bit."""
     if p.numel() == 0:
         return
     pf, gf, mf, vf = _adam_rows(p, g, m, v, mask)
-    po, mo, vo = ref.fused_adamw_2d(pf, gf, mf, vf, mask, scalars)
-    pf.copy_(po)
-    mf.copy_(mo)
-    vf.copy_(vo)
+    for lo in range(0, pf.shape[1], PLAIN_ADAM_COLS):
+        cols = slice(lo, lo + PLAIN_ADAM_COLS)
+        po, mo, vo = ref.fused_adamw_2d(pf[:, cols], gf[:, cols],
+                                        mf[:, cols], vf[:, cols], mask,
+                                        scalars)
+        pf[:, cols].copy_(po)
+        mf[:, cols].copy_(mo)
+        vf[:, cols].copy_(vo)
 
 
 def quantize_stochastic(x: torch.Tensor, u: torch.Tensor,

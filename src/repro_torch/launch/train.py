@@ -1,11 +1,17 @@
 """WSSL training CLI of the PyTorch port — the twin of
 ``repro/launch/train.py``.
 
-Runs synchronous WSSL rounds (Algorithm 1 + 2) over the transformer stack
-on synthetic LM data, with random weights from a seed:
+Runs synchronous WSSL rounds (Algorithm 1 + 2) over the decoder stack —
+Gemma-2B, Mamba-2-370M or RecurrentGemma-2B — on synthetic LM data, with
+random weights from a seed:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
       --clients 2 --rounds 3 --seq-len 128 --batch-per-client 2
+
+The recurrent families train through their plain scans (``impl="dense"``),
+as the JAX package trains them.  A Mamba-2 sequence is at most one SSD
+chunk or a whole number of chunks; any other length raises ``ValueError``
+(``models/ssm.py::ssd_chunked``) where JAX asserts.
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch path instead
 (with ``--reduced`` for a size the CPU can take).
@@ -89,11 +95,14 @@ def train(cfg: ModelConfig, wssl_cfg: WSSLConfig, train_cfg: TrainConfig, *,
           rounds: int, batch_per_client: int, seq_len: int, val_batch: int,
           seed: int = 0, device="cuda", impl: str = "dense",
           gumbels: Optional[Sequence[torch.Tensor]] = None,
+          before_round: Optional[Callable[[WSSLState, int], None]] = None,
           log: Callable[[str], None] = print
           ) -> Tuple[WSSLState, List[dict]]:
     """Init the state from ``seed`` and run ``rounds`` rounds; returns the
     state and one record per round.  Each round's time ends in a device
-    synchronise.  ``gumbels`` replaces the selection draw of each round."""
+    synchronise.  ``gumbels`` replaces the selection draw of each round;
+    ``before_round(state, r)``, when given, reads the state before round r
+    (outside the round's time)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     state = init_state(gen, cfg, wssl_cfg, train_cfg, device=device)
@@ -105,6 +114,8 @@ def train(cfg: ModelConfig, wssl_cfg: WSSLConfig, train_cfg: TrainConfig, *,
     history = []
     for r in range(rounds):
         batch = round_batch(cfg, n, b, s, seed * 1000 + r, device)
+        if before_round is not None:
+            before_round(state, r)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()

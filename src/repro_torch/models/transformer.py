@@ -22,8 +22,9 @@ tensors (``core/round.py`` binds each layer's slice as a leaf of its own,
 so autograd accumulates into the slice and not into a full-size buffer
 per layer); the layer loops index both forms the same way.  ``remat``
 recomputes the activations of each span of super-blocks in the backward
-(``torch.utils.checkpoint``), which changes no number.  The round trains
-global-attention stacks only (``core/round.py::check_trainable``).
+(``torch.utils.checkpoint``), which changes no number.  Training runs
+every layer kind through its plain path (``impl="dense"``): the kernels
+have no backward, in either package.
 """
 
 from __future__ import annotations

@@ -14,7 +14,8 @@ layer of window 64, GeGLU MLPs), on bridged params and the same tokens.
   router against JAX's (paged for RecurrentGemma: only global layers page,
   so its rings and states stay per slot).
 * The bridge keeps the fp32 leaves fp32; ``impl="kernel"`` refuses
-  autograd; the training round refuses these families.
+  autograd.  (Their training through the round is
+  ``tests/test_torch_family_train.py``.)
 
 Tolerance: fp32 logits atol = rtol = 1e-4 (same fp32 math, other summation
 orders; measured gaps ~1e-5).  Greedy tokens must be equal exactly.
@@ -40,8 +41,7 @@ from repro.serve import ServeParams as JaxServeParams
 from repro.serve import synthetic_requests as jax_requests
 from repro_torch import _bridge
 from repro_torch._bridge import params_from_jax
-from repro_torch.config import TrainConfig, WSSLConfig, get_arch, reduced
-from repro_torch.core.round import make_round_fn, wssl_round
+from repro_torch.config import get_arch, reduced
 from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models import transformer as tf
 from repro_torch.serve import (DecodeEngine, FaultRoutedServer, ServeParams,
@@ -239,15 +239,3 @@ def test_kernel_impl_refuses_autograd():
         tf.forward(tp, cfg, toks, impl="kernel", remat=False)
     with torch.no_grad():
         tf.forward(tp, cfg, toks, impl="kernel", remat=False)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_round_refuses_the_recurrent_families(arch):
-    cfg = reduced(get_arch(arch))
-    wcfg, tcfg = WSSLConfig(num_clients=2), TrainConfig(rounds=1)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
-        make_round_fn(cfg, wcfg, tcfg)
-    # a state built another way is refused by the round itself too
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
-        wssl_round(None, {}, model_cfg=cfg, wssl_cfg=wcfg, train_cfg=tcfg,
-                   schedule=None)

@@ -185,6 +185,30 @@ def test_plain_fused_adamw_matches_jax_ref():
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+@pytest.mark.parametrize("cols", [1, 8, 36, 37])
+def test_plain_fused_adamw_in_column_slices_is_exact(monkeypatch, cols):
+    """The plain version runs in column slices (bounded transients on the
+    card); the update is elementwise, so any slice width gives the same
+    bits as one slice, a ragged last slice and mask=None included."""
+    rng = np.random.default_rng(5)
+    p, g, mm = (rng.normal(size=(3, 37)).astype(np.float32)
+                for _ in range(3))
+    vv = rng.random(size=(3, 37)).astype(np.float32)
+    sc = opt.adam_scalars(2, lr=1e-2, beta1=0.9, beta2=0.95, eps=1e-8,
+                          weight_decay=0.1)
+    for mask in (torch.tensor([0.0, 1.0, 1.0]), None):
+        want = ref.fused_adamw_2d(*(torch.tensor(a) for a in (
+            p, g, mm, vv)), mask, sc) if mask is not None else [
+            t.reshape(3, 37) for t in ref.fused_adamw_2d(*(
+                torch.tensor(a).reshape(1, -1) for a in (p, g, mm, vv)),
+                None, sc)]
+        monkeypatch.setattr(ops, "PLAIN_ADAM_COLS", cols)
+        tp, tm, tv = (torch.tensor(a) for a in (p, mm, vv))
+        ops.fused_adamw_plain(tp, torch.tensor(g), tm, tv, mask, sc)
+        for a, b in zip((tp, tm, tv), want):
+            assert torch.equal(a, b)
+
+
 def test_fused_adamw_dispatch_edges():
     sc = opt.adam_scalars(1, lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8,
                           weight_decay=0.0)
