@@ -148,7 +148,46 @@ Phases, each printing its lines before the last:
              ``cudnn.flags(deterministic=True, allow_tf32=False)``:
              selections, losses, accuracies and final params bit-exact.
 
-Each of phases 12-15 prints its wall time.  Then one JSON line with every
+16. the round under faults — full Mamba-2-370M (48 layers, 8 clients,
+             cut 8, seq 256, batch 2, participation 1.0; fp32 params, bf16
+             activations, fused AdamW, the plain scans), every client on a
+             token stream of its own: no scenario against ``clean``, 2
+             rounds each, the whole state bit-exact; then
+             ``scaled-grad-adversary`` (clients 0-1 at x32) under the
+             importance mean and under Krum (f = 2), 3 rounds each.
+             Checks: finite losses, fused-AdamW launches = leaves x
+             rounds, Krum never picks client 0 or 1.  Reports the rounds'
+             seconds, peak memory, the adversaries' importance against the
+             honest mean and the global model's validation loss.
+17. fault parity — Mamba-2-370M at full width and 4 layers, cuts (1, 3)
+             (one edge stage, 2 hop replicas), 8 clients, seq 128 (one SSD
+             chunk; phase 16 crosses chunks), participation 0.5, 2 rounds: each fault scenario of ``FAULT_SCENARIOS``
+             under the importance mean and each robust rule under
+             ``scaled-grad-adversary``, through the AdamW kernel and
+             through ``ops.fused_adamw_plain`` with the same seed and
+             Gumbel draws: masks, losses, stages and moments bit-exact;
+             a masked client's moment rows unchanged by its round; AdamW
+             launches = client leaves a round + shared leaves a round with
+             a survivor.
+18. the paper's robustness — the paper loop on its own models: the gait
+             FFN at 10 clients (10 rounds x 10 steps, ``make_gait_like(n=
+             20000)`` by subject) under seven scenarios with the importance
+             mean, Krum and the median under the two model-poisoning
+             scenarios, int8 and top-k uploads; ResNet-18 (``CifarConfig``)
+             at 8 clients (5 x 10) under ``label-flip-adversary`` with the
+             importance mean and Krum.  Checks: ``clean`` equals no
+             scenario bit for bit (cuDNN deterministic, no TF32);
+             ``history["dropped"]`` is the numpy replay of the loop's fault
+             generator; AdamW launches = leaves x steps taken (stragglers
+             take fewer); each compression kernel once per client leaf a
+             round; finite losses.  Two 2-round gait runs under
+             ``sign-flip-adversary`` and Krum, one with int8 and one with
+             top-k uploads, through the kernels against their plain
+             versions (AdamW and the scheme's compression kernels at the
+             gait leaves' shapes): bit-exact.  Reports accuracy
+             by round and each adversary cohort's importance.
+
+Each of phases 12-18 prints its wall time.  Then one JSON line with every
 kernel's numbers (nine kernels), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
 exits non-zero before that line; it also exits non-zero, printing no
@@ -2082,6 +2121,511 @@ def run_paper_parity(torch, ops):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Faults and robust aggregation (phases 16-18)
+# ---------------------------------------------------------------------------
+
+# phases 16-17: the round under fault scenarios.  Full Mamba-2-370M at 8
+# clients: p, m, v and g in fp32 are 16 B x ~1.14e9 elements, ~18.3 GB
+# (reckoned); the pre-step rows and Krum's (8, D) matrix ~3.3 GB each
+FAULT_RUN = dict(device="cuda", reduced=False, arch="mamba2-370m",
+                 clients=8, cut=8, seq=256, batch=2, val_batch=2, seed=0,
+                 clean_rounds=2, rounds=3, byzantine_f=2,
+                 parity_layers=4, parity_cuts=(1, 3), parity_rounds=2,
+                 parity_participation=0.5, parity_seq=128)
+FAULT_SCENARIOS = ("label-flip-adversary", "grad-noise-adversary",
+                   "sign-flip-adversary", "dropout-30", "stragglers",
+                   "adaptive-scaled", "edge-dropout", "edge-latency")
+ROBUST_RULES = ("trimmed_mean", "median", "krum", "multi_krum",
+                "geometric_median", "norm_clip")
+
+
+def _fault_setup(layers, cuts, participation, rule="importance"):
+    from repro_torch.config import (AggregationConfig, TrainConfig,
+                                    WSSLConfig, get_arch, reduced)
+    cfg = get_arch(FAULT_RUN["arch"])
+    if FAULT_RUN["reduced"]:
+        cfg = reduced(cfg)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    cut = dict(split_layers=tuple(cuts), hop_replicas=2) if len(cuts) > 1 \
+        else dict(split_layer=cuts[0])
+    wssl_cfg = WSSLConfig(num_clients=FAULT_RUN["clients"],
+                          participation_fraction=participation,
+                          agg=AggregationConfig(
+                              rule=rule, byzantine_f=FAULT_RUN["byzantine_f"]),
+                          **cut)
+    train_cfg = TrainConfig(learning_rate=1e-3,
+                            remat=not FAULT_RUN["reduced"], fused_adam=True)
+    return cfg, wssl_cfg, train_cfg
+
+
+def _client_streams(torch, cfg, n, b, s, r, dev):
+    """One round's batch with every client on a token stream of its own
+    (a Markov mixture seeded per client, as the robustness benchmark
+    draws under skew): tokens/labels (n, b, s) on ``dev``."""
+    import numpy as np
+    from repro_torch.data.synthetic import make_token_stream
+    toks = np.stack([make_token_stream(b, s + 1, cfg.vocab_size,
+                                       seed=10_000 * (i + 1) + r)
+                     for i in range(n)])
+    return {"tokens": torch.as_tensor(toks[:, :, :-1], device=dev),
+            "labels": torch.as_tensor(toks[:, :, 1:], device=dev)}
+
+
+def _global_val_loss(torch, state, cfg, val):
+    """The synced global model's loss on the validation batch."""
+    from torch.utils._pytree import tree_map
+    from repro_torch.models import transformer as tf
+    with torch.no_grad():
+        a = tf.client_forward(tree_map(lambda t: t[0], state.client_stack),
+                              cfg, val["tokens"], remat=False)
+        for j, ep in enumerate(state.edge_stages):
+            a = tf.stage_forward(ep, cfg, a, j + 1, remat=False)
+        loss, _ = tf.server_loss(state.server_params, cfg, a, val["labels"],
+                                 remat=False)
+    return float(loss)
+
+
+def _drive_fault_rounds(torch, cfg, wssl_cfg, train_cfg, scenario, rounds,
+                        gumbels=None, before_round=None, seq=None):
+    """``init_state`` from the seed, then ``make_round_fn``'s round under
+    ``scenario`` on per-client streams of ``seq`` tokens (default
+    ``FAULT_RUN["seq"]``).  Returns the state, one record per round (with
+    the client Krum picked, when the rule ran it) and the validation
+    batch."""
+    from unittest import mock
+    from repro_torch.core import aggregation
+    from repro_torch.core.round import init_state, make_round_fn
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.sim import scenario_params
+    dev = torch.device(FAULT_RUN["device"])
+    n, b, s = (wssl_cfg.num_clients, FAULT_RUN["batch"],
+               seq or FAULT_RUN["seq"])
+    sp = None if scenario is None else scenario_params(scenario)
+    gen = torch.Generator(device=dev).manual_seed(FAULT_RUN["seed"])
+    state = init_state(gen, cfg, wssl_cfg, train_cfg, device=dev)
+    round_fn = make_round_fn(cfg, wssl_cfg, train_cfg)
+    val = {k: torch.as_tensor(v, device=dev) for k, v in lm_batch(
+        FAULT_RUN["val_batch"], s, cfg.vocab_size, seed=10_000).items()}
+    picked = []
+    real_scores = aggregation.krum_scores
+
+    def spy(stacked, mask, f):
+        scores = real_scores(stacked, mask, f)
+        picked.append(scores.cpu().tolist())
+        return scores
+
+    recs = []
+    with mock.patch.object(aggregation, "krum_scores", spy):
+        for r in range(rounds):
+            batch = _client_streams(torch, cfg, n, b, s, r, dev)
+            if before_round is not None:
+                before_round(state, r)
+            picked.clear()
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            state, m = round_fn(state, batch, val, sp,
+                                gumbel=None if gumbels is None
+                                else gumbels[r])
+            _sync(torch, dev)
+            dt = time.perf_counter() - t0
+            rec = {"round": r, "dt_s": dt, "loss": float(m.loss),
+                   "val_loss": m.val_loss.cpu().tolist(),
+                   "mask": m.mask.cpu().tolist(),
+                   "importance": m.importance.cpu().tolist()}
+            if picked:
+                rec["krum_scores"] = picked[0]
+                rec["krum_pick"] = min(range(n), key=lambda i: (
+                    picked[0][i], i))
+            recs.append(rec)
+    return state, recs, val
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _fault_launches(state, recs):
+    """Fused-AdamW launches a run of ``recs`` must make: every client leaf
+    each round, the shared stages' leaves each round with a survivor."""
+    client = len(_leaves(state.client_stack))
+    shared = len(_leaves((state.server_params, state.edge_stages)))
+    return sum(client + (shared if sum(r["mask"]) > 0 else 0) for r in recs)
+
+
+def run_fault_train(torch, ops):
+    """Phase 16: full Mamba-2-370M at 8 clients under faults — no scenario
+    against ``clean`` (2 rounds each, state bit-exact), then
+    ``scaled-grad-adversary`` (clients 0-1 at x32) under the importance
+    mean and under Krum (f = 2), 3 rounds each."""
+    from repro_torch.core import fairness
+    from repro_torch.sim import get_scenario
+    dev = torch.device(FAULT_RUN["device"])
+    out = {}
+    sides = {}
+    for name, sc in (("none", None), ("clean", get_scenario("clean"))):
+        cfg, wssl_cfg, train_cfg = _fault_setup(None, (FAULT_RUN["cut"],),
+                                                1.0)
+        _free(torch)
+        ops.reset_launch_counts()
+        state, recs, _ = _drive_fault_rounds(
+            torch, cfg, wssl_cfg, train_cfg, sc, FAULT_RUN["clean_rounds"])
+        counts = ops.launch_counts()
+        want = _fault_launches(state, recs)
+        if counts["fused_adamw"] != want:
+            raise AssertionError(f"fault train {name}: launches {counts}, "
+                                 f"expected {want} fused_adamw")
+        sides[name] = (state, recs)
+    (a, ra), (b, rb) = sides["none"], sides["clean"]
+    tensors = lambda st: _leaves((st.client_stack, st.server_params,
+                                  st.edge_stages, st.opt_client.m,
+                                  st.opt_client.v, st.opt_server.m,
+                                  st.opt_server.v, st.importance))
+    differing = sum(_bit_diffs(torch, x, y) for x, y in zip(tensors(a),
+                                                           tensors(b)))
+    same_recs = all(x["loss"] == y["loss"] and x["mask"] == y["mask"]
+                    and x["val_loss"] == y["val_loss"]
+                    for x, y in zip(ra, rb))
+    out["clean"] = {"rounds": FAULT_RUN["clean_rounds"],
+                    "state_elements_differing": differing,
+                    "state_elements": sum(t.numel() for t in tensors(a)),
+                    "records_equal": same_recs,
+                    "round_s": [r["dt_s"] for r in rb]}
+    secs = ", ".join(f"{r['dt_s']:.3f}" for r in rb)
+    print(f"fault train: {cfg.name} {cfg.num_layers} layers, "
+          f"{FAULT_RUN['clients']} clients, cut {FAULT_RUN['cut']}: clean "
+          f"scenario vs none, {FAULT_RUN['clean_rounds']} rounds: "
+          f"{differing} of {out['clean']['state_elements']} state elements "
+          f"differ, records equal {same_recs}; clean rounds {secs} s",
+          flush=True)
+    if differing or not same_recs:
+        raise AssertionError(f"fault train: clean differs from no scenario: "
+                             f"{out['clean']}")
+    del sides, a, b, state
+    _free(torch)
+
+    sc = get_scenario("scaled-grad-adversary")
+    bad = sc.adversary_ids(FAULT_RUN["clients"])
+    for rule in ("importance", "krum"):
+        cfg, wssl_cfg, train_cfg = _fault_setup(None, (FAULT_RUN["cut"],),
+                                                1.0, rule)
+        _free(torch)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        state, recs, val = _drive_fault_rounds(
+            torch, cfg, wssl_cfg, train_cfg, sc, FAULT_RUN["rounds"])
+        counts = ops.launch_counts()
+        peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+                else 0)
+        want = _fault_launches(state, recs)
+        if counts["fused_adamw"] != want:
+            raise AssertionError(f"fault train {rule}: launches {counts}, "
+                                 f"expected {want} fused_adamw")
+        if not all(math.isfinite(r["loss"]) and all(
+                math.isfinite(v) for v in r["val_loss"]) for r in recs):
+            raise AssertionError(f"fault train {rule}: non-finite loss")
+        picks = [r.get("krum_pick") for r in recs]
+        if rule == "krum" and (None in picks or set(picks) & set(bad)):
+            raise AssertionError(f"fault train: Krum picked {picks}, the "
+                                 f"adversaries are {bad}")
+        gap = fairness.importance_gap(recs[-1]["importance"], bad)
+        rec = {"rule": rule, "scenario": sc.name, "adversaries": bad,
+               "rounds": recs, "round_s": [r["dt_s"] for r in recs],
+               "peak_bytes": peak, "launches": counts,
+               "krum_picks": picks if rule == "krum" else None,
+               "importance_gap": gap,
+               "global_val_loss": _global_val_loss(torch, state, cfg, val)}
+        secs = ", ".join(f"{t:.3f}" for t in rec["round_s"])
+        print(f"fault train: {sc.name} under {rule}, "
+              f"{FAULT_RUN['rounds']} rounds of {cfg.num_layers} layers: "
+              f"rounds {secs} s; "
+              f"losses {[round(r['loss'], 4) for r in recs]}; adversaries "
+              f"{bad} importance {gap['corrupt_mean']:.4f} against the "
+              f"honest mean {gap['clean_mean']:.4f}; Krum picks "
+              f"{rec['krum_picks']}; global model's validation loss "
+              f"{rec['global_val_loss']:.4f}; launches {_nonzero(counts)}; "
+              f"peak memory "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+        out[rule] = rec
+        del state
+        _free(torch)
+    return out
+
+
+def run_fault_parity(torch, ops):
+    """Phase 17: Mamba-2-370M at full width and 4 layers, cuts (1, 3) (one
+    edge stage, 2 hop replicas), 8 clients, seq 128, 2 rounds, under each
+    fault scenario (importance) and each robust rule
+    (``scaled-grad-adversary``), through the AdamW kernel and through its
+    plain version, the same seed and Gumbel draws: masks, losses and
+    stages bit-exact, dropped and unselected clients' moment rows
+    unchanged."""
+    from unittest import mock
+    import numpy as np
+    from repro_torch.sim import get_scenario
+    dev = torch.device(FAULT_RUN["device"])
+    rounds = FAULT_RUN["parity_rounds"]
+    rng = np.random.default_rng(23)
+    gumbels = [torch.as_tensor(rng.gumbel(size=FAULT_RUN["clients"]).astype(
+        np.float32)) for _ in range(rounds)]
+    cases = ([(name, "importance") for name in FAULT_SCENARIOS]
+             + [("scaled-grad-adversary", rule) for rule in ROBUST_RULES])
+    out = []
+    for name, rule in cases:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(dev)
+        sides = {}
+        for side in ("kernel", "plain"):
+            cfg, wssl_cfg, train_cfg = _fault_setup(
+                FAULT_RUN["parity_layers"], FAULT_RUN["parity_cuts"],
+                FAULT_RUN["parity_participation"], rule)
+            sums = []
+            ops.reset_launch_counts()
+            with mock.patch.object(ops, "fused_adamw", ops.fused_adamw
+                                   if side == "kernel"
+                                   else ops.fused_adamw_plain):
+                state, recs, _ = _drive_fault_rounds(
+                    torch, cfg, wssl_cfg, train_cfg, get_scenario(name),
+                    rounds, gumbels=gumbels, seq=FAULT_RUN["parity_seq"],
+                    before_round=lambda st, r: sums.append(
+                        _moment_sums(torch, st)))
+            sums.append(_moment_sums(torch, state))
+            counts = ops.launch_counts()
+            want = _fault_launches(state, recs) if side == "kernel" else 0
+            if counts["fused_adamw"] != want:
+                raise AssertionError(f"fault parity {name} {rule} {side}: "
+                                     f"launches {counts}, expected {want}")
+            for r, rec in enumerate(recs):
+                for i, sel in enumerate(rec["mask"]):
+                    if sel == 0.0 and not torch.equal(sums[r][i],
+                                                      sums[r + 1][i]):
+                        raise AssertionError(
+                            f"fault parity {name} {rule} {side}: round {r} "
+                            f"client {i} was masked and its moments moved")
+            sides[side] = (state, recs)
+        (sk, rk), (sp, rp) = sides["kernel"], sides["plain"]
+        fields = ("mask", "loss", "val_loss", "importance")
+        differ = sorted({f for a, b in zip(rk, rp) for f in fields
+                         if a[f] != b[f]})
+        tensors = lambda st: _leaves((st.client_stack, st.server_params,
+                                      st.edge_stages, st.opt_client.m,
+                                      st.opt_client.v))
+        bits = sum(_bit_diffs(torch, a, b) for a, b in zip(tensors(sk),
+                                                          tensors(sp)))
+        rec = {"scenario": name, "rule": rule,
+               "masks": [r["mask"] for r in rk],
+               "losses": [r["loss"] for r in rk],
+               "krum_picks": [r.get("krum_pick") for r in rk],
+               "fields_differing": differ, "state_elements_differing": bits,
+               "seconds": time.perf_counter() - t0,
+               "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        print(f"fault parity: {name} under {rule}, {cfg.num_layers} layers, "
+              f"cuts {FAULT_RUN['parity_cuts']}: masks {rec['masks']}, "
+              f"losses {[round(v, 5) for v in rec['losses']]}; fields "
+              f"differing {differ}, {bits} state elements differ (bit-exact "
+              f"required); peak {rec['peak_gib']:.2f} GiB (both sides' "
+              f"states live); {rec['seconds']:.1f} s", flush=True)
+        if differ or bits:
+            raise AssertionError(f"fault parity {name} {rule}: kernel and "
+                                 f"plain runs differ: {rec}")
+        out.append(rec)
+        del sides, sk, sp, state
+        _free(torch)
+    return out
+
+
+# phase 18: the paper's robustness on its own models
+PAPER_ROBUST = dict(gait_clients=10, gait_rounds=10, resnet_clients=8,
+                    resnet_rounds=5, steps=10, parity_rounds=2)
+PAPER_ROBUST_GAIT = (
+    [(sc, "importance", "none") for sc in (
+        "clean", "label-flip-adversary", "sign-flip-adversary",
+        "scaled-grad-adversary", "adaptive-scaled", "dropout-30",
+        "stragglers")]
+    + [(sc, rule, "none") for rule in ("krum", "median")
+       for sc in ("scaled-grad-adversary", "adaptive-scaled")]
+    + [("clean", "importance", scheme) for scheme in ("int8", "topk")])
+PAPER_ROBUST_RESNET = [("label-flip-adversary", rule, "none")
+                       for rule in ("importance", "krum")]
+PAPER_COMP_KERNELS = {"int8": ("quantize_stochastic", "dequantize"),
+                      "topk": ("topk_mask",), "none": ()}
+
+
+def _paper_robust_cfg(nc, rule, scheme):
+    from repro_torch.config import (AggregationConfig, CompressionConfig,
+                                    WSSLConfig)
+    return WSSLConfig(num_clients=nc, participation_fraction=0.5,
+                      agg=AggregationConfig(rule=rule),
+                      compression=CompressionConfig(scheme=scheme))
+
+
+def _steps_taken(h, sc, nc, steps):
+    """Local steps the loop took: stragglers take round(steps / slowdown)."""
+    strag = set(sc.straggler_ids(nc))
+    slow = max(1, int(round(steps / max(sc.straggler_slowdown, 1.0))))
+    return sum(slow if i in strag else steps for sel in h["selected"]
+               for i in sel)
+
+
+def _replay_dropped(h, sc, seed):
+    """``history["dropped"]`` replayed from the loop's numpy generator."""
+    import numpy as np
+    rng = np.random.default_rng(sc.seed + 7919 * seed + 1)
+    return [[i for i in sorted(sel + dropped)
+             if rng.random() < sc.dropout_prob]
+            for sel, dropped in zip(h["selected"], h["dropped"])]
+
+
+def run_paper_robust(torch, ops):
+    """Phase 18: the paper loop under faults, robust rules and compressed
+    uploads on its own models — the gait FFN at 10 clients (10 rounds x 10
+    steps) and ResNet-18 at 8 (5 x 10) — with exact launch counts, the
+    dropout replay, clean against no scenario bit for bit, and 2-round
+    gait runs (int8, top-k) through the kernels against their plain
+    versions."""
+    import contextlib
+    from unittest import mock
+    from repro_torch.core import fairness
+    from repro_torch.core import paper_loop as pl
+    from repro_torch.kernels import ref
+    from repro_torch.sim import get_scenario
+    dev = torch.device(PAPER_RUN["device"])
+    steps = PAPER_ROBUST["steps"]
+    det = lambda: torch.backends.cudnn.flags(
+        enabled=True, benchmark=False, deterministic=True, allow_tf32=False)
+    out = {"gait": {}, "resnet": {}}
+    for kind, cases in (("gait", PAPER_ROBUST_GAIT),
+                        ("resnet", PAPER_ROBUST_RESNET)):
+        ad, cfg, val, test, loaders, _ = _paper_experiment(kind)
+        n_client, n_server = _paper_leaves(torch, ad)
+        nc = PAPER_ROBUST[f"{kind}_clients"]
+        rounds = PAPER_ROBUST[f"{kind}_rounds"]
+        lr = PAPER_RUN[kind]["lr"]
+        extra = [("none", "importance", "none")] if kind == "gait" else []
+        for name, rule, scheme in extra + cases:
+            sc = None if name == "none" else get_scenario(name)
+            sc_ = sc if sc is not None else get_scenario("clean")
+            _free(torch)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with det():
+                h = pl.train_wssl(ad, loaders(nc), val, test,
+                                  _paper_robust_cfg(nc, rule, scheme),
+                                  rounds=rounds, local_steps=steps, lr=lr,
+                                  seed=0, scenario=sc, device=dev)
+            _sync(torch, dev)
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            taken = _steps_taken(h, sc_, nc, steps)
+            want = {"fused_adamw": (n_client + n_server) * taken,
+                    **{k: n_client * rounds
+                       for k in PAPER_COMP_KERNELS[scheme]}}
+            if {k: v for k, v in counts.items() if v} != want:
+                raise AssertionError(f"paper robust {kind} {name} {rule} "
+                                     f"{scheme}: launches {counts}, expected "
+                                     f"{want}")
+            losses = h["test_loss"] + h["train_loss"] + [
+                v for vs in h["val_loss"] for v in vs]
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"paper robust {kind} {name} {rule}: "
+                                     f"non-finite loss")
+            if h["dropped"] != _replay_dropped(h, sc_, 0):
+                raise AssertionError(f"paper robust {kind} {name}: dropped "
+                                     f"{h['dropped']} is not the numpy "
+                                     f"replay")
+            bad = sc_.adversary_ids(nc)
+            gap = fairness.importance_gap(h["importance"][-1], bad)
+            key = f"{name}/{rule}/{scheme}"
+            params = [t.detach().cpu() for t in _leaves(h.pop("params"))]
+            rec = _paper_summary(h, len(test["y"])) | {
+                "scenario": name, "rule": rule, "compression": scheme,
+                "adversaries": bad, "importance_gap": gap,
+                "dropped": h["dropped"], "steps_taken": taken,
+                "launches": counts, "wall_s": wall}
+            print(f"paper robust: {kind} {nc} clients, {name} / {rule} / "
+                  f"{scheme}: test accuracy by round "
+                  f"{[round(a, 4) for a in h['test_acc']]}, best "
+                  f"{h['best_acc']:.4f}; adversaries {bad} importance "
+                  f"{gap['corrupt_mean']:.4f} against the others' "
+                  f"{gap['clean_mean']:.4f}; dropped "
+                  f"{sum(len(d) for d in h['dropped'])}; {taken} steps, "
+                  f"launches {_nonzero(counts)}; {wall:.1f} s", flush=True)
+            out[kind][key] = rec
+            if kind == "gait" and name in ("none", "clean") and \
+                    rule == "importance" and scheme == "none":
+                out[kind][key]["_params"] = params
+        if kind == "gait":
+            a = out["gait"]["none/importance/none"]
+            b = out["gait"]["clean/importance/none"]
+            fields = ("selected", "test_acc", "test_loss", "train_loss",
+                      "val_loss", "importance")
+            bits = sum(_bit_diffs(torch, x, y) for x, y in zip(
+                a.pop("_params"), b.pop("_params")))
+            differ = [f for f in fields if a[f] != b[f]]
+            print(f"paper robust: gait clean vs no scenario: fields "
+                  f"differing {differ}, {bits} final param elements differ "
+                  f"(bit-exact required)", flush=True)
+            if differ or bits:
+                raise AssertionError("paper robust: the clean scenario is "
+                                     "not the loop without one")
+            out["gait"]["clean_vs_none"] = {"fields_differing": differ,
+                                            "param_elements_differing": bits}
+
+    # parity: 2 gait rounds under sign flips and Krum, with int8 and with
+    # top-k uploads, the kernels against their plain versions
+    ad, cfg, val, test, loaders, _ = _paper_experiment("gait")
+    nc = PAPER_ROBUST["gait_clients"]
+    plain = {"int8": dict(quantize_stochastic=ref.quantize_stochastic_2d,
+                          dequantize=ref.dequantize_2d),
+             "topk": dict(topk_mask=ref.topk_mask_2d)}
+    out["parity"] = {}
+    for scheme in COMP_SCHEMES:
+        sides = {}
+        for side in ("kernel", "plain"):
+            patch = (contextlib.nullcontext() if side == "kernel" else
+                     mock.patch.multiple(
+                         ops, fused_adamw=ops.fused_adamw_plain,
+                         **plain[scheme]))
+            ops.reset_launch_counts()
+            with patch, det():
+                h = pl.train_wssl(ad, loaders(nc), val, test,
+                                  _paper_robust_cfg(nc, "krum", scheme),
+                                  rounds=PAPER_ROBUST["parity_rounds"],
+                                  local_steps=steps,
+                                  lr=PAPER_RUN["gait"]["lr"], seed=0,
+                                  scenario=get_scenario(
+                                      "sign-flip-adversary"),
+                                  device=dev)
+            counts = ops.launch_counts()
+            want = ({"fused_adamw", *PAPER_COMP_KERNELS[scheme]}
+                    if side == "kernel" else set())
+            if {k for k, v in counts.items() if v} != want:
+                raise AssertionError(f"paper robust parity {scheme} {side}: "
+                                     f"launches {counts}")
+            sides[side] = (h, [t.detach().cpu() for t in _leaves(
+                h.pop("params"))])
+        (hk, pk), (hp, pp) = sides["kernel"], sides["plain"]
+        fields = ("selected", "test_acc", "test_loss", "train_loss",
+                  "val_loss", "importance", "bytes_sync")
+        differ = [f for f in fields if hk[f] != hp[f]]
+        bits = sum(_bit_diffs(torch, a, b) for a, b in zip(pk, pp))
+        rec = {"fields_differing": differ, "param_elements_differing": bits,
+               "param_elements": sum(t.numel() for t in pk),
+               "test_acc": hk["test_acc"]}
+        out["parity"][scheme] = rec
+        print(f"paper robust parity: gait {nc} clients x "
+              f"{PAPER_ROBUST['parity_rounds']} rounds, sign-flip-adversary, "
+              f"krum, {scheme}: fields differing {differ}; {bits} of "
+              f"{rec['param_elements']} final param elements differ "
+              f"(bit-exact required)", flush=True)
+        if differ or bits:
+            raise AssertionError(f"paper robust parity {scheme}: kernel and "
+                                 f"plain runs differ: {rec}")
+    return out
+
+
 def _check_bodies(ops, where, bf16=True):
     """The counted run's flash and SSD-scan launches all took their
     tensor-core bodies (bf16, at the models' shapes; none of them in fp32)
@@ -2357,13 +2901,17 @@ def main(argv=None) -> int:
     record["comp_train"] = run_comp_train(torch, ops)
     # -- 9. compressed kernel path vs plain path ---------------------------
     record["comp_parity"] = run_comp_parity(torch, ops, ref)
-    # -- 12-15. the families' training and the paper's experiment ---------
+    # -- 12-18. the families' training, the paper's experiment, faults -----
     for key, label, fn in (
             ("family_train", "12. family training", run_family_train),
             ("family_train_parity", "13. family train parity",
              run_family_train_parity),
             ("paper", "14. the paper experiment", run_paper),
-            ("paper_parity", "15. paper parity", run_paper_parity)):
+            ("paper_parity", "15. paper parity", run_paper_parity),
+            ("fault_train", "16. the round under faults", run_fault_train),
+            ("fault_parity", "17. fault parity", run_fault_parity),
+            ("paper_robust", "18. the paper's robustness",
+             run_paper_robust)):
         t0 = time.perf_counter()
         record[key] = fn(torch, ops)
         record[f"{key}_s"] = time.perf_counter() - t0

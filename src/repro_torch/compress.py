@@ -47,6 +47,7 @@ from torch.utils._pytree import tree_map
 
 from repro_torch.config import CompressionConfig
 from repro_torch.kernels import ops
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 Params = Any
 
@@ -65,27 +66,6 @@ def compression_params(cfg: CompressionConfig) -> CompressionParams:
     levels = float(2 ** (cfg.bits - 1) - 1) if cfg.kind == "quant" else 1.0
     return CompressionParams(rate=f32(cfg.rate), levels=f32(levels),
                              bits=f32(cfg.bits))
-
-
-def tree_leaves(tree: Params) -> List[torch.Tensor]:
-    """Leaves in the JAX package's order: dict keys sorted, lists in
-    order.  ``()`` has none."""
-    if isinstance(tree, dict):
-        return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [l for t in tree for l in tree_leaves(t)]
-    return [tree]
-
-
-def _unflatten(tree: Params, leaves) -> Params:
-    """``tree``'s structure with the leaves of :func:`tree_leaves`'s order
-    (an iterator) in place of its own."""
-    if isinstance(tree, dict):
-        vals = {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
-        return {k: vals[k] for k in tree}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_unflatten(t, leaves) for t in tree)
-    return next(leaves)
 
 
 def topk_count(m: int, rate: float) -> float:
@@ -190,8 +170,8 @@ def apply_compression(delta: Params, residual: Params, mask: torch.Tensor,
         del x2
         rec.masked_fill_(~on, 0.0)
         sent_leaves.append(rec.reshape(d.shape).to(d.dtype))
-    sent = _unflatten(delta, iter(sent_leaves))
-    new_res = _unflatten(residual, iter(res_leaves)) if ef else residual
+    sent = tree_unflatten(delta, iter(sent_leaves))
+    new_res = tree_unflatten(residual, iter(res_leaves)) if ef else residual
     return sent, new_res
 
 

@@ -1,5 +1,5 @@
 """Configuration for the PyTorch port: the model dataclasses, the
-architecture registry, the serving-side :class:`Scenario`, and the
+architecture registry, the fault :class:`Scenario`, and the
 training blocks (:class:`WSSLConfig`, :class:`TrainConfig`,
 :class:`AggregationConfig`, and the async and compression blocks).
 
@@ -16,6 +16,7 @@ package compare equal field by field.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
@@ -152,29 +153,95 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class Scenario:
-    """Replica fault scenario, as far as the serving router reads it.
+    """Client-population fault / heterogeneity scenario (``repro_torch.sim``).
 
-    The router holds each field at zero (the ``clean`` scenario) until the
-    fault simulator is ported; see ``serve/router.py``."""
+    A Scenario says *who misbehaves and how* along the fixed client axis,
+    without changing shapes: cohorts are deterministic index ranges
+    (adversarial clients take the lowest indices, stragglers the highest,
+    ``floor(fraction * N)`` clients each), and per-round dropout is
+    Bernoulli over the clients.  The round reads it through
+    ``repro_torch.sim.faults.scenario_params``; the serving router reads
+    the replica faults and holds them at zero (see ``serve/router.py``).
+
+    ``skew_alpha`` is the one partition-time knob: when set, client data is
+    split with a Dirichlet(alpha) label skew instead of stratified / IID
+    (``repro_torch.data.partition.partition_for_scenario``).
+    """
 
     name: str = "clean"
+    # transient failures: each client independently drops out of a round
     dropout_prob: float = 0.0
+    # slow clients: the top `fraction` of client indices complete only
+    # 1/slowdown of their local work per round (update scale in the fused
+    # round; fewer local steps in the paper loop)
     straggler_fraction: float = 0.0
     straggler_slowdown: float = 1.0
+    # adversarial clients (lowest indices): training labels shifted by
+    # max(1, C//2) mod C; the server-held validation labels stay clean
     label_flip_fraction: float = 0.0
+    # noisy-gradient clients (lowest indices): N(0, scale^2) added to the
+    # client-stage gradient
     gradient_noise_fraction: float = 0.0
     gradient_noise_scale: float = 0.0
+    # Byzantine adversaries (lowest indices): sign-flipped client-stage
+    # gradients, or updates amplified by a constant factor
     sign_flip_fraction: float = 0.0
     grad_scale_fraction: float = 0.0
     grad_scale_factor: float = 1.0
+    # adaptive adversaries (lowest indices): send mean(honest) - margin *
+    # std(honest) per coordinate (ALIE style)
     adaptive_fraction: float = 0.0
     adaptive_margin: float = 1.5
+    # per-hop faults (multi-hop pipelines): each edge-hop replica dies for
+    # the round with hop_dropout_prob (masking the clients routed through
+    # it), or straggles with hop_latency_prob at hop_latency_slowdown
     hop_dropout_prob: float = 0.0
     hop_latency_prob: float = 0.0
     hop_latency_slowdown: float = 1.0
+    # partition-time label skew (Dirichlet alpha); None = stratified / IID
     skew_alpha: Optional[float] = None
     seed: int = 0
+    # the client count a preset is calibrated for (advisory only)
     num_clients_hint: Optional[int] = None
+
+    # -- deterministic cohorts ----------------------------------------------
+    @staticmethod
+    def _cohort_size(fraction: float, num_clients: int) -> int:
+        return int(fraction * num_clients + 1e-6)
+
+    def label_flip_ids(self, num_clients: int) -> List[int]:
+        return list(range(self._cohort_size(self.label_flip_fraction,
+                                            num_clients)))
+
+    def noise_ids(self, num_clients: int) -> List[int]:
+        return list(range(self._cohort_size(self.gradient_noise_fraction,
+                                            num_clients)))
+
+    def sign_flip_ids(self, num_clients: int) -> List[int]:
+        return list(range(self._cohort_size(self.sign_flip_fraction,
+                                            num_clients)))
+
+    def grad_scale_ids(self, num_clients: int) -> List[int]:
+        return list(range(self._cohort_size(self.grad_scale_fraction,
+                                            num_clients)))
+
+    def adaptive_ids(self, num_clients: int) -> List[int]:
+        return list(range(self._cohort_size(self.adaptive_fraction,
+                                            num_clients)))
+
+    def adversary_ids(self, num_clients: int) -> List[int]:
+        """Union of the corrupted cohorts (all are index prefixes), for
+        reporting; each fault applies only to its own cohort."""
+        k = self._cohort_size(max(self.label_flip_fraction,
+                                  self.gradient_noise_fraction,
+                                  self.sign_flip_fraction,
+                                  self.grad_scale_fraction,
+                                  self.adaptive_fraction), num_clients)
+        return list(range(k))
+
+    def straggler_ids(self, num_clients: int) -> List[int]:
+        k = self._cohort_size(self.straggler_fraction, num_clients)
+        return list(range(num_clients - k, num_clients))
 
     def is_clean(self) -> bool:
         return (self.dropout_prob == 0.0 and self.straggler_fraction == 0.0
@@ -186,6 +253,12 @@ class Scenario:
                 and self.hop_dropout_prob == 0.0
                 and self.hop_latency_prob == 0.0
                 and self.skew_alpha is None)
+
+    def replace(self, **kw) -> "Scenario":
+        return dataclasses.replace(self, **kw)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, default=str)
 
 
 # ---------------------------------------------------------------------------
@@ -295,8 +368,7 @@ class CompressionConfig:
 class AggregationConfig:
     """Algorithm 2 step 5 as a policy block: ``rule`` names an entry of the
     aggregator registry (``core/aggregation.py``).  Every built-in rule of
-    the JAX package is a valid name; the robust ones raise when they run
-    until they are ported."""
+    the JAX package is a valid name."""
 
     rule: str = "importance"
     trim_fraction: float = 0.1

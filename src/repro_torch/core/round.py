@@ -1,13 +1,24 @@
 """One synchronous WSSL communication round for the transformer stack.
 
-The twin of the flat, clean round of ``repro/core/round.py``: Algorithm 1
-and 2 over a fixed client axis and an N-stage split pipeline
+The twin of the flat round of ``repro/core/round.py``: Algorithm 1 and 2
+over a fixed client axis and an N-stage split pipeline
 
-  importance -> Gumbel-top-k selection mask -> per-client split forward and
-  chained backward (client stage per client, edge and server stages
-  shared) -> global-norm clip -> masked optimizer step -> per-client
-  validation -> importance EMA -> update compression with error feedback
-  -> weighted aggregation and client sync.
+  fault plan -> importance -> Gumbel-top-k selection mask (times the
+  plan's survivors) -> per-client split forward and chained backward
+  (client stage per client, edge and server stages shared) -> global-norm
+  clip -> gradient corruption -> masked optimizer step -> update scaling
+  and the adaptive attack -> per-client validation -> importance EMA ->
+  update compression with error feedback -> registry aggregation and
+  client sync.
+
+With a ``scenario`` (``repro_torch.sim``), its fault plan composes with
+the selection mask and the round's tensors as in JAX: dropped clients and
+clients behind dead hop replicas mask out, label-flip adversaries train on
+shifted labels, sign-flip and noisy clients corrupt their client-stage
+gradient after the clip, stragglers, slow hops and Byzantine clients scale
+their post-optimizer update, and adaptive clients send mean(honest) - z
+std(honest).  Every aggregation rule of the registry runs, the robust
+ones with their ``AggParams``.
 
 With ``WSSLConfig.compression`` on, the uploaded stage deltas go through
 ``repro_torch.compress`` (top-k or stochastic int8 / int4, with an fp32
@@ -33,10 +44,18 @@ What differs from the JAX round, and why:
   is the matching slice of the buffer (:func:`_bind`).  The shared
   stages' gradients sum over clients in client order (JAX sums them in
   one batched backward), which moves fp32 results by rounding only.
-* The optimizer steps the client stack in place, so the selected
-  clients' rows are copied before the step: the compressed upload is the
-  delta against them.  A masked row is frozen bit for bit, so its delta is
-  0 and only the selected rows are rebuilt as ``old + sent``.
+* The optimizer steps the client stack in place, so the pre-step rows
+  that something reads are copied before the step: the selected rows when
+  the compressed upload or an update transform reads them, and every
+  adaptive client's.  A masked row is frozen bit for bit, so its delta is
+  0, its scaled update is itself, and only the kept rows are rebuilt as
+  ``old + sent``.
+* An all-dropped round does not step the server and edge stages at all
+  (JAX steps them and then keeps the old values): the state is the same,
+  and those stages' AdamW launches are skipped.
+* The fault plan and the gradient noise draw from streams of their own
+  (the selection generator's seed, the round and a tag, as the
+  compression draws), or from ``fault_draws`` when given.
 * Compression draws come from ``comp_uniform(tag, leaf, shape)`` when
   given (tests feed the JAX draws: ``tag`` is the integer the JAX round
   folds into its selection key, ``leaf`` the leaf index folded in after it
@@ -54,9 +73,8 @@ SSD block and the RG-LRU block, the recurrent ones through their plain
 scans (``ssd_chunked``, the doubling scan), as the JAX round trains them
 with ``impl="dense"``.  Not ported yet, and raising
 ``NotImplementedError`` naming the ROADMAP item rather than being
-ignored: fault scenarios and dynamic ``AggParams`` (item 8), client-axis
-sharding (item 13), ``TrainConfig.client_chunk`` (item 7) and frontend
-embeddings (item 11).
+ignored: client-axis sharding (item 13), ``TrainConfig.client_chunk``
+(item 7) and frontend embeddings (item 11).
 """
 
 from __future__ import annotations
@@ -77,6 +95,8 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.layers import resolve_device, torch_dtype
 from repro_torch.optim import clip_by_global_norm, make_optimizer
 from repro_torch.optim.schedule import make_schedule
+from repro_torch.sim import faults as sim_faults
+from repro_torch.tree import tree_leaves
 
 Params = Any
 
@@ -178,18 +198,9 @@ def _row(tree: Params, i: int) -> Params:
     return tree_map(lambda a: a[i], tree)
 
 
-def _check_ported(batch, scenario, agg_p, shard_ctx,
-                  train_cfg: TrainConfig, wssl_cfg: WSSLConfig,
-                  impl: str) -> None:
+def _check_ported(batch, shard_ctx, train_cfg: TrainConfig,
+                  wssl_cfg: WSSLConfig, impl: str) -> None:
     """Refuse, before any state moves, what the port does not run yet."""
-    if scenario is not None:
-        raise NotImplementedError(
-            "fault scenarios are not ported yet (ROADMAP Queue 1, item 8: "
-            "sim/faults.py)")
-    if agg_p is not None:
-        raise NotImplementedError(
-            "dynamic AggParams are not ported yet (ROADMAP Queue 1, item 8: "
-            "robust aggregation)")
     if shard_ctx is not None:
         raise NotImplementedError(
             "client-axis sharding is not ported yet (ROADMAP Queue 1, "
@@ -203,27 +214,30 @@ def _check_ported(batch, scenario, agg_p, shard_ctx,
             "frontend embeddings are not ported yet (ROADMAP Queue 1, "
             "item 11: models/frontend.py)")
     attn.check_train_impl(impl)
-    aggregation.resolve(wssl_cfg)
+    aggregation.get_aggregator(wssl_cfg.resolve_aggregation().rule)
 
 
 # the integers the JAX round folds into its selection key for the
 # compression draws: each uploaded leaf (then its index), and each hop
-# crossing h (client -> first stage after it is hop 0), up and down
+# crossing h (client -> first stage after it is hop 0), up and down; and
+# for the fault plan and the gradient noise
 TAG_UPDATE = 0xC09
 TAG_ACT_UP = 0xAC0
 TAG_ACT_DOWN = 0xDC0
+TAG_FAULT = 0x0DD
+TAG_NOISE = 0xBAD
 
 Uniform = Callable[[int, Optional[int], Tuple[int, ...]], torch.Tensor]
 
-_M64 = (1 << 64) - 1
 
-
-def _mix(x: int, v: int) -> int:
-    """One splitmix64 step of ``x ^ v``."""
-    x = ((x ^ v) + 0x9E3779B97F4A7C15) & _M64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
-    return x ^ (x >> 31)
+def _stream(state: WSSLState, tag: int, leaf: Optional[int], device
+            ) -> torch.Generator:
+    """The generator of one of the round's own draws: seeded from the
+    selection generator's seed, the round, the tag and the leaf."""
+    return wssl.derived_generator(state.rng.initial_seed(),
+                                  int(state.round_index), tag,
+                                  -1 if leaf is None else leaf,
+                                  device=device)
 
 
 def _draws(state: WSSLState, comp_uniform: Optional[Uniform], device
@@ -231,44 +245,58 @@ def _draws(state: WSSLState, comp_uniform: Optional[Uniform], device
     """The round's compression draws: ``(tag, leaf, shape) -> U[0, 1)``
     fp32 on ``device``, from ``comp_uniform`` or from a generator of their
     own (see the module docstring)."""
-    base, rnd = state.rng.initial_seed(), int(state.round_index)
-
     def draw(tag, leaf, shape):
         if comp_uniform is not None:
             return comp_uniform(tag, leaf, tuple(shape)).to(
                 device=device, dtype=torch.float32).contiguous()
-        seed = base
-        for v in (rnd, tag, -1 if leaf is None else leaf):
-            seed = _mix(seed, v & _M64)
-        gen = torch.Generator(device=device).manual_seed(seed >> 1)
-        return torch.rand(tuple(shape), generator=gen, dtype=torch.float32,
-                          device=device)
+        return torch.rand(tuple(shape),
+                          generator=_stream(state, tag, leaf, device),
+                          dtype=torch.float32, device=device)
     return draw
 
 
 def _compress_update(state: WSSLState, old_rows: List[torch.Tensor],
-                     sel: List[int], mask: torch.Tensor, comp_cfg,
-                     comp_p: compress.CompressionParams, draw: Uniform
-                     ) -> None:
+                     saved: List[int], sel: List[int], mask: torch.Tensor,
+                     comp_cfg, comp_p: compress.CompressionParams,
+                     draw: Uniform) -> None:
     """Send the selected clients' stage deltas through the wire, in place:
-    each selected row of the client stack becomes ``old + sent`` (what the
-    aggregation reads) and the residuals carry what the wire dropped.  One
+    each saved row of the client stack (``old_rows`` holds the pre-step
+    rows of the clients ``saved``, the selected ones among them) becomes
+    ``old + sent`` (what the aggregation reads; sent is 0 on an
+    unselected row) and the residuals carry what the wire dropped.  One
     leaf at a time, so one leaf's transients are live at once."""
-    res = compress.tree_leaves(state.ef_residual)
-    for i, (leaf, old) in enumerate(zip(compress.tree_leaves(
+    res = tree_leaves(state.ef_residual)
+    pos = [saved.index(i) for i in sel]
+    for i, (leaf, old) in enumerate(zip(tree_leaves(
             state.client_stack), old_rows)):
         n, m = leaf.shape[0], leaf[0].numel()
         delta = torch.zeros(leaf.shape, dtype=torch.float32,
                             device=leaf.device)
-        delta[sel] = leaf[sel].float() - old.float()
+        delta[sel] = leaf[sel].float() - old[pos].float()
         u = ([draw(TAG_UPDATE, i, (n, m))]
              if comp_cfg.kind == "quant" and m else None)
         sent, new_r = compress.apply_compression(
             delta, res[i] if res else (), mask, comp_cfg, comp_p, u=u)
         del delta, u
-        leaf[sel] = (old.float() + sent[sel]).to(leaf.dtype)
+        leaf[saved] = (old.float() + sent[saved]).to(leaf.dtype)
         if res:
             res[i].copy_(new_r)
+
+
+def _keep_rows(plan: Optional[sim_faults.FaultPlan], sel: List[int],
+               compressing: bool) -> List[int]:
+    """The clients whose pre-step rows the round keeps: the selected ones
+    when an update transform or the compression reads them, and every
+    adaptive client (its row is replaced whether selected or not, and the
+    compressed upload reads its pre-step row back); [] when nothing
+    reads them."""
+    if plan is None:
+        return list(sel) if compressing else []
+    adaptive = set(torch.nonzero(plan.adaptive > 0).flatten().tolist())
+    scale = (plan.grad_scale * plan.byz_scale).tolist()
+    if not (compressing or adaptive or any(scale[i] != 1.0 for i in sel)):
+        return []
+    return sorted(set(sel) | adaptive)
 
 
 def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
@@ -278,16 +306,27 @@ def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
                model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
                train_cfg: TrainConfig, schedule, impl: str = "dense",
                shard_ctx=None, gumbel: Optional[torch.Tensor] = None,
-               comp_uniform: Optional[Uniform] = None
+               comp_uniform: Optional[Uniform] = None,
+               fault_draws: Optional[sim_faults.FaultDraws] = None
                ) -> Tuple[WSSLState, RoundMetrics]:
     """One communication round, in place.  batch: tokens/labels (N, b, S);
     val_batch: tokens/labels (bv, S), the server-held validation set (None
-    skips validation and keeps the importance).  ``gumbel`` (N,) replaces
-    the selection draw from ``state.rng`` and ``comp_uniform`` the
-    compression draws (tests feed the JAX draws); ``comp_p`` overrides the
-    compression block's runtime values."""
-    _check_ported(batch, scenario, agg_p, shard_ctx, train_cfg, wssl_cfg,
-                  impl)
+    skips validation and keeps the importance).
+
+    ``scenario``: a :class:`~repro_torch.sim.faults.ScenarioParams`
+    (``sim.scenario_params`` lowers a ``Scenario``): dropped clients and
+    clients behind dead hop replicas mask out, adversaries' labels and
+    gradients are corrupted, stragglers, slow hops and Byzantine clients
+    scale their update, adaptive clients craft theirs.  ``agg_p``: the
+    :class:`~repro_torch.core.aggregation.AggParams` of the rule (default:
+    lowered from the config).  ``comp_p`` overrides the compression
+    block's runtime values.
+
+    ``gumbel`` (N,) replaces the selection draw from ``state.rng``,
+    ``comp_uniform`` the compression draws and ``fault_draws`` the fault
+    plan's and the gradient noise's (tests feed the JAX draws); the
+    compression and fault draws never advance ``state.rng``."""
+    _check_ported(batch, shard_ctx, train_cfg, wssl_cfg, impl)
     cfg = model_cfg
     n = wssl_cfg.num_clients
     num_edges = len(state.edge_stages)
@@ -296,12 +335,31 @@ def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
     if comp_cfg.enabled and comp_p is None:
         comp_p = compress.compression_params(comp_cfg)
     compress_acts = comp_cfg.enabled and comp_cfg.activations
-    draw = _draws(state, comp_uniform, state.importance.device)
+    dev = state.importance.device
+    draw = _draws(state, comp_uniform, dev)
+    fd = fault_draws if fault_draws is not None else sim_faults.FaultDraws()
 
-    # ---- Algorithm 1: selection (round 0 selects every client) ----------
+    # ---- fault injection: the plan first, from a stream of its own, so
+    # its latencies can reach the selection draw ---------------------------
+    plan = None
+    if scenario is not None:
+        plan = sim_faults.sample_fault_plan(
+            scenario, n, num_hops=num_edges,
+            hop_replicas=wssl_cfg.hop_replicas,
+            generator=_stream(state, TAG_FAULT, None, dev), draws=fd,
+            device=dev)
+
+    # ---- Algorithm 1: selection (round 0 selects every client); with
+    # select_staleness_beta > 0 slow clients pay a latency penalty --------
+    penalty = None
+    if wssl_cfg.select_staleness_beta and plan is not None:
+        penalty = sim_faults.client_latencies(plan, n) - 1.0
     mask = wssl.participation_mask(state.importance, wssl_cfg,
                                    state.round_index, generator=state.rng,
-                                   gumbel=gumbel)
+                                   gumbel=gumbel, penalty=penalty)
+    if plan is not None:
+        # dropout: dropped clients compose like unselected ones
+        mask = mask * plan.keep
     agg_w = wssl.aggregation_weights(state.importance, mask, wssl_cfg)
     coef = agg_w * mask
     selected = mask.cpu().tolist()
@@ -309,6 +367,8 @@ def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
 
     # ---- Algorithm 2 steps 2-4: split forward, chained backward ---------
     tokens, labels = batch["tokens"], batch["labels"]
+    if plan is not None:
+        labels = sim_faults.corrupt_labels(plan, labels, cfg.vocab_size)
     rows = tokens.shape[1] * tokens.shape[2]        # d-vectors per client
     hop_u: Dict[int, torch.Tensor] = {}
 
@@ -368,23 +428,39 @@ def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
         clip_by_global_norm(g_server, train_cfg.grad_clip)
         for g in g_edges:
             clip_by_global_norm(g, train_cfg.grad_clip)
+    if plan is not None:
+        # adversarial corruption models the *sent* update, so it follows
+        # the shared global-norm clip
+        sim_faults.corrupt_client_grads(
+            plan, g_client, noise=fd.noise,
+            generator=_stream(state, TAG_NOISE, None, dev))
 
     # ---- optimizer (masked for unselected clients), in place ------------
-    # the compressed upload is the delta against the selected rows' values
-    # before the step, which the in-place step overwrites
-    old_rows = ([leaf[sel_rows] for leaf in
-                 compress.tree_leaves(state.client_stack)]
-                if comp_cfg.enabled else [])
+    # the update transforms and the compressed upload read the pre-step
+    # rows, which the in-place step overwrites: keep the ones they read
+    saved = _keep_rows(plan, sel_rows, comp_cfg.enabled)
+    old_rows = ([leaf[saved] for leaf in
+                 tree_leaves(state.client_stack)] if saved else [])
     _, opt_update = make_optimizer(train_cfg.optimizer)
     lr = schedule(int(state.round_index))
     wd = train_cfg.weight_decay
     opt_update(state.client_stack, g_client, state.opt_client, lr=lr,
                weight_decay=wd, mask=mask)
-    opt_update(state.server_params, g_server, state.opt_server, lr=lr,
-               weight_decay=wd)
-    for ep, ge, oe in zip(state.edge_stages, g_edges, state.opt_edge):
-        opt_update(ep, ge, oe, lr=lr, weight_decay=wd)
+    # an all-dropped round leaves the shared stages and their optimizer
+    # state untouched (JAX steps them and keeps the old values)
+    if plan is None or sel_rows:
+        opt_update(state.server_params, g_server, state.opt_server, lr=lr,
+                   weight_decay=wd)
+        for ep, ge, oe in zip(state.edge_stages, g_edges, state.opt_edge):
+            opt_update(ep, ge, oe, lr=lr, weight_decay=wd)
     del g_client, g_server, g_edges
+    if plan is not None:
+        # straggler / slow-hop progress and Byzantine amplification on the
+        # post-optimizer update, then the adaptive clients' crafted stage
+        sim_faults.scale_client_updates(plan, state.client_stack, old_rows,
+                                        rows=saved)
+        sim_faults.adaptive_scale_updates(plan, state.client_stack,
+                                          old_rows, mask, rows=saved)
 
     # ---- validation on the server-held set -> importance ----------------
     if val_batch is not None:
@@ -406,14 +482,16 @@ def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
         importance = state.importance.clone()
 
     # ---- update-path compression, then Algorithm 2 step 5: aggregation
-    # through the registry + sync ----------------------------------------
+    # through the registry + sync (dropout can empty the selection: `safe`
+    # falls back to a no-op sync) ----------------------------------------
     with torch.no_grad():
         if comp_cfg.enabled:
-            _compress_update(state, old_rows, sel_rows, mask, comp_cfg,
-                             comp_p, draw)
+            _compress_update(state, old_rows, saved, sel_rows, mask,
+                             comp_cfg, comp_p, draw)
         del old_rows
         global_client = aggregation.aggregate_clients(
-            state.client_stack, importance, mask, wssl_cfg)
+            state.client_stack, importance, mask, wssl_cfg,
+            safe=plan is not None, params=agg_p)
         wssl.broadcast_global(state.client_stack, global_client)
         del global_client
         state.importance.copy_(importance)
@@ -455,8 +533,9 @@ def make_round_fn(model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
                   train_cfg: TrainConfig, impl: str = "dense"):
     """The round with its configs and learning-rate schedule closed over:
     ``round_fn(state, batch, val_batch=None, scenario=None, agg_p=None,
-    comp_p=None, *, gumbel=None, comp_uniform=None)``.  The state is updated in place (the
-    counterpart of the JAX factory's ``donate=True``)."""
+    comp_p=None, *, gumbel=None, comp_uniform=None, fault_draws=None)``.
+    The state is updated in place (the counterpart of the JAX factory's
+    ``donate=True``)."""
     schedule = make_schedule(train_cfg.schedule, train_cfg.learning_rate,
                              train_cfg.warmup_steps, train_cfg.rounds)
     return functools.partial(wssl_round, model_cfg=model_cfg,

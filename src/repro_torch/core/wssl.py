@@ -4,9 +4,12 @@ and the Algorithm 2 aggregation coefficients.
 The twin of ``repro/core/wssl.py``.  "Selecting" k of N clients yields a
 (N,) float participation mask over the fixed client axis, and weighted
 sampling without replacement is Gumbel top-k over the importance logits.
-The Gumbel noise is the one random draw: :func:`weighted_sample` takes an
-explicit ``torch.Generator`` or an injected ``gumbel`` tensor, so a test
-can feed the JAX package's draw and get its selection exactly.
+The Gumbel noise is the selection's one random draw:
+:func:`weighted_sample` takes an explicit ``torch.Generator`` or an
+injected ``gumbel`` tensor, so a test can feed the JAX package's draw and
+get its selection exactly.  The other draws of a round (compression,
+faults) come from streams of their own (:func:`derived_generator`) and
+never advance the selection generator.
 
 The parameter aggregation itself is the registry in
 ``core/aggregation.py``.
@@ -52,6 +55,28 @@ def normalize_weights(beta: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Weighted sampling (Algorithm 1 step d)
 # ---------------------------------------------------------------------------
+
+
+_M64 = (1 << 64) - 1
+
+
+def _mix(x: int, v: int) -> int:
+    """One splitmix64 step of ``x ^ v``."""
+    x = ((x ^ v) + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def derived_generator(seed: int, *values: int, device=None
+                      ) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from ``seed`` and
+    ``values`` by splitmix64: one independent stream per tuple, the
+    counterpart of folding the values into a JAX key.  A draw from it
+    never advances any other generator."""
+    for v in values:
+        seed = _mix(seed, v & _M64)
+    return torch.Generator(device=device).manual_seed(seed >> 1)
 
 
 def gumbel_noise(shape, generator: torch.Generator, *,
@@ -227,6 +252,24 @@ def weighted_average(stacked: Params, coefs: torch.Tensor, *,
         return out.reshape(a.shape[1:]).to(a.dtype)
 
     return tree_map(one, stacked)
+
+
+def trimmed_mean_average(stacked: Params, mask: torch.Tensor,
+                         trim_fraction: float = 0.1) -> Params:
+    """Legacy alias: the rule lives in the aggregator registry
+    (``core/aggregation.py::trimmed_mean_average``)."""
+    from repro_torch.core import aggregation
+    return aggregation.trimmed_mean_average(stacked, mask, trim_fraction)
+
+
+def aggregate_clients(stacked: Params, importance: torch.Tensor,
+                      mask: torch.Tensor, cfg: WSSLConfig, *,
+                      safe: bool = False) -> Params:
+    """Legacy alias: Algorithm 2 step 5 dispatches through the aggregator
+    registry (``core/aggregation.py::aggregate_clients``)."""
+    from repro_torch.core import aggregation
+    return aggregation.aggregate_clients(stacked, importance, mask, cfg,
+                                         safe=safe)
 
 
 @torch.no_grad()

@@ -10,6 +10,7 @@ to the activation dtype.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, Optional, Sequence
 
@@ -38,6 +39,22 @@ def resolve_device(device) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port's plain PyTorch path on the CPU")
     return device
+
+
+@contextlib.contextmanager
+def true_fp32():
+    """No TF32 in cuDNN convolutions or cuBLAS matmuls inside the block;
+    the previous settings are restored after it."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic,
+                         allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_tf32 = saved
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,9 @@ to replica ``rid % R``.  The simulated clock runs in clean decode-step
 units: a chunk of T tokens costs T, prefilling an L-token prompt costs
 L x ``prefill_unit``; request latency = completion - arrival.
 
-The fault simulator (``sim/faults.py``) is not ported yet, so the router
-takes only a clean scenario: every replica is kept every tick, at
+The router's replica faults (the plan of ``sim/faults.py`` sampled over
+the replica axis, crash re-routing, slow hosts) are not ported yet, so the
+router takes only a clean scenario: every replica is kept every tick, at
 slowdown 1 — exactly what the JAX router samples for ``clean``.  Any other
 scenario raises.  Speculative decode stays off.  Deadline shedding and
 queue-driven autoscaling are not ported yet either: a request with a
@@ -83,9 +84,10 @@ class FaultRoutedServer:
         scenario = scenario if scenario is not None else Scenario()
         if not scenario.is_clean():
             raise NotImplementedError(
-                f"scenario {scenario.name!r} injects faults; the fault "
-                f"simulator (sim/faults.py) is not ported yet (ROADMAP "
-                f"Queue 1, item 8), so the router serves only clean ones")
+                f"scenario {scenario.name!r} injects faults; the router's "
+                f"replica faults (sim/faults.py over the replica axis) are "
+                f"not ported yet (ROADMAP Queue 1, item 12.2), so the "
+                f"router serves only clean ones")
         self.engine = engine
         self.params = params
         self.p = serve

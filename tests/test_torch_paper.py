@@ -25,8 +25,10 @@ same inputs.
   CifarLite: test and validation losses atol 5e-3 (measured 1.1e-3),
   importance atol 5e-4 (measured 7.6e-5), accuracy within 3 of 120 test
   examples (measured 1).
-* The unported options raise naming their ROADMAP item; the entry points
-  default to the card and raise without one.
+* A finite async deadline, the one option not ported, raises naming its
+  ROADMAP item (scenarios, robust rules and compressed uploads run:
+  ``tests/test_torch_{sim,robust}.py``); the entry points default to the
+  card and raise without one.
 """
 
 import functools
@@ -47,8 +49,7 @@ from repro.data import pipeline as jpipe
 from repro.data import synthetic as jsyn
 from repro.models import paper_models as jpm
 from repro_torch._bridge import paper_params_from_jax, paper_params_to_numpy
-from repro_torch.config import (AggregationConfig, AsyncRoundsConfig,
-                                CompressionConfig, Scenario, WSSLConfig)
+from repro_torch.config import AsyncRoundsConfig, Scenario, WSSLConfig
 from repro_torch.configs import wssl_paper as cfgs
 from repro_torch.core import paper_loop as pl
 from repro_torch.core import wssl
@@ -394,27 +395,14 @@ def test_own_init_trains_and_is_seeded():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("what,item", [
-    ("scenario", "item 8"), ("compression", "item 5b"),
-    ("robust", "item 8"), ("async", "item 10")])
+@pytest.mark.parametrize("what,item", [("async", "item 10")])
 def test_unported_options_raise(what, item):
     _, ad, _, val, test, loaders = _experiment("gait")
-    cfg = WSSLConfig(num_clients=3)
-    kw = {}
-    if what == "scenario":
-        kw["scenario"] = Scenario(name="dropout", dropout_prob=0.2)
-    elif what == "compression":
-        cfg = WSSLConfig(num_clients=3,
-                         compression=CompressionConfig(scheme="int8"))
-    elif what == "robust":
-        cfg = WSSLConfig(num_clients=3,
-                         agg=AggregationConfig(rule="trimmed_mean"))
     with pytest.raises(NotImplementedError, match=item):
-        if what == "async":
-            cfg = WSSLConfig(num_clients=3,
-                             async_rounds=AsyncRoundsConfig(deadline=2.0))
+        cfg = WSSLConfig(num_clients=3,
+                         async_rounds=AsyncRoundsConfig(deadline=2.0))
         pl.train_wssl(ad, loaders(pipeline), val, test, cfg, rounds=1,
-                      local_steps=1, device="cpu", **kw)
+                      local_steps=1, device="cpu")
 
 
 def test_entry_points_default_to_the_card():

@@ -506,18 +506,10 @@ def test_round_refuses_what_is_not_ported():
     batch = {k: torch.as_tensor(v).reshape(2, 2, 8) for k, v in d.items()}
     before = [x.clone() for x in _state_tensors(state)]
     rf = make_round_fn(cfg, w, t)
-    cases = [(dict(scenario=object()), "item 8"),
-             (dict(agg_p=object()), "item 8")]
-    for kw, item in cases:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            rf(state, batch, **kw)
-    from repro_torch.config import AggregationConfig
     for fn, item in (
             (make_round_fn(cfg, w, TrainConfig(client_chunk=1, **TRAIN_KW)),
              "item 7"),
-            (make_round_fn(cfg, w, t, impl="chunked"), "item 6"),
-            (make_round_fn(cfg, WSSLConfig(num_clients=2, agg=AggregationConfig(
-                rule="krum")), t), "item 8")):
+            (make_round_fn(cfg, w, t, impl="chunked"), "item 6")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             fn(state, batch)
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):

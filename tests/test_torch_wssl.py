@@ -169,20 +169,16 @@ def test_aggregate_clients_matches_jax(rule, safe):
             np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=1e-6)
 
 
-def test_registry_names_and_unported_rules_raise():
+def test_registry_names_and_every_rule_ported():
     assert agg.list_aggregators() == jagg.list_aggregators()
     rng = np.random.default_rng(5)
     st = jax.tree.map(_t, _stack(rng, 4))
     ones = torch.ones(4)
     for name in agg.list_aggregators():
         cfg = WSSLConfig(num_clients=4, agg=AggregationConfig(rule=name))
-        if name in ("importance", "uniform"):
-            assert agg.resolve(cfg).ported
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
-            agg.aggregate_clients(st, ones / 4, ones, cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
-            agg.get_aggregator(name).fn(st, ones / 4, ones, None)
+        out = agg.aggregate_clients(st, ones / 4, ones, cfg)
+        assert [tuple(a.shape) for a in jax.tree.leaves(out)] == [
+            tuple(a.shape[1:]) for a in jax.tree.leaves(st)], name
     with pytest.raises(KeyError):
         agg.get_aggregator("nope")
     p = agg.agg_params(AggregationConfig(multi_krum_m=3))
