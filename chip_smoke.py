@@ -134,9 +134,9 @@ Phases, each printing its lines before the last:
              stages within phase 7's bands.
 14. the paper experiment — ``core/paper_loop.py`` at full width in fp32
              on the synthetic stand-ins: the gait FFN WSSL at 2 and 10
-             clients (20 rounds x 10 local steps, ``make_gait_like(n=
+             clients (10 rounds x 10 local steps, ``make_gait_like(n=
              20000)``, split by subject) and its centralized baseline;
-             ResNet-18 (``CifarConfig``) WSSL at 4 clients (10 x 10, batch
+             ResNet-18 (``CifarConfig``) WSSL at 4 clients (5 x 10, batch
              128, lr 2e-3, ``make_image_like`` 12,000 images, stratified)
              and its baseline.  Checks: fused-AdamW launches = leaves x
              local steps taken, exactly, and nothing else launches; finite
@@ -154,7 +154,7 @@ Phases, each printing its lines before the last:
              token stream of its own: no scenario against ``clean``, 2
              rounds each, the whole state bit-exact; then
              ``scaled-grad-adversary`` (clients 0-1 at x32) under the
-             importance mean and under Krum (f = 2), 3 rounds each.
+             importance mean and under Krum (f = 2), 2 rounds each.
              Checks: finite losses, fused-AdamW launches = leaves x
              rounds, Krum never picks client 0 or 1.  Reports the rounds'
              seconds, peak memory, the adversaries' importance against the
@@ -170,11 +170,11 @@ Phases, each printing its lines before the last:
              launches = client leaves a round + shared leaves a round with
              a survivor.
 18. the paper's robustness — the paper loop on its own models: the gait
-             FFN at 10 clients (10 rounds x 10 steps, ``make_gait_like(n=
+             FFN at 10 clients (6 rounds x 10 steps, ``make_gait_like(n=
              20000)`` by subject) under seven scenarios with the importance
              mean, Krum and the median under the two model-poisoning
              scenarios, int8 and top-k uploads; ResNet-18 (``CifarConfig``)
-             at 8 clients (5 x 10) under ``label-flip-adversary`` with the
+             at 8 clients (3 x 10) under ``label-flip-adversary`` with the
              importance mean and Krum.  Checks: ``clean`` equals no
              scenario bit for bit (cuDNN deterministic, no TF32);
              ``history["dropped"]`` is the numpy replay of the loop's fault
@@ -186,9 +186,34 @@ Phases, each printing its lines before the last:
              versions (AdamW and the scheme's compression kernels at the
              gait leaves' shapes): bit-exact.  Reports accuracy
              by round and each adversary cohort's importance.
+19. Gemma-3-12B serving — full Gemma-3-12B (48 layers, 40 local with
+             window 1024 and 8 global, 16 query heads over 8 kv heads, hd
+             256) in bf16 at random weights (output projections x3),
+             through the fault-routed router: 24 ``bursty_trace`` requests
+             (prompts 768-1536, 16-32 new tokens, half with deadlines), 2
+             replicas x 8 slots, chunk 8, paged KV of block 16, prefill
+             priced at the card's 0.002 decode steps a token
+             (``GEMMA3_RUN``), flash prefill and paged decode.  Nine runs: clean, ``replica-drop``, ``slow-host``,
+             ``flash-crowd`` and ``degraded-fleet`` (both autoscaling to 4
+             replicas), a pool of 60% of full residency, speculative
+             decode (4 drafts from the client stage at cut 12) under
+             ``replica-drop``, split mode at cuts (12, 36), and the plain
+             path (dense prefill, gathered decode).  Checks: exact launch
+             counts (flash 48 per admission, re-admissions included; paged
+             8 per decode and verify step, 2 per draft step), every one on
+             the tensor-core / split-K body; every request served or shed,
+             shed ones with deadlines, none unfinished; re-routes under
+             drops, a grown fleet under the flash crowd; runs 2, 3, 6, 7
+             and 8 carry the clean run's tokens exactly on every request
+             both served; the plain path equals them wherever its top-2
+             margin exceeds 0.5.  Flash (local and global) and paged
+             decode at these shapes against their plain versions, graph-
+             timed beside SDPA (a band mask for the local layers); one
+             admission and two decode steps of the kernel path profiled.
 
-Each of phases 12-18 prints its wall time.  Then one JSON line with every
-kernel's numbers (nine kernels), and as the last line
+Each of phases 12-19 prints its wall time.  Then one JSON line with every
+kernel's numbers (the nine kernels, then flash and paged decode at
+Gemma-3-12B's shapes), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
 exits non-zero before that line; it also exits non-zero, printing no
 result, when no card is present or the package is not beside it.
@@ -1919,9 +1944,9 @@ def run_family_train_parity(torch, ops):
 # phases 14-15: the paper's experiment (gait FFN, ResNet-18) at full width
 PAPER_RUN = dict(device="cuda", parity_clients=2, parity_rounds=3,
                  parity_steps=3,
-                 gait=dict(n=20_000, clients=(2, 10), rounds=20, steps=10,
+                 gait=dict(n=20_000, clients=(2, 10), rounds=10, steps=10,
                            lr=1e-3, cfg="GaitConfig", batch=128),
-                 resnet=dict(n=12_000, clients=(4,), rounds=10, steps=10,
+                 resnet=dict(n=12_000, clients=(4,), rounds=5, steps=10,
                              lr=2e-3, cfg="CifarConfig", batch=128))
 # a sanity floor on the final test accuracy (chance: 0.5 and 0.1), not a
 # claim about the paper's numbers
@@ -2130,7 +2155,7 @@ def run_paper_parity(torch, ops):
 # (reckoned); the pre-step rows and Krum's (8, D) matrix ~3.3 GB each
 FAULT_RUN = dict(device="cuda", reduced=False, arch="mamba2-370m",
                  clients=8, cut=8, seq=256, batch=2, val_batch=2, seed=0,
-                 clean_rounds=2, rounds=3, byzantine_f=2,
+                 clean_rounds=2, rounds=2, byzantine_f=2,
                  parity_layers=4, parity_cuts=(1, 3), parity_rounds=2,
                  parity_participation=0.5, parity_seq=128)
 FAULT_SCENARIOS = ("label-flip-adversary", "grad-noise-adversary",
@@ -2258,7 +2283,7 @@ def run_fault_train(torch, ops):
     """Phase 16: full Mamba-2-370M at 8 clients under faults — no scenario
     against ``clean`` (2 rounds each, state bit-exact), then
     ``scaled-grad-adversary`` (clients 0-1 at x32) under the importance
-    mean and under Krum (f = 2), 3 rounds each."""
+    mean and under Krum (f = 2), 2 rounds each."""
     from repro_torch.core import fairness
     from repro_torch.sim import get_scenario
     dev = torch.device(FAULT_RUN["device"])
@@ -2437,8 +2462,8 @@ def run_fault_parity(torch, ops):
 
 
 # phase 18: the paper's robustness on its own models
-PAPER_ROBUST = dict(gait_clients=10, gait_rounds=10, resnet_clients=8,
-                    resnet_rounds=5, steps=10, parity_rounds=2)
+PAPER_ROBUST = dict(gait_clients=10, gait_rounds=6, resnet_clients=8,
+                    resnet_rounds=3, steps=10, parity_rounds=2)
 PAPER_ROBUST_GAIT = (
     [(sc, "importance", "none") for sc in (
         "clean", "label-flip-adversary", "sign-flip-adversary",
@@ -2480,8 +2505,8 @@ def _replay_dropped(h, sc, seed):
 
 def run_paper_robust(torch, ops):
     """Phase 18: the paper loop under faults, robust rules and compressed
-    uploads on its own models — the gait FFN at 10 clients (10 rounds x 10
-    steps) and ResNet-18 at 8 (5 x 10) — with exact launch counts, the
+    uploads on its own models — the gait FFN at 10 clients (6 rounds x 10
+    steps) and ResNet-18 at 8 (3 x 10) — with exact launch counts, the
     dropout replay, clean against no scenario bit for bit, and 2-round
     gait runs (int8, top-k) through the kernels against their plain
     versions."""
@@ -2626,14 +2651,355 @@ def run_paper_robust(torch, ops):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Gemma-3-12B through the whole serving plane (phase 19)
+# ---------------------------------------------------------------------------
+
+# module values, so a CPU rehearsal can shrink them.  Full Gemma-3-12B in
+# bf16 at random weights from seed 0; 24 bursty requests of 768-1536 prompt
+# tokens (they cross the 1024 window: the local rings wrap) and 16-32 new
+# tokens, half of them with deadlines; 2 replicas x 8 slots, chunk 8,
+# paged KV of block 16; split runs at cuts (12, 36), two hops.
+#
+# The simulated clock prices a prefilled token at ``prefill_unit`` decode
+# steps.  The router's default, 0.25, prices a 1152-token admission at 288
+# steps, where the card takes about one: this phase's profile on an H100
+# 80GB HBM3 at 700 W (both under the profiler; PERF.md §5) read 0.152 s
+# for an admission of 1,514 tokens against 1.071 s for a decode chunk of
+# 8 steps, 1.0e-4 s a token against 0.134 s a step.  At 0.25 a replica that admits its 8 slots is
+# busy for ~290 ticks, and under replica-drop (p 0.25 a tick) it is
+# dropped before it finishes: nothing is served, in the JAX package as
+# here (tests/test_torch_serve_faults.py::
+# test_long_admissions_livelock_replica_drop_at_the_default_clock).  So
+# the cell prices prefill at 0.002, and scales the trace's deadline slack,
+# which ``bursty_trace`` reckons at 0.25 a token, by the ratio of the two
+# ideal latencies at the mean prompt ((0.002 x 1152 + 24) / (0.25 x 1152
+# + 24) = 0.084): (1.5, 20) -> (0.125, 1.7).
+#
+# ``out_scale`` multiplies every layer's output projections (``wo``,
+# ``wd``): at the init scale the layers barely move the residual stream,
+# the client stage's early-exit draft agrees with the whole model almost
+# always (the reduced configs accept every draft at the JAX package's
+# init, tests/test_torch_spec.py), and the speculative rollback would go
+# unexercised.
+GEMMA3_RUN = dict(device="cuda", reduced=False, requests=24, prompt_len=1536,
+                  gen=32, replicas=2, slots=8, chunk=8, block_size=16,
+                  burst_every=8, burst_size=8, deadline_frac=0.5,
+                  slack=(0.125, 1.7), prefill_unit=0.002, out_scale=3.0,
+                  draft_k=4, cuts=(12, 36), autoscale_max=4, scale_up_queue=4,
+                  pool_share=0.6)
+# (run, scenario, ServeParams overrides, DecodeEngine overrides); the first
+# is the reference of the comparisons below
+GEMMA3_CASES = (
+    ("clean", "clean", {}, {}),
+    ("replica-drop", "replica-drop", {}, {}),
+    ("slow-host", "slow-host", {}, {}),
+    ("flash-crowd", "flash-crowd", {"autoscale": True}, {}),
+    ("degraded-fleet", "degraded-fleet", {"autoscale": True}, {}),
+    ("pool-60", "clean", {"pool": True}, {}),
+    ("speculative", "replica-drop", {"speculate": True}, {}),
+    ("split", "clean", {}, {"split": True}),
+    ("plain", "clean", {}, {"impl": "dense", "paged_kernel": False}))
+# runs whose served requests must carry the clean run's tokens exactly:
+# every one computes the same kernel calls on the same rows
+GEMMA3_EXACT = ("replica-drop", "slow-host", "pool-60", "speculative",
+                "split")
+
+
+def _gemma3_setup(torch):
+    from repro_torch.config import get_arch, reduced
+    from repro_torch.launch.serve import serve_max_len
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import ServeParams, bursty_trace
+    run = GEMMA3_RUN
+    dev = torch.device(run["device"])
+    cfg = get_arch("gemma3-12b")
+    if run["reduced"]:
+        cfg = reduced(cfg).replace(dtype="bfloat16")
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    for layer in params["stack"] + params["rem"]:
+        layer["mixer"]["wo"].mul_(run["out_scale"])
+        layer["mlp"]["wd"].mul_(run["out_scale"])
+    reqs = bursty_trace(run["requests"], prompt_len=run["prompt_len"],
+                        gen=run["gen"], vocab_size=cfg.vocab_size,
+                        burst_every=run["burst_every"],
+                        burst_size=run["burst_size"],
+                        deadline_frac=run["deadline_frac"],
+                        slack=run["slack"])
+    margin = max(run["chunk"], run["draft_k"])
+    base = ServeParams(replicas=run["replicas"], slots=run["slots"],
+                       chunk=run["chunk"], block_size=run["block_size"],
+                       prefill_unit=run["prefill_unit"],
+                       max_len=serve_max_len(run["prompt_len"], run["gen"],
+                                             margin, run["block_size"]))
+    return dev, cfg, params, reqs, base
+
+
+def _gemma3_params(base, over):
+    import dataclasses
+    run = GEMMA3_RUN
+    kw = {}
+    if over.get("autoscale"):
+        kw.update(autoscale_max=run["autoscale_max"],
+                  scale_up_queue=run["scale_up_queue"])
+    if over.get("pool"):
+        full = base.slots * (base.max_len // base.block_size + 1)
+        kw["pool_blocks"] = int(full * run["pool_share"])
+    if over.get("speculate"):
+        kw.update(speculate=True, draft_k=run["draft_k"])
+    return dataclasses.replace(base, **kw)
+
+
+def _gemma3_launches(cfg, engine):
+    """The attention kernels' launches a serving run must make: flash once
+    per attention layer and admission; paged once per global layer and
+    decode step, a draft step reaching only the client stage's."""
+    from repro_torch.config import ATTN_GLOBAL
+    kinds = [s.mixer for s in cfg.layer_specs()]
+    n_glob = kinds.count(ATTN_GLOBAL)
+    n_draft = kinds[:engine.spec_cut].count(ATTN_GLOBAL)
+    steps = engine.steps
+    return lambda admissions: {
+        "flash_attention": _family_launches(cfg)["flash_attention"]
+        * admissions,
+        "paged_decode_attention": n_glob * (steps["decode"] + steps["verify"])
+        + n_draft * steps["draft"]}
+
+
+def _gemma3_kernel_checks(torch, ops, ref, cfg):
+    """Flash and paged decode at Gemma-3-12B's serving shapes (16 query
+    heads over 8 kv heads, hd 256): a 1536-token admission through a
+    local layer (window 1024, SDPA with a band mask beside) and a global
+    one, a ragged prompt, and a decode step of 8 rows over 99 blocks of
+    16, graph-timed."""
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s, w = GEMMA3_RUN["prompt_len"], cfg.window
+    nb = (s + GEMMA3_RUN["gen"] + GEMMA3_RUN["chunk"] + 15) // 16
+    local = check_flash(torch, ops, ref, b=1, hq=hq, hkv=hkv, s=s, hd=hd,
+                        dtype="bfloat16", window=w, seed=19, profile=True)
+    glob = check_flash(torch, ops, ref, b=1, hq=hq, hkv=hkv, s=s, hd=hd,
+                       dtype="bfloat16", seed=20, profile=True)
+    paged = check_paged(torch, ops, ref, b=8, hq=hq, hkv=hkv, hd=hd, bs=16,
+                        nb=nb, dtype="bfloat16", pos_lo=s // 2, seed=21,
+                        dead_row=False, profile=True)
+    extra = [check_flash(torch, ops, ref, b=1, hq=hq, hkv=hkv, s=s - 425,
+                         hd=hd, dtype=dtype, window=w, seed=22)
+             for dtype in ("bfloat16", "float32")]
+    extra.append(check_paged(torch, ops, ref, b=8, hq=hq, hkv=hkv, hd=hd,
+                             bs=16, nb=nb, dtype="float32", seed=23))
+    for rec in (local, glob, paged, *extra):
+        _check_band(rec)
+    return {"local": local, "global": glob, "paged": paged}, extra
+
+
+def run_gemma3_serve(torch, ops):
+    """Phase 19: full Gemma-3-12B through the whole serving plane — the
+    fault-routed router with every serving scenario, EDF shedding,
+    autoscaling, a 60% pool, speculative decode under replica drops, split
+    mode at cuts (12, 36), and the plain path — then the attention kernels
+    at its shapes.  Every kernel-path run: exact launch counts, all on the
+    tensor-core / split-K bodies; every request served or shed, shed ones
+    with finite deadlines, none unfinished.  Runs 2, 3, 6, 7 and 8 carry
+    the clean run's tokens exactly on every request both served; the plain
+    path equals them wherever its top-2 margin exceeds ARGMAX_MARGIN."""
+    import numpy as np
+
+    from repro_torch.config import ATTN_LOCAL
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import DecodeEngine
+    from repro_torch.sim import get_scenario
+    t0 = time.perf_counter()
+    dev, cfg, params, reqs, base = _gemma3_setup(torch)
+    out = {"arch": cfg.name, "requests": len(reqs), "max_len": base.max_len,
+           "prompt_lens": [r.prompt_len for r in reqs],
+           "deadlines": sum(math.isfinite(r.deadline) for r in reqs),
+           "runs": {}, "setup_s": time.perf_counter() - t0}
+    if dev.type == "cuda":
+        t0 = time.perf_counter()
+        out["kernel_checks"], out["extra_kernel_checks"] = \
+            _gemma3_kernel_checks(torch, ops, ref, cfg)
+        out["kernel_checks_s"] = time.perf_counter() - t0
+    n_local = [s.mixer for s in cfg.layer_specs()].count(ATTN_LOCAL)
+    reports = {}
+    for name, scenario, sp_over, eng_over in GEMMA3_CASES:
+        sp = _gemma3_params(base, sp_over)
+        kw = {"impl": "kernel", "paged_kernel": True}
+        kw.update({k: v for k, v in eng_over.items() if k != "split"})
+        if eng_over.get("split"):
+            kw["cuts"] = GEMMA3_RUN["cuts"]
+        engine = DecodeEngine(cfg, device=dev, **kw)
+        _free(torch)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        report, secs = serve(engine, params, reqs, sp, get_scenario(scenario))
+        counts = ops.launch_counts()
+        admissions = int(report.log.summary()["admitted"])
+        want = {k: 0 for k in counts}
+        if kw["impl"] == "kernel":
+            want.update(_gemma3_launches(cfg, engine)(admissions))
+        if counts != want:
+            raise AssertionError(f"serve gemma3 {name}: launches {counts}, "
+                                 f"expected {want} (steps {engine.steps})")
+        bodies = _check_bodies(ops, f"serve gemma3 {name}")
+        # the flash launches the local layers made, counted by the wrapper
+        windowed = ops.body_launches()["flash_attention_window"]
+        if windowed != (n_local * admissions if kw["impl"] == "kernel"
+                        else 0):
+            raise AssertionError(f"serve gemma3 {name}: {windowed} windowed "
+                                 f"flash launches, {admissions} admissions "
+                                 f"of {n_local} local layers")
+        served, shed = set(report.outputs), set(report.rejected)
+        by_rid = {r.rid: r for r in reqs}
+        if (report.unfinished or served & shed
+                or served | shed != set(by_rid)):
+            raise AssertionError(f"serve gemma3 {name}: unfinished "
+                                 f"{report.unfinished}, served {sorted(served)}"
+                                 f", shed {sorted(shed)}")
+        if any(not math.isfinite(by_rid[rid].deadline) for rid in shed):
+            raise AssertionError(f"serve gemma3 {name}: shed a request "
+                                 f"without a deadline")
+        if any(len(report.outputs[rid]) != by_rid[rid].max_new
+               for rid in served):
+            raise AssertionError(f"serve gemma3 {name}: short outputs")
+        if scenario in ("replica-drop", "degraded-fleet") and not \
+                report.reroutes:
+            raise AssertionError(f"serve gemma3 {name}: nothing re-routed")
+        if name == "flash-crowd" and report.peak_replicas <= base.replicas:
+            raise AssertionError(f"serve gemma3 {name}: the fleet never grew "
+                                 f"({report.peak_replicas} replicas)")
+        if sp.speculate and not report.spec_rounds:
+            raise AssertionError(f"serve gemma3 {name}: no speculative round")
+        reports[name] = report
+        pct = report.percentiles
+        rec = {"scenario": scenario, "seconds": secs,
+               "tokens": report.tokens_out,
+               "tokens_per_s": report.tokens_out / secs,
+               "sim_p50": pct["p50"], "sim_p99": pct["p99"],
+               "slo": report.slo, "reroutes": report.reroutes,
+               "rejected": len(report.rejected), "served": len(served),
+               "admissions": admissions,
+               "peak_replicas": report.peak_replicas,
+               "acceptance": report.acceptance, "drafted": report.drafted,
+               "spec_rounds": report.spec_rounds, "steps": dict(engine.steps),
+               "launches": counts, "bodies": bodies,
+               "flash_windowed": windowed,
+               "hops": report.log.num_hops,
+               "peak_bytes": (torch.cuda.max_memory_allocated()
+                              if dev.type == "cuda" else 0),
+               "pool_blocks": sp.pool_blocks}
+        t0 = time.perf_counter()
+        if name in GEMMA3_EXACT or name == "plain":
+            ref_out = reports["clean"].outputs
+            both = sorted(served & set(ref_out))
+            if name == "plain":
+                rec["diverged"] = diverged = []
+                for rid in both:
+                    for t, (a, b) in enumerate(zip(ref_out[rid],
+                                                   report.outputs[rid])):
+                        if a == b:
+                            continue
+                        margin = _plain_margin(torch, tf, params, cfg,
+                                               by_rid[rid].prompt,
+                                               report.outputs[rid], t, dev)
+                        if margin > ARGMAX_MARGIN:
+                            raise AssertionError(
+                                f"serve gemma3 plain: request {rid} token {t} "
+                                f"differs ({a} vs {b}) at top-2 margin "
+                                f"{margin:.3f} > {ARGMAX_MARGIN}")
+                        diverged.append({"rid": rid, "token": t,
+                                         "margin": margin})
+                        break
+            else:
+                bad = [rid for rid in both
+                       if report.outputs[rid] != ref_out[rid]]
+                if bad:
+                    raise AssertionError(f"serve gemma3 {name}: requests {bad} "
+                                         f"differ from the clean run's tokens")
+            rec["compared_requests"] = len(both)
+        rec["compare_s"] = time.perf_counter() - t0
+        out["runs"][name] = rec
+        print(f"serve gemma3 {name}: {scenario}, {rec['tokens']} tokens in "
+              f"{secs:.2f} s ({rec['tokens_per_s']:.1f} tok/s); sim p50 "
+              f"{pct['p50']:.1f} p99 {pct['p99']:.1f}; SLO attainment "
+              f"{report.slo.get('attainment', 1.0):.3f}; served "
+              f"{len(served)}, rejected {len(shed)}, reroutes "
+              f"{report.reroutes}, peak replicas {report.peak_replicas}, "
+              f"acceptance {report.acceptance:.3f} ({report.accepted}/"
+              f"{report.drafted}); steps {engine.steps}; launches "
+              f"{ {k: v for k, v in counts.items() if v} } (flash with a "
+              f"window {windowed}); peak memory "
+              f"{rec['peak_bytes'] / 2**30:.2f} GiB"
+              + (f"; {rec['compared_requests']} requests compared with the "
+                 f"clean run" if "compared_requests" in rec else "")
+              + (f", {len(rec['diverged'])} diverged at margin <= "
+                 f"{ARGMAX_MARGIN}" if "diverged" in rec else ""), flush=True)
+        del engine, report
+    # the clean run's measured launches, flash split by window, for the
+    # kernels line
+    clean = out["runs"]["clean"]
+    out["clean_launches"] = {
+        "flash_local": clean["flash_windowed"],
+        "flash_global": (clean["launches"]["flash_attention"]
+                         - clean["flash_windowed"]),
+        "paged": clean["launches"]["paged_decode_attention"]}
+    if dev.type == "cuda":
+        # where a clean run's time goes, sampled as in phase 11 (a whole
+        # run's ~200k launches a replica would keep the profiler's event
+        # processing busy for minutes): one admission of the longest prompt
+        # into a fresh paged batch, then decode steps of all its slots
+        from repro_torch.serve import BlockAllocator
+        t0 = time.perf_counter()
+        engine = DecodeEngine(cfg, impl="kernel", paged_kernel=True,
+                              device=dev)
+        state = engine.new_batch_state(base.slots, base.max_len,
+                                       block_size=base.block_size)
+        alloc = BlockAllocator(base.slots * (base.max_len // base.block_size
+                                             + 1), base.block_size,
+                               reserved=base.slots)
+        by_len = sorted(reqs, key=lambda r: r.prompt_len, reverse=True)
+        blocks = [alloc.allocate(min(r.prompt_len + r.max_new + base.chunk,
+                                     base.max_len))
+                  for r in by_len[:base.slots]]
+        out["admit_profile"] = _device_profile(torch, lambda: engine.admit(
+            state, params, by_len[0].prompt, 0, blocks=blocks[0]))
+        for slot, r in enumerate(by_len[1:base.slots], start=1):
+            engine.admit(state, params, r.prompt, slot, blocks=blocks[slot])
+        # two decode steps: a step's ~4,300 launches make the profiler's
+        # event processing, not the card, the cost of a longer window
+        forced = np.zeros((base.slots, 2), np.int32)
+        out["chunk_profile"] = _device_profile(
+            torch, lambda: engine.decode_chunk(
+                state, params, forced, np.zeros((base.slots,), np.int32)))
+        out["profile_s"] = time.perf_counter() - t0
+        print(f"serve gemma3 profiled, kernel path: one admission of "
+              f"{by_len[0].prompt_len} tokens: "
+              + _profile_line(out["admit_profile"], top=3)
+              + f"; two decode steps of {base.slots} slots: "
+              + _profile_line(out["chunk_profile"]), flush=True)
+        del engine, state
+    print(f"serve gemma3: setup {out['setup_s']:.1f} s, kernel checks "
+          f"{out.get('kernel_checks_s', 0.0):.1f} s, runs "
+          f"{sum(r['seconds'] for r in out['runs'].values()):.1f} s, "
+          f"comparisons {sum(r['compare_s'] for r in out['runs'].values()):.1f}"
+          f" s, profile {out.get('profile_s', 0.0):.1f} s", flush=True)
+    del params
+    _free(torch)
+    return out
+
+
 def _check_bodies(ops, where, bf16=True):
     """The counted run's flash and SSD-scan launches all took their
     tensor-core bodies (bf16, at the models' shapes; none of them in fp32)
     and its paged launches the split-K pair."""
-    counts, bodies = ops.launch_counts(), ops.body_launches()
+    counts = ops.launch_counts()
     want = {"flash_attention_tc": counts["flash_attention"] if bf16 else 0,
             "paged_decode_attention_split": counts["paged_decode_attention"],
             "ssd_scan_tc": counts["ssd_scan"] if bf16 else 0}
+    bodies = {k: ops.body_launches()[k] for k in want}
     if bodies != want:
         raise AssertionError(f"{where}: launches by body {bodies}, expected "
                              f"{want} (launches {counts})")
@@ -2911,7 +3277,8 @@ def main(argv=None) -> int:
             ("fault_train", "16. the round under faults", run_fault_train),
             ("fault_parity", "17. fault parity", run_fault_parity),
             ("paper_robust", "18. the paper's robustness",
-             run_paper_robust)):
+             run_paper_robust),
+            ("gemma3_serve", "19. Gemma-3-12B serving", run_gemma3_serve)):
         t0 = time.perf_counter()
         record[key] = fn(torch, ops)
         record[f"{key}_s"] = time.perf_counter() - t0
@@ -2958,6 +3325,22 @@ def main(argv=None) -> int:
                         "replaces": replaces, "launches": launches[rec["kernel"]],
                         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                        "bound_by": rec["bound_by"],
+                        "library_ms": rec["library_ms"]})
+    # the attention kernels again at Gemma-3-12B's shapes (16 query heads
+    # over 8 kv heads), launches from phase 19's clean run
+    g3 = record["gemma3_serve"]
+    for label, key, n in (("local", "local", "flash_local"),
+                          ("global", "global", "flash_global"),
+                          ("decode", "paged", "paged")):
+        rec = g3["kernel_checks"][key]
+        src, replaces = sources[rec["kernel"]]
+        kernels.append({"name": f"{rec['kernel']}/gemma3-12b/{label}",
+                        "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": g3["clean_launches"][n],
+                        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                        "plain_ms": rec["plain_ms"],
+                        "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"],
                         "library_ms": rec["library_ms"]})
     record["kernels"] = kernels

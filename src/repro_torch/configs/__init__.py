@@ -1,6 +1,7 @@
 """Architecture configs ported so far.  Importing this package registers
 them into the registry (``repro_torch.config.get_arch``)."""
 
+from repro_torch.configs import gemma3_12b  # noqa: F401
 from repro_torch.configs import gemma_2b  # noqa: F401
 from repro_torch.configs import mamba2_370m  # noqa: F401
 from repro_torch.configs import recurrentgemma_2b  # noqa: F401

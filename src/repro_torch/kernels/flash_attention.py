@@ -5,7 +5,8 @@
 The wrapper takes CUDA tensors only; ``kernels/ops.py`` dispatches CPU
 tensors to the plain version in ``kernels/ref.py``.  ``launches`` counts
 the kernel launches of this process; ``tc_launches`` those that took the
-tensor-core body (every bfloat16 call: float32 takes the SIMT body).
+tensor-core body (every bfloat16 call: float32 takes the SIMT body);
+``window_launches`` those with a sliding window (a model's local layers).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from repro_torch.kernels import _build
 
 launches = 0
 tc_launches = 0
+window_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)
@@ -50,7 +52,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          ) -> torch.Tensor:
     """q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd), contiguous CUDA tensors
     of one dtype (float32 or bfloat16) -> (B, Sq, Hq, hd).  Any S >= 1."""
-    global launches, tc_launches
+    global launches, tc_launches, window_launches
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention wants 4-d (B, S, H, hd) tensors")
     b, sq, hq, hd = q.shape
@@ -89,4 +91,6 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches += 1
     if q.dtype == torch.bfloat16:
         tc_launches += 1
+    if window:
+        window_launches += 1
     return out

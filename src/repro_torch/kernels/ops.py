@@ -33,10 +33,12 @@ _COUNTED = {"flash_attention": (_fa, "launches"),
             "topk_mask": (_comp, "topk_launches")}
 # launches by body, beside the counts above: the flash kernel's tensor-core
 # body (bf16), the paged kernel's split-K pair and the SSD scan's
-# tensor-core pair (bf16 at the shapes it takes)
+# tensor-core pair (bf16 at the shapes it takes); and the flash launches
+# that took a sliding window
 _BODIES = {"flash_attention_tc": (_fa, "tc_launches"),
            "paged_decode_attention_split": (_pa, "split_launches"),
-           "ssd_scan_tc": (_ssd, "tc_launches")}
+           "ssd_scan_tc": (_ssd, "tc_launches"),
+           "flash_attention_window": (_fa, "window_launches")}
 
 
 def _on_cpu(t: torch.Tensor) -> bool:

@@ -21,6 +21,16 @@ is never padded:
       --reduced --device cpu --requests 4 --replicas 1 --slots 2 \
       --prompt-len 32 --gen 8
 
+Fault-routed serving under a ``repro_torch.sim`` scenario, with SLOs,
+autoscaling, a smaller paged pool, self-drafting speculative decode, or
+the client -> edge -> server stages (``--mode split``, default cuts the
+WSSL config's), as the JAX CLI takes them:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
+      --reduced --device cpu --requests 8 --replicas 2 --slots 2 \
+      --prompt-len 24 --gen 8 --block-size 8 --scenario replica-drop \
+      --speculate --deadline-slack 4 --autoscale-max 3
+
 Runs on the card; ``--device cpu`` runs the plain PyTorch path instead
 (with ``--reduced`` for a size the CPU can take).
 """
@@ -28,37 +38,42 @@ Runs on the card; ``--device cpu`` runs the plain PyTorch path instead
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from pathlib import Path
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.config import get_arch, reduced
+from repro_torch.config import Scenario, WSSLConfig, get_arch, reduced
 from repro_torch.data.synthetic import make_token_stream
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import resolve_device
 from repro_torch.serve import (DecodeEngine, FaultRoutedServer, Request,
                                ServeParams, ServeReport, synthetic_requests)
+from repro_torch.sim import get_scenario
 
 
-def serve_max_len(prompt_len: int, gen: int, chunk: int,
+def serve_max_len(prompt_len: int, gen: int, margin: int,
                   block_size: int) -> int:
-    """Cache capacity per slot: prompt + generation + one chunk of
-    overshoot, rounded up to whole blocks in paged mode."""
-    max_len = prompt_len + gen + chunk
+    """Cache capacity per slot: prompt + generation + the overshoot
+    ``margin`` (one chunk, or a speculative round's drafts if longer),
+    rounded up to whole blocks in paged mode."""
+    max_len = prompt_len + gen + margin
     if block_size:
         max_len += (-max_len) % block_size
     return max_len
 
 
 def serve(engine: DecodeEngine, params, requests: Sequence[Request],
-          sp: ServeParams) -> Tuple[ServeReport, float]:
-    """Serve ``requests`` through the replica router; returns the report and
-    the wall-clock seconds of the run (the device is synchronised at the
-    end, so the time covers the work)."""
-    server = FaultRoutedServer(engine, params, sp)
+          sp: ServeParams, scenario: Optional[Scenario] = None
+          ) -> Tuple[ServeReport, float]:
+    """Serve ``requests`` through the replica router under ``scenario``
+    (default clean); returns the report and the wall-clock seconds of the
+    run (the device is synchronised at the end, so the time covers the
+    work)."""
+    server = FaultRoutedServer(engine, params, sp, scenario=scenario)
     t0 = time.perf_counter()
     report = server.run(requests)
     if engine.device.type == "cuda":
@@ -67,7 +82,9 @@ def serve(engine: DecodeEngine, params, requests: Sequence[Request],
 
 
 def profile_serve(engine: DecodeEngine, params, requests: Sequence[Request],
-                  sp: ServeParams, path: Path) -> Tuple[ServeReport, float]:
+                  sp: ServeParams, path: Path,
+                  scenario: Optional[Scenario] = None
+                  ) -> Tuple[ServeReport, float]:
     """:func:`serve` under ``torch.profiler`` (CPU and CUDA activity).
     Writes to ``path`` (JSON) the wall time, the summed device time of
     the kernels, the device's busy share of the wall time, and the kernels
@@ -79,7 +96,7 @@ def profile_serve(engine: DecodeEngine, params, requests: Sequence[Request],
     if engine.device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
-        report, secs = serve(engine, params, requests, sp)
+        report, secs = serve(engine, params, requests, sp, scenario)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
@@ -97,7 +114,8 @@ def profile_serve(engine: DecodeEngine, params, requests: Sequence[Request],
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="gemma-2b | mamba2-370m | recurrentgemma-2b")
+                    help="gemma-2b | gemma3-12b | mamba2-370m | "
+                         "recurrentgemma-2b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -106,21 +124,39 @@ def main(argv=None) -> None:
                     help="prefill attention: dense | kernel (alias pallas)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mode", choices=["merged", "split"], default="merged")
+    ap.add_argument("--cuts", default=None,
+                    help="comma-separated cut layers for --mode split "
+                         "(default: the WSSL config's resolved cuts)")
     ap.add_argument("--requests", type=int, default=0,
                     help="serve N queued requests through the replica "
                          "router instead of one batched generate")
     ap.add_argument("--replicas", type=int, default=2)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--chunk", type=int, default=8)
+    ap.add_argument("--scenario", default="clean")
     ap.add_argument("--block-size", type=int, default=0,
                     help="paged KV block size in tokens (0 = contiguous)")
+    ap.add_argument("--pool-blocks", type=int, default=0,
+                    help="paged KV pool size (0 = full residency)")
     ap.add_argument("--paged-kernel", action="store_true",
                     help="paged decode via the CUDA block-table kernel "
                          "instead of the gather (needs --block-size)")
+    ap.add_argument("--speculate", action="store_true",
+                    help="self-drafting speculative decode (greedy only)")
+    ap.add_argument("--draft-k", type=int, default=4)
+    ap.add_argument("--deadline-slack", type=float, default=0.0,
+                    help="attach deadline = arrival + ideal_latency x slack "
+                         "to every request (0 = no SLOs)")
+    ap.add_argument("--autoscale-max", type=int, default=0,
+                    help="replica ceiling for queue-driven autoscaling "
+                         "(0 = fixed fleet)")
     ap.add_argument("--profile", type=Path, default=None,
                     help="with --requests: profile the run and write the "
                          "device-time breakdown to this JSON file")
     args = ap.parse_args(argv)
+    if args.cuts and args.mode != "split":
+        ap.error("--cuts only takes effect with --mode split")
     if args.paged_kernel and not args.block_size:
         ap.error("--paged-kernel needs a paged cache (--block-size)")
 
@@ -130,34 +166,61 @@ def main(argv=None) -> None:
         cfg = reduced(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = tf.init_params(cfg, gen, device=device)
-    engine = DecodeEngine(cfg, impl=args.impl, paged_kernel=args.paged_kernel,
-                          device=device)
+    cuts = None
+    if args.mode == "split":
+        cuts = (tuple(int(c) for c in args.cuts.split(","))
+                if args.cuts else WSSLConfig().resolve_cuts(cfg))
+    engine = DecodeEngine(cfg, impl=args.impl, cuts=cuts,
+                          paged_kernel=args.paged_kernel, device=device)
 
     if args.requests > 0:
+        sc = get_scenario(args.scenario)
+        margin = max(args.chunk, args.draft_k if args.speculate else 0)
         sp = ServeParams(replicas=args.replicas, slots=args.slots,
                          chunk=args.chunk,
                          max_len=serve_max_len(args.prompt_len, args.gen,
-                                               args.chunk, args.block_size),
-                         seed=args.seed, block_size=args.block_size)
+                                               margin, args.block_size),
+                         seed=args.seed, block_size=args.block_size,
+                         pool_blocks=args.pool_blocks,
+                         speculate=args.speculate, draft_k=args.draft_k,
+                         autoscale_max=args.autoscale_max)
         reqs = synthetic_requests(cfg, args.requests,
                                   prompt_len=args.prompt_len, gen=args.gen,
                                   seed=args.seed)
+        if args.deadline_slack > 0:
+            reqs = [dataclasses.replace(
+                r, deadline=r.arrival + (r.prompt_len * sp.prefill_unit
+                                         + r.max_new) * args.deadline_slack)
+                    for r in reqs]
         if args.profile is not None:
-            report, dt = profile_serve(engine, params, reqs, sp, args.profile)
+            report, dt = profile_serve(engine, params, reqs, sp, args.profile,
+                                       sc)
         else:
-            report, dt = serve(engine, params, reqs, sp)
+            report, dt = serve(engine, params, reqs, sp, sc)
         pct = report.percentiles
-        print(f"arch={cfg.name} device={device} replicas={args.replicas} "
+        print(f"arch={cfg.name} device={device} mode={args.mode} "
+              f"scenario={sc.name} replicas={args.replicas} "
               f"slots={args.slots}: {report.tokens_out} tokens in {dt:.2f}s "
               f"wall ({report.tokens_out / max(dt, 1e-9):.1f} tok/s), "
-              f"sim_time={report.sim_time:.0f} ticks={report.ticks}")
+              f"sim_time={report.sim_time:.0f} ticks={report.ticks} "
+              f"reroutes={report.reroutes} rejected={len(report.rejected)} "
+              f"peak_replicas={report.peak_replicas}")
         print(f"latency p50={pct['p50']:.1f} p95={pct['p95']:.1f} "
               f"p99={pct['p99']:.1f} (decode-step units)  shapes: "
               f"decode={report.decode_compiles} "
-              f"prefill={report.prefill_compiles}")
+              f"prefill={report.prefill_compiles} "
+              f"draft={report.draft_compiles} "
+              f"verify={report.verify_compiles}")
+        if report.drafted:
+            print(f"speculative: {report.spec_rounds} rounds, "
+                  f"acceptance {report.acceptance:.2f} "
+                  f"({report.accepted}/{report.drafted} drafts)")
+        if report.slo and args.deadline_slack > 0:
+            print("slo:", report.slo)
         if report.unfinished:
             print(f"WARNING: max_ticks={sp.max_ticks} hit with "
-                  f"{report.unfinished} requests unfinished")
+                  f"{report.unfinished} requests unfinished — the trace "
+                  f"was truncated, not drained")
         print("log:", report.log.summary())
         return
 
@@ -166,9 +229,9 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     toks = engine.generate(params, prompts, args.gen)
     dt = time.perf_counter() - t0
-    print(f"arch={cfg.name} device={device} batch={args.batch} "
-          f"prompt={args.prompt_len} gen={args.gen}: {dt:.2f}s "
-          f"({args.batch * args.gen / dt:.1f} tok/s)")
+    print(f"arch={cfg.name} device={device} mode={args.mode} "
+          f"batch={args.batch} prompt={args.prompt_len} gen={args.gen}: "
+          f"{dt:.2f}s ({args.batch * args.gen / dt:.1f} tok/s)")
     print("sample continuation:", toks[0][:16].tolist())
 
 

@@ -1,5 +1,6 @@
 """The decoder: init, the full-sequence forward, prefill and one-token
-decode, for every ported layer kind.
+decode (merged, or stage by stage through the WSSL cuts for split
+serving), for every ported layer kind.
 
 The PyTorch twin of ``repro/models/transformer.py``.  The parameter tree
 keeps the JAX layout — ``params["stack"]`` is a list (one entry per layer
@@ -288,6 +289,96 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return _unembed(cfg, params, x), cache
 
 
+def early_exit_logits(params: Params, cfg: ModelConfig, x: torch.Tensor
+                      ) -> torch.Tensor:
+    """Self-drafting readout: the final norm and the unembedding applied to
+    a mid-stack hop activation (B, 1, D).  The draft model is the client
+    stage truncated at its cut, read out through the shared head; ``params``
+    is the full tree (it holds ``final_norm`` and the tied embedding)."""
+    return _unembed(cfg, params, apply_norm(cfg, params["final_norm"], x))
+
+
+def partition_cache(cache: Params, cfg: ModelConfig, cuts: Sequence[int]
+                    ) -> List[Params]:
+    """Partition a decode cache at layers ``cuts`` into ``len(cuts) + 1``
+    per-stage caches, as :func:`partition_params` partitions the params:
+    the stacked super-block caches along the leading layer axis, the
+    remainder layers' caches with the final (server) stage.
+
+    Every stage leaf is a *view* of ``cache`` (a slice of the layer axis),
+    not a copy: decode updates caches in place, so a stage's writes land in
+    the joined cache and a caller that keeps ``cache`` never needs
+    :func:`join_cache_stages`."""
+    cuts = _check_cuts(cfg, cuts)
+    bounds = [c // cfg.period for c in cuts]
+
+    def part(lo, hi):
+        return [{k: v[lo:hi] for k, v in d.items()} for d in cache["stack"]]
+
+    stages: List[Params] = [{"stack": part(0, bounds[0])}]
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        stages.append({"stack": part(lo, hi)})
+    stages.append({"stack": part(bounds[-1], None), "rem": cache["rem"]})
+    return stages
+
+
+def join_cache_stages(stages: Sequence[Params]) -> Params:
+    """Invert :func:`partition_cache`: a new cache tree whose stacked leaves
+    are the stages' concatenated (copied) along the layer axis."""
+    stack = [{k: torch.cat([s["stack"][j][k] for s in stages])
+              for k in stages[0]["stack"][j]}
+             for j in range(len(stages[0]["stack"]))]
+    return {"stack": stack, "rem": stages[-1]["rem"]}
+
+
+def stage_decode_step(stage_params: Params, cfg: ModelConfig,
+                      x: torch.Tensor, cache: Params, pos: torch.Tensor,
+                      stage_index: int, num_stages: int, *,
+                      table: Optional[torch.Tensor] = None,
+                      paged_kernel: bool = False
+                      ) -> Tuple[torch.Tensor, Params]:
+    """One decode step through one pipeline stage, its cache updated in
+    place.  Stage 0 reads ``x`` as tokens (B, 1) (the embedding, then the
+    client's super-blocks); a later stage takes the upstream hop
+    activation (B, 1, D).  The final stage also runs the remainder layers,
+    the final norm and the unembedding, and returns logits (B, 1, V) fp32.
+    Chaining every stage (:func:`split_decode_step`) reproduces
+    :func:`decode_step` exactly: the cuts only move activations."""
+    period_specs, _, _ = _superblock_layout(cfg)
+    if stage_index == 0:
+        x = _embed(cfg, stage_params, x)
+    for i in range(_num_blocks(stage_params["stack"])):
+        for j, spec in enumerate(period_specs):
+            x = _decode_layer(cfg, spec, _tree_index(stage_params["stack"][j], i),
+                              x, _tree_index(cache["stack"][j], i), pos, table,
+                              paged_kernel)
+    if stage_index == num_stages - 1:
+        rem = stage_params.get("rem", [])
+        specs = cfg.layer_specs()[cfg.num_layers - len(rem):]
+        for spec, lp, lc in zip(specs, rem, cache["rem"]):
+            x = _decode_layer(cfg, spec, lp, x, lc, pos, table, paged_kernel)
+        x = _unembed(cfg, stage_params,
+                     apply_norm(cfg, stage_params["final_norm"], x))
+    return x, cache
+
+
+def split_decode_step(stages: Sequence[Params], cfg: ModelConfig,
+                      tokens: torch.Tensor, cache_stages: Sequence[Params],
+                      pos: torch.Tensor, *,
+                      table: Optional[torch.Tensor] = None,
+                      paged_kernel: bool = False
+                      ) -> Tuple[torch.Tensor, Sequence[Params]]:
+    """One decode step through the whole client -> edge -> server pipeline:
+    :func:`decode_step` with the params and the cache partitioned at the
+    WSSL cuts.  Returns (logits (B, 1, V), the stage caches, updated in
+    place)."""
+    x = tokens
+    for i, (sp, sc) in enumerate(zip(stages, cache_stages)):
+        x, _ = stage_decode_step(sp, cfg, x, sc, pos, i, len(stages),
+                                 table=table, paged_kernel=paged_kernel)
+    return x, cache_stages
+
+
 # ---------------------------------------------------------------------------
 # Prefill
 # ---------------------------------------------------------------------------
@@ -460,35 +551,43 @@ def _check_cuts(cfg: ModelConfig, cuts: Sequence[int]) -> Tuple[int, ...]:
     return cuts
 
 
-def _slice_stack(stack: List[Params], lo: int, hi: Optional[int]):
-    """Super-blocks [lo, hi) of every stacked leaf, as copies: a view would
-    keep the whole unsplit stack alive."""
+def _slice_stack(stack: List[Params], lo: int, hi: Optional[int],
+                 copy: bool = True):
+    """Super-blocks [lo, hi) of every stacked leaf: copies by default (a
+    view would keep the whole unsplit stack alive), views with
+    ``copy=False``."""
     def one(tree):
         if isinstance(tree, dict):
             return {k: one(v) for k, v in tree.items()}
-        return tree[lo:hi].clone()
+        return tree[lo:hi].clone() if copy else tree[lo:hi]
     return [one(t) for t in stack]
 
 
-def partition_params(params: Params, cfg: ModelConfig, cuts: Sequence[int]
-                     ) -> List[Params]:
+def partition_params(params: Params, cfg: ModelConfig, cuts: Sequence[int],
+                     *, copy: bool = True) -> List[Params]:
     """Partition a param tree at layers ``cuts`` into ``len(cuts) + 1``
     stages.  Stage 0 (the client) owns the embedding and the first
     ``cuts[0] // period`` super-blocks; each edge stage the super-blocks
     between two cuts; the server the rest, the remainder layers, the final
     norm and the head.  With tied embeddings the server holds its own
     *copy* of the embedding matrix (the server owns the output head): an
-    alias would let one in-place optimizer step move both."""
+    alias would let one in-place optimizer step move both.
+
+    ``copy=False`` (serving, which never steps the params) makes every
+    stage leaf a view of ``params`` instead, the server's embedding too, so
+    partitioning allocates nothing."""
     cuts = _check_cuts(cfg, cuts)
     bounds = [c // cfg.period for c in cuts]
     stages = [{"embed": params["embed"],
-               "stack": _slice_stack(params["stack"], 0, bounds[0])}]
+               "stack": _slice_stack(params["stack"], 0, bounds[0], copy)}]
     for lo, hi in zip(bounds[:-1], bounds[1:]):
-        stages.append({"stack": _slice_stack(params["stack"], lo, hi)})
-    last: Params = {"stack": _slice_stack(params["stack"], bounds[-1], None),
+        stages.append({"stack": _slice_stack(params["stack"], lo, hi, copy)})
+    last: Params = {"stack": _slice_stack(params["stack"], bounds[-1], None,
+                                          copy),
                     "rem": params["rem"], "final_norm": params["final_norm"]}
     if cfg.tie_embeddings:
-        last["embed"] = {"tok": params["embed"]["tok"].clone()}
+        tok = params["embed"]["tok"]
+        last["embed"] = {"tok": tok.clone() if copy else tok}
     elif "head" in params:
         last["head"] = params["head"]
     stages.append(last)

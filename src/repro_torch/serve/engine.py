@@ -12,19 +12,26 @@ Caches are updated in place where the JAX engine donated its buffers.
 Every ported layer kind serves: global attention (contiguous or paged),
 local attention (a ring per slot), and the SSM and RG-LRU states (one row
 per slot).  Prefill is exact-length, never padded, so no pad token enters
-a recurrent state.  Speculative decode (``spec_chunk``), split mode
-(``cuts``) and decode-window overrides are not ported yet and raise.
+a recurrent state.
+
+Split mode (``cuts``) decodes through the client -> edge -> server stages
+(``transformer.split_decode_step``): the same logits, every step crossing
+``len(cuts)`` activation hops, which the router accounts.  Speculative
+decode (``spec_chunk``) drafts with the client stage at ``spec_cut`` read
+out through the early-exit head, verifies the drafts in one teacher-forced
+pass of the whole model and rolls every cache family back exactly.  The
+decode-window override is not ported yet and raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, WSSLConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import resolve_device
@@ -74,6 +81,17 @@ def _layer_caches(cache: Params):
         yield True, d
     for d in cache["rem"]:
         yield False, d
+
+
+def _is_recurrent(d: Params) -> bool:
+    """SSM / RG-LRU layer caches: cumulative state (and conv windows)."""
+    return "state" in d or "h" in d
+
+
+def _is_ring(d: Params, max_len: int) -> bool:
+    """A local layer's ring: contiguous KV shorter than ``max_len``, whose
+    decode writes wrap onto entries that may still be visible."""
+    return "pos" in d and d["pos"].shape[-1] < max_len
 
 
 def _copy_row(d: Params, s: Params, slot: int, stacked: bool) -> None:
@@ -135,45 +153,68 @@ class DecodeEngine:
 
     ``impl`` picks the prefill attention ("dense" or "kernel"; "pallas" is
     an alias of "kernel"); ``paged_kernel`` sends paged decode through the
-    CUDA block-table kernel instead of the gather.  ``device`` defaults to
-    the card and raises when there is none."""
+    CUDA block-table kernel instead of the gather.  ``cuts`` serves through
+    the pipeline stages at those WSSL cuts instead of the merged model.
+    ``spec_cut`` is the draft model's cut (default: ``cuts[0]`` in split
+    mode, else the WSSL default cut).  ``device`` defaults to the card and
+    raises when there is none."""
 
     def __init__(self, cfg: ModelConfig, *, impl: str = "dense",
                  cuts: Optional[Sequence[int]] = None,
                  decode_window_override: Optional[int] = None,
+                 spec_cut: Optional[int] = None,
                  paged_kernel: bool = False, device="cuda"):
         attn._check_impl(impl)
-        if cuts:
-            raise NotImplementedError(
-                "split-mode serving (cuts) is not ported yet (ROADMAP "
-                "Queue 1, item 12)")
         if decode_window_override:
             raise NotImplementedError(
                 "decode_window_override (the long-context decode window) is "
-                "not ported yet (ROADMAP Queue 1, item 11)")
+                "not ported yet (ROADMAP Queue 1, item 11f)")
         tf._superblock_layout(cfg)        # raises on an unported layer kind
         self.cfg = cfg
         self.impl = impl
+        self.cuts = tf._check_cuts(cfg, cuts) if cuts else None
+        if spec_cut is None:
+            # the draft model is the client stage: in split mode that stage
+            # exists at cuts[0]; merged mode drafts at the WSSL default cut
+            # (cut 0, an embedding-only draft, is legal)
+            spec_cut = (self.cuts[0] if self.cuts
+                        else WSSLConfig().resolve_split(cfg))
+        self.spec_cut = tf._check_cuts(cfg, (spec_cut,))[0]
         self.paged_kernel = bool(paged_kernel)
         self.device = resolve_device(device)
         self._shape_keys = set()
         self.decode_compiles = 0
         self.prefill_compiles = 0
+        self.draft_compiles = 0
+        self.verify_compiles = 0
+        # decode steps run, by kind: a chunk's, a draft's, a verify's
+        self.steps = {"decode": 0, "draft": 0, "verify": 0}
+
+    # -- topology ----------------------------------------------------------
+
+    @property
+    def num_stages(self) -> int:
+        return len(self.cuts) + 1 if self.cuts else 1
 
     @property
     def num_hops(self) -> int:
         """Activation crossings per decode step (0 for the merged model)."""
-        return 0
+        return len(self.cuts) if self.cuts else 0
+
+    @property
+    def draft_fraction(self) -> float:
+        """Cost of one draft step against a full decode step: the layers up
+        to the spec cut plus the early-exit readout (counted as one layer).
+        The router prices the speculative clock with it."""
+        return (self.spec_cut + 1) / (self.cfg.num_layers + 1)
 
     def _count(self, kind: str, key: Tuple) -> None:
         """Count a new shape key, as the JAX engine counts compilations."""
         if (kind,) + key in self._shape_keys:
             return
         self._shape_keys.add((kind,) + key)
-        if kind == "prefill":
-            self.prefill_compiles += 1
-        else:
-            self.decode_compiles += 1
+        counter = {"chunk": "decode_compiles"}.get(kind, f"{kind}_compiles")
+        setattr(self, counter, getattr(self, counter) + 1)
 
     @staticmethod
     def _cache_shapes(cache: Params) -> Tuple:
@@ -183,11 +224,32 @@ class DecodeEngine:
     def _prefill(self, params: Params, prompts: torch.Tensor,
                  cache: Params) -> torch.Tensor:
         """Prefill ``prompts`` into ``cache`` (in place) -> the greedy next
-        token (B, 1) int32."""
+        token (B, 1) int32.  Split mode prefills the merged model too: the
+        stages would compute the same cache."""
         self._count("prefill", tuple(prompts.shape) + self._cache_shapes(cache))
         logits, _ = tf.prefill(params, self.cfg, prompts, cache=cache,
                                impl=self.impl, last_only=True)
         return torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+
+    def _stepper(self, params: Params, cache: Params,
+                 table: Optional[torch.Tensor]):
+        """``step(tok (B, 1), pos (B,)) -> logits (B, V)``: one decode step of
+        the merged model, or of the pipeline stages in split mode (params
+        and cache partitioned once, as views), updating ``cache`` in
+        place."""
+        kw = dict(table=table, paged_kernel=self.paged_kernel)
+        if self.cuts is None:
+            def step(tok, pos):
+                return tf.decode_step(params, self.cfg, tok, cache, pos,
+                                      **kw)[0][:, 0]
+            return step
+        stages = tf.partition_params(params, self.cfg, self.cuts, copy=False)
+        caches = tf.partition_cache(cache, self.cfg, self.cuts)
+
+        def step(tok, pos):
+            return tf.split_decode_step(stages, self.cfg, tok, caches, pos,
+                                        **kw)[0][:, 0]
+        return step
 
     # -- cache / state -----------------------------------------------------
 
@@ -283,13 +345,11 @@ class DecodeEngine:
         table = state.device_table()
         self._count("chunk", (b, t_chunk, table is not None)
                     + self._cache_shapes(state.cache))
+        step = self._stepper(params, state.cache, table)
         tok, pos = state.tok, state.pos
         emitted = []
         for t in range(t_chunk):
-            logits, _ = tf.decode_step(params, self.cfg, tok, state.cache,
-                                       pos, table=table,
-                                       paged_kernel=self.paged_kernel)
-            lg = logits[:, 0]
+            lg = step(tok, pos)
             if temperature > 0:
                 probs = torch.softmax(lg / temperature, dim=-1)
                 nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
@@ -299,13 +359,153 @@ class DecodeEngine:
                               nxt.to(torch.int32))
             emitted.append(nxt)
             tok, pos = nxt[:, None], pos + 1
+        self.steps["decode"] += t_chunk
         state.tok, state.pos = tok, pos
         return torch.stack(emitted, dim=1).cpu().numpy()
 
-    def spec_chunk(self, state: BatchState, params: Params, draft_k: int):
-        raise NotImplementedError(
-            "speculative decode (draft / verify / spec_chunk) is not ported "
-            "yet (ROADMAP Queue 1, item 12)")
+    # -- speculative decode ------------------------------------------------
+
+    def _draft(self, params: Params, state: BatchState, k: int,
+               table: Optional[torch.Tensor]) -> torch.Tensor:
+        """K greedy tokens (B, K) from the client stage alone (the layers up
+        to ``spec_cut``), each read out through the early-exit head.  It
+        decodes on the live cache, in place: :meth:`spec_chunk` saves what
+        the draft overwrites beforehand."""
+        client = tf.partition_params(params, self.cfg, (self.spec_cut,),
+                                     copy=False)[0]
+        ccache = tf.partition_cache(state.cache, self.cfg, (self.spec_cut,))[0]
+        tok, pos = state.tok, state.pos
+        drafts = []
+        for _ in range(k):
+            x, _ = tf.stage_decode_step(client, self.cfg, tok, ccache, pos, 0,
+                                        2, table=table,
+                                        paged_kernel=self.paged_kernel)
+            nxt = torch.argmax(tf.early_exit_logits(params, self.cfg, x)[:, 0],
+                               dim=-1).to(torch.int32)
+            drafts.append(nxt)
+            tok, pos = nxt[:, None], pos + 1
+        self.steps["draft"] += k
+        return torch.stack(drafts, dim=1)
+
+    @staticmethod
+    def _ring_lines(state: BatchState, k: int) -> List[Tuple]:
+        """Every ring's lines at positions pos .. pos + k - 1 of each row,
+        copied: ``(layer cache, stacked, index of the (B, k) lines, saved)``.
+        Taken before the round, they are the lines each of its steps
+        overwrites (``k`` <= the ring's size, so a round hits distinct
+        lines)."""
+        rows = torch.arange(state.pos.shape[0], device=state.pos.device)[:, None]
+        steps = torch.arange(k, device=state.pos.device)[None]
+        lines = []
+        for stacked, d in _layer_caches(state.cache):
+            if not _is_ring(d, state.max_len):
+                continue
+            idx = ((state.pos.long()[:, None] + steps) % d["pos"].shape[-1])
+            at = (slice(None), rows, idx) if stacked else (rows, idx)
+            lines.append((d, stacked, at, {key: d[key][at].clone()
+                                           for key in ("k", "v", "pos")}))
+        return lines
+
+    @staticmethod
+    def _copies(recurrent: List[Tuple[bool, Params]]
+                ) -> List[Dict[str, torch.Tensor]]:
+        """A copy of the leaves of each ``(stacked, layer cache)``."""
+        return [{key: t.clone() for key, t in d.items()} for _, d in recurrent]
+
+    def spec_chunk(self, state: BatchState, params: Params,
+                   draft_k: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """One speculative round: draft ``draft_k`` tokens with the client
+        stage, verify them in one teacher-forced pass of the whole model
+        (merged or split), accept the longest matching prefix plus the
+        verifier's first correction.
+
+        Advances each slot by ``n[b]`` in [1, draft_k] positions and returns
+        ``(tokens (B, K), accepted drafts (B,), emitted (B,))``: the first
+        ``emitted[b]`` tokens of row ``b`` are exactly greedy decoding's.
+
+        The JAX engine drafts on a copy of the client cache and discards it.
+        Here the draft decodes on the live cache in place, so the round
+        first copies what the draft would corrupt, every ring's lines at
+        pos .. pos + K - 1 and the recurrent states, and copies both back
+        right after the draft: the verify starts from the pre-round cache,
+        as JAX's does (a ring line the draft wrote for step j' > j still
+        holds a key that verify step j sees).  Full-length and paged KV
+        need no copy: every entry the draft wrote lies at a position the
+        verify step reading it masks as future, each verify step rewrites
+        its own position before reading it, and the rollback invalidates
+        the rejected ones.  The rollback is JAX's, per
+        cache family: a recurrent layer takes its state after step n - 1
+        (the verify records a copy each step), full-length KV invalidates
+        positions past pos + n - 1, a ring restores the lines of the
+        rejected steps, a paged pool sets ``ppos`` of the rejected
+        positions to -1 through the table."""
+        k = int(draft_k)
+        b = state.tok.shape[0]
+        table = state.device_table()
+        shapes = self._cache_shapes(state.cache)
+        self._count("draft", (b, k, table is not None) + shapes)
+        self._count("verify", (b, k, state.max_len, table is not None)
+                    + shapes)
+        pos0 = state.pos
+        rows = torch.arange(b, device=pos0.device)
+        lines = self._ring_lines(state, k)
+        recurrent = [(stacked, d) for stacked, d in _layer_caches(state.cache)
+                     if _is_recurrent(d)]
+        saved = self._copies(recurrent)
+        draft = self._draft(params, state, k, table)
+        for (_, d), s in zip(recurrent, saved):     # the pre-round cache
+            for key in d:
+                d[key].copy_(s[key])
+        for d, _, at, line in lines:
+            for key, old in line.items():
+                d[key][at] = old
+
+        # verify: step j feeds the token before draft j at pos0 + j
+        step = self._stepper(params, state.cache, table)
+        tok, pos = state.tok, pos0
+        greedy, recs = [], []
+        for j in range(k):
+            greedy.append(torch.argmax(step(tok, pos), dim=-1).to(torch.int32))
+            recs.append(self._copies(recurrent))
+            tok, pos = draft[:, j:j + 1], pos + 1
+        self.steps["verify"] += k
+        greedy = torch.stack(greedy, dim=1)                     # (B, K)
+        acc = torch.cumprod((greedy == draft).to(torch.int32), dim=1).sum(
+            1, dtype=torch.int32)                              # accepted
+        n = torch.clamp(acc + 1, max=k)                         # emitted
+        thr = pos0 + n - 1                                      # last valid
+        last = n.long() - 1
+
+        for i, (stacked, d) in enumerate(recurrent):
+            for key in d:
+                per_step = torch.stack([r[i][key] for r in recs])  # (K, ...)
+                if stacked:                        # (K, L, B, ...)
+                    d[key].copy_(per_step[last, :, rows].movedim(0, 1))
+                else:
+                    d[key].copy_(per_step[last, rows])
+        rej = torch.arange(k, device=pos0.device)[None] >= n[:, None]
+        for d, stacked, at, line in lines:
+            for key, old in line.items():
+                sel = rej[None] if stacked else rej
+                sel = sel.reshape(sel.shape + (1,) * (old.dim() - sel.dim()))
+                d[key][at] = torch.where(sel, old, d[key][at])
+        for stacked, d in _layer_caches(state.cache):
+            if "pk" in d:
+                tab = table.long()
+                view = d["ppos"][:, tab] if stacked else d["ppos"][tab]
+                lim = (thr[None, :, None, None] if stacked
+                       else thr[:, None, None])
+                view = torch.where(view > lim, -1, view)
+                if stacked:
+                    d["ppos"][:, tab] = view
+                else:
+                    d["ppos"][tab] = view
+            elif "pos" in d and not _is_ring(d, state.max_len):
+                lim = thr[None, :, None] if stacked else thr[:, None]
+                d["pos"].masked_fill_(d["pos"] > lim, -1)
+        state.tok = torch.gather(greedy, 1, last[:, None])
+        state.pos = pos0 + n
+        return greedy.cpu().numpy(), acc.cpu().numpy(), n.cpu().numpy()
 
     # -- one-shot batched generation --------------------------------------
 
@@ -313,7 +513,8 @@ class DecodeEngine:
                  temperature: float = 0.0,
                  generator: Optional[torch.Generator] = None) -> np.ndarray:
         """Batched generation of ``gen`` tokens per prompt row: prefill,
-        then one chunk of ``gen - 1`` decode steps.  Returns (B, gen)."""
+        then one chunk of ``gen - 1`` decode steps (through the stages in
+        split mode).  Returns (B, gen)."""
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int32,
                                   device=self.device)
         b, s0 = prompts.shape
@@ -329,3 +530,23 @@ class DecodeEngine:
                 state, params, np.zeros((b, gen - 1), np.int32),
                 np.zeros((b,), np.int32), generator, temperature))
         return np.concatenate(out, axis=1)
+
+
+_ENGINES: Dict[Tuple, DecodeEngine] = {}
+
+
+def get_engine(cfg: ModelConfig, *, impl: str = "dense",
+               cuts: Optional[Sequence[int]] = None,
+               decode_window_override: Optional[int] = None,
+               spec_cut: Optional[int] = None,
+               paged_kernel: bool = False, device="cuda") -> DecodeEngine:
+    """Process-wide engine cache: repeated ``generate()`` calls (and every
+    replica of a served model) reuse one engine and its shape counters."""
+    key = (cfg, impl, tuple(cuts) if cuts else None, decode_window_override,
+           spec_cut, paged_kernel, str(resolve_device(device)))
+    if key not in _ENGINES:
+        _ENGINES[key] = DecodeEngine(
+            cfg, impl=impl, cuts=cuts,
+            decode_window_override=decode_window_override,
+            spec_cut=spec_cut, paged_kernel=paged_kernel, device=device)
+    return _ENGINES[key]

@@ -1,35 +1,59 @@
-"""Replica routing for serving: continuous batching across R replicas.
+"""Fault-aware, SLO-aware replica routing, driven by ``repro_torch.sim``
+scenarios.
 
 The PyTorch twin of ``repro/serve/router.py::FaultRoutedServer``.  R
-replicas hold the same params and share one engine; request ``rid`` homes
-to replica ``rid % R``.  The simulated clock runs in clean decode-step
-units: a chunk of T tokens costs T, prefilling an L-token prompt costs
-L x ``prefill_unit``; request latency = completion - arrival.
+serving replicas hold the same params and share one engine; request
+``rid`` homes to replica ``rid % R``.  Each simulation tick samples a
+``FaultPlan`` (``sim/faults.py``) **over the replica axis** (the
+scenario's "clients" are the replicas):
 
-The router's replica faults (the plan of ``sim/faults.py`` sampled over
-the replica axis, crash re-routing, slow hosts) are not ported yet, so the
-router takes only a clean scenario: every replica is kept every tick, at
-slowdown 1 — exactly what the JAX router samples for ``clean``.  Any other
-scenario raises.  Speculative decode stays off.  Deadline shedding and
-queue-driven autoscaling are not ported yet either: a request with a
-finite ``deadline`` raises, and the fleet is fixed at ``replicas``.
+* ``plan.keep[r] == 0`` — replica r is down this tick: its in-flight and
+  queued requests re-route to the next alive replica, where they are
+  re-prefilled and their credited tokens replayed (traffic accounted as
+  sync bytes).  The replica restarts with an empty cache (paged mode: its
+  block pool resets wholesale).
+* ``client_latencies(plan, R)[r] > 1`` — replica r is a slow host: every
+  chunk (and prefill) it serves takes proportionally longer on the
+  simulated clock.
+
+The plan is routing state, drawn on the host: tick t's uniforms come
+from a generator of its own, derived from ``(seed, t)``
+(``wssl.derived_generator``), so an idle tick shifts no later draw;
+``run(plan_draws=...)`` injects them instead (a test feeds JAX's).
+
+The simulated clock runs in clean decode-step units: a chunk of T tokens
+costs T x slowdown; prefilling an L-token prompt costs L x
+``prefill_unit`` x slowdown; a speculative round of K drafts costs K x
+(draft_fraction + prefill_unit) x slowdown.  Request latency =
+completion - arrival.
+
+SLOs (``Request.deadline``, absolute sim time): the per-replica queue is
+EDF; at admission the router sheds work that is provably late — even the
+optimistic lower bound lands past the deadline — into
+``ServeReport.rejected``.  Deadline-less requests are never shed.  With
+``autoscale_max > 0`` the live replica count grows when queues build past
+``scale_up_queue`` per replica and shrinks from the top when spare
+replicas idle.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import sim
 from repro_torch.config import Scenario
 from repro_torch.core.protocol import (ServeLog, reroute_sync_bytes,
                                        serve_hop_bytes)
+from repro_torch.core.wssl import derived_generator
 from repro_torch.models.layers import torch_dtype
 from repro_torch.serve.blocks import BlockAllocator
 from repro_torch.serve.engine import BatchState
-from repro_torch.serve.metrics import latency_percentiles
+from repro_torch.serve.metrics import (acceptance_rate, latency_percentiles,
+                                       slo_attainment)
 from repro_torch.serve.scheduler import PendingWork, Request, SlotScheduler
 
 Params = Any
@@ -47,14 +71,23 @@ class ServeParams:
     temperature: float = 0.0
     max_ticks: int = 100_000
     seed: int = 0
-    # paged KV (0 = contiguous full residency, the classic layout); the
-    # pool holds every slot's max_len plus one scratch block per slot
+    # paged KV (0 = contiguous full residency, the classic layout)
     block_size: int = 0         # pool block size in tokens
+    pool_blocks: int = 0        # pool size (0 = full residency + scratch)
+    # self-drafting speculative decode (greedy only)
+    speculate: bool = False
+    draft_k: int = 4            # drafts per speculative round
+    # SLO-aware autoscaling (0 = fixed fleet)
+    autoscale_max: int = 0      # replica ceiling (>= replicas to enable)
+    scale_up_queue: int = 8     # queued-per-live-replica trigger
+    scale_down_idle: int = 4    # idle ticks before the top replica parks
+    # large traces: drop per-request token streams, keep only metrics
+    keep_outputs: bool = True
 
 
 @dataclasses.dataclass
 class ServeReport:
-    """One run's serving trace."""
+    """One scenario's serving trace."""
 
     scenario: str
     outputs: Dict[int, List[int]]
@@ -66,86 +99,156 @@ class ServeReport:
     reroutes: int
     decode_compiles: int
     prefill_compiles: int
+    # SLO plane
     completions: Dict[int, float] = dataclasses.field(default_factory=dict)
+    rejected: Dict[int, float] = dataclasses.field(default_factory=dict)
+    slo: Dict[str, float] = dataclasses.field(default_factory=dict)
     unfinished: int = 0         # still pending/active when max_ticks hit
-    arrival_scans: int = 0
+    # speculative plane
+    drafted: int = 0
+    accepted: int = 0
+    spec_rounds: int = 0
+    draft_compiles: int = 0
+    verify_compiles: int = 0
+    # router internals
+    arrival_scans: int = 0      # O(n + ticks), not O(n * ticks)
+    peak_replicas: int = 0
 
     @property
     def tokens_out(self) -> int:
         return sum(len(v) for v in self.outputs.values())
 
+    @property
+    def acceptance(self) -> float:
+        return acceptance_rate(self.accepted, self.drafted)
+
 
 class FaultRoutedServer:
-    """Serve a request set across R replicas (clean scenario only)."""
+    """Serve a request set across R fault-injected replicas."""
 
     def __init__(self, engine, params: Params,
                  serve: ServeParams = ServeParams(),
                  scenario: Optional[Scenario] = None):
-        scenario = scenario if scenario is not None else Scenario()
-        if not scenario.is_clean():
-            raise NotImplementedError(
-                f"scenario {scenario.name!r} injects faults; the router's "
-                f"replica faults (sim/faults.py over the replica axis) are "
-                f"not ported yet (ROADMAP Queue 1, item 12.2), so the "
-                f"router serves only clean ones")
         self.engine = engine
         self.params = params
         self.p = serve
-        self.scenario = scenario
+        self.scenario = scenario if scenario is not None else Scenario()
+
+    # -- helpers -----------------------------------------------------------
+
+    def _next_alive(self, home: int, keep, r_live: int) -> int:
+        """First alive replica at or after ``home`` (mod the live count);
+        if every replica is down this tick, stay home — the work waits."""
+        for d in range(r_live):
+            r = (home + d) % r_live
+            if keep[r] > 0:
+                return r
+        return home
 
     def _mk_sched(self) -> SlotScheduler:
         p = self.p
         if not p.block_size:
             return SlotScheduler(p.slots)
-        pool = p.slots * (p.max_len // p.block_size + 1)
+        nb = p.max_len // p.block_size
+        pool = p.pool_blocks or p.slots * (nb + 1)
+        margin = max(p.chunk, p.draft_k if p.speculate else 0)
         return SlotScheduler(
             p.slots,
             allocator=BlockAllocator(pool, p.block_size, reserved=p.slots),
-            reserve_margin=p.chunk, max_reserve=p.max_len)
+            reserve_margin=margin, max_reserve=p.max_len)
 
     def _new_state(self) -> BatchState:
         p = self.p
         if not p.block_size:
             return self.engine.new_batch_state(p.slots, p.max_len)
-        return self.engine.new_batch_state(p.slots, p.max_len,
-                                           block_size=p.block_size)
+        nb = p.max_len // p.block_size
+        return self.engine.new_batch_state(
+            p.slots, p.max_len, block_size=p.block_size,
+            pool_blocks=p.pool_blocks or p.slots * (nb + 1))
 
-    def run(self, requests: Sequence[Request]) -> ServeReport:
+    def _plan(self, sp: sim.ScenarioParams, tick: int, r_max: int,
+              plan_draws: Optional[Callable[[int], sim.FaultDraws]]
+              ) -> Tuple[Any, Any]:
+        """(keep, slowdown) of tick ``tick``, numpy, over the replica
+        ceiling ``r_max``."""
+        if plan_draws is not None:
+            plan = sim.sample_fault_plan(sp, r_max, draws=plan_draws(tick))
+        else:
+            plan = sim.sample_fault_plan(
+                sp, r_max, generator=derived_generator(self.p.seed, tick))
+        return (plan.keep.numpy(),
+                sim.client_latencies(plan, r_max).numpy())
+
+    # -- main loop ---------------------------------------------------------
+
+    def run(self, requests: Sequence[Request], *,
+            preloaded: Optional[Sequence[Tuple[int, PendingWork]]] = None,
+            plan_draws: Optional[Callable[[int], sim.FaultDraws]] = None
+            ) -> ServeReport:
+        """Serve ``requests`` (and ``preloaded`` (home, work) pairs) to the
+        end or ``max_ticks``.  ``plan_draws(tick)`` supplies each tick's
+        fault draws (``sim.FaultDraws(dropout=(r_max,) uniforms)``) in
+        place of the derived generator."""
         p, engine = self.p, self.engine
-        replicas = p.replicas
-        scheds = [self._mk_sched() for _ in range(replicas)]
-        states: List[Optional[BatchState]] = [None] * replicas
-        busy_until = [0.0] * replicas
+        r_base = p.replicas
+        r_max = max(r_base, p.autoscale_max)
+        r_live = r_base
+        peak_replicas = r_base
+        scheds = [self._mk_sched() for _ in range(r_max)]
+        states: List[Optional[BatchState]] = [None] * r_max
+        busy_until = [0.0] * r_max
+        idle_ticks = [0] * r_max
         outputs: Dict[int, List[int]] = {}
         latencies: Dict[int, float] = {}
         completions: Dict[int, float] = {}
+        rejected: Dict[int, float] = {}
+        deadlines: Dict[int, float] = {}
         log = ServeLog()
         itemsize = torch.empty((), dtype=torch_dtype(engine.cfg.dtype)
                                ).element_size()
         d_model = engine.cfg.d_model
         num_hops = engine.num_hops
+        sp = sim.scenario_params(self.scenario)
         generator = None
         if p.temperature > 0:
-            generator = torch.Generator(device=engine.device)
+            generator = torch.Generator(
+                device=getattr(engine, "device", "cpu"))
             generator.manual_seed(p.seed + 1)
 
+        # speculation only below the greedy / temperature fork, and only
+        # on engines that implement it
+        spec_ok = (p.speculate and p.temperature == 0.0
+                   and hasattr(engine, "spec_chunk"))
+        margin = max(p.chunk, p.draft_k if spec_ok else 0)
+        # optimistic per-token decode cost: the shed predicate must be a
+        # true lower bound, so a rejection is provably late
+        cost_lb = (min(1.0, engine.draft_fraction + p.prefill_unit)
+                   if spec_ok else 1.0)
+
         for req in requests:
-            if req.prompt_len + req.max_new + p.chunk > p.max_len:
+            if req.prompt_len + req.max_new + margin > p.max_len:
                 raise ValueError(
                     f"request {req.rid}: prompt_len ({req.prompt_len}) + "
-                    f"max_new ({req.max_new}) + chunk margin ({p.chunk}) "
+                    f"max_new ({req.max_new}) + chunk margin ({margin}) "
                     f"exceeds max_len ({p.max_len}); global KV entries "
                     f"would wrap and silently overwrite the prompt")
             if math.isfinite(req.deadline):
-                raise NotImplementedError(
-                    f"request {req.rid} carries a deadline; SLO shedding "
-                    f"and autoscaling are not ported yet (ROADMAP Queue 1, "
-                    f"item 12.2)")
+                deadlines[req.rid] = req.deadline
 
+        # arrivals walk an index into the sorted list: O(n + ticks)
         pending = sorted(requests, key=lambda r: (r.arrival, r.rid))
         next_arrival = 0
         arrival_scans = 0
+
+        if preloaded:
+            for home, work in preloaded:
+                scheds[home % r_live].submit(work)
+                if math.isfinite(work.req.deadline):
+                    deadlines[work.req.rid] = work.req.deadline
+
         tick = 0
+        reroutes = 0
+        drafted_total = accepted_total = spec_rounds = 0
         chunk_time = float(p.chunk)
         while tick < p.max_ticks and (
                 next_arrival < len(pending)
@@ -158,15 +261,48 @@ class FaultRoutedServer:
                     break
                 req = pending[next_arrival]
                 next_arrival += 1
-                scheds[req.rid % replicas].submit(PendingWork(req))
+                scheds[req.rid % r_live].submit(PendingWork(req))
             if not any(s.has_work for s in scheds):
                 tick += 1                    # idle until the next arrival
                 continue
 
-            # -- every replica: admit at slot granularity, decode a chunk --
-            for r in range(replicas):
+            # -- autoscale up: queues building past the per-replica trigger
+            # wake a parked replica (it fills via arrivals + re-routes) ----
+            if r_max > r_base:
+                queued = sum(len(s.queue) for s in scheds[:r_live])
+                while (r_live < r_max
+                       and queued > p.scale_up_queue * r_live):
+                    idle_ticks[r_live] = 0
+                    r_live += 1
+                peak_replicas = max(peak_replicas, r_live)
+
+            # the plan is sampled over the replica *ceiling*, so a fixed
+            # fleet (autoscale off) draws the same faults at any ceiling
+            keep, slowdown = self._plan(sp, tick, r_max, plan_draws)
+
+            # -- replica drops: dump state, re-route (the re-prefill cost
+            # is charged when the work is actually re-admitted) -----------
+            for r in range(r_live):
+                if keep[r] > 0 or not scheds[r].has_work:
+                    if keep[r] <= 0:
+                        states[r] = None     # a down replica loses its cache
+                    continue
+                in_flight = scheds[r].num_active
+                moved = scheds[r].drain()    # also resets the block pool
+                states[r] = None
+                busy_until[r] = now
+                for w in moved:
+                    scheds[self._next_alive(w.req.rid % r_live, keep,
+                                            r_live)].submit(w)
+                reroutes += in_flight
+                if in_flight:
+                    log.record(tick, r, 0, 0, rerouted=in_flight)
+
+            # -- alive replicas: shed provably-late work, admit at slot
+            # granularity (EDF), decode a chunk or a speculative round ----
+            for r in range(r_live):
                 sched = scheds[r]
-                if now < busy_until[r] or not sched.has_work:
+                if keep[r] <= 0 or now < busy_until[r] or not sched.has_work:
                     continue
                 if states[r] is None:
                     states[r] = self._new_state()
@@ -175,7 +311,18 @@ class FaultRoutedServer:
                 prefill_tokens = 0
                 bytes_sync = 0
                 tokens_credited = 0
-                for slot, work in sched.admissions():
+                tick_drafted = tick_accepted = 0
+
+                def shed(work: PendingWork) -> bool:
+                    if not math.isfinite(work.req.deadline):
+                        return False
+                    already = len(work.done) - 1 if work.done else 0
+                    rem = max(work.req.max_new - 1 - already, 0)
+                    lb = (now + work.req.prompt_len * p.prefill_unit
+                          + rem * cost_lb)
+                    return lb > work.req.deadline
+
+                for slot, work in sched.admissions(shed=shed):
                     fresh = not work.done
                     tok0 = engine.admit(states[r], self.params,
                                         work.req.prompt, slot,
@@ -186,42 +333,82 @@ class FaultRoutedServer:
                     admitted += 1
                     if fresh:                # the prefill token is credited
                         tokens_credited += 1
-                    else:                    # re-admission re-ships the
-                        # prompt and the tokens credited so far
+                    else:                    # re-prefill after a drop: the
+                        # prompt + credited tokens were re-shipped here
                         bytes_sync += reroute_sync_bytes(
                             work.req.prompt_len, len(work.done) - 1)
+                tick_rejected = len(sched.shed)
+                for w in sched.shed:
+                    rejected[w.req.rid] = now
+                sched.shed.clear()
 
                 ran_chunk = False
+                tokens_stepped = p.chunk
                 if sched.num_active:
                     ran_chunk = True
-                    forced, force_len = sched.force_buffers(p.chunk)
-                    toks = engine.decode_chunk(states[r], self.params, forced,
-                                               force_len, generator,
-                                               p.temperature)
-                    t_cost += chunk_time
-                    finished, step_credited = sched.credit_chunk(toks)
-                    end = now + t_cost
+                    replaying = any(s.replay for _, s in sched.active())
+                    if spec_ok and not replaying:
+                        toks, acc, cnt = engine.spec_chunk(
+                            states[r], self.params, p.draft_k)
+                        active_rows = [i for i, _ in sched.active()]
+                        tick_drafted = p.draft_k * len(active_rows)
+                        tick_accepted = int(sum(int(acc[i])
+                                                for i in active_rows))
+                        spec_rounds += 1
+                        tokens_stepped = p.draft_k
+                        t_cost += p.draft_k * (engine.draft_fraction
+                                               + p.prefill_unit)
+                        finished, step_credited = sched.credit_spec(
+                            toks, cnt)
+                    else:
+                        forced, force_len = sched.force_buffers(p.chunk)
+                        toks = engine.decode_chunk(states[r], self.params,
+                                                   forced, force_len,
+                                                   generator, p.temperature)
+                        t_cost += chunk_time
+                        finished, step_credited = sched.credit_chunk(toks)
+                    end = now + t_cost * float(slowdown[r])
                     tokens_credited += step_credited
+                    drafted_total += tick_drafted
+                    accepted_total += tick_accepted
                     for slot, active in finished:
                         rid = active.req.rid
-                        outputs[rid] = list(active.done)
+                        if p.keep_outputs:
+                            outputs[rid] = list(active.done)
                         completions[rid] = end
                         latencies[rid] = end - active.req.arrival
-                        if states[r].table is not None:
+                        if (states[r] is not None
+                                and states[r].table is not None):
                             # point the released row back at its scratch
                             # block before the allocator reuses the blocks
                             states[r].table[slot, :] = slot
                             states[r].mark_table_dirty()
                         sched.release(slot)
                     busy_until[r] = end
-                hop_tokens = (p.slots * p.chunk if ran_chunk else 0
-                              ) + prefill_tokens
+                # every decode step ships the whole batch across each hop
+                # (empty slots included: that is the physical crossing);
+                # admissions re-cross their prompt activations too.  A
+                # chunk that ran crossed the wire even when every slot
+                # finished by replay and credited nothing
+                hop_tokens = (p.slots * tokens_stepped if ran_chunk
+                              else 0) + prefill_tokens
                 log.record(tick, r, admitted, tokens_credited,
                            bytes_per_hop=serve_hop_bytes(
                                hop_tokens, d_model, itemsize, num_hops),
-                           bytes_sync=bytes_sync)
+                           bytes_sync=bytes_sync, drafted=tick_drafted,
+                           accepted=tick_accepted, rejected=tick_rejected)
+
+            # -- autoscale down: park the top replica once it has idled ---
+            for r in range(r_live):
+                idle_ticks[r] = 0 if scheds[r].has_work else idle_ticks[r] + 1
+            while (r_live > r_base and not scheds[r_live - 1].has_work
+                   and idle_ticks[r_live - 1] >= p.scale_down_idle):
+                states[r_live - 1] = None
+                r_live -= 1
             tick += 1
 
+        # a max_ticks exit must not look like a clean drain: report what
+        # was left
         unfinished = (len(pending) - next_arrival) + sum(
             len(s.queue) + s.num_active for s in scheds)
 
@@ -233,10 +420,18 @@ class FaultRoutedServer:
             log=log,
             sim_time=tick * chunk_time,
             ticks=tick,
-            reroutes=0,
+            reroutes=reroutes,
             decode_compiles=engine.decode_compiles,
             prefill_compiles=engine.prefill_compiles,
             completions=completions,
+            rejected=rejected,
+            slo=slo_attainment(deadlines, completions),
             unfinished=unfinished,
+            drafted=drafted_total,
+            accepted=accepted_total,
+            spec_rounds=spec_rounds,
+            draft_compiles=getattr(engine, "draft_compiles", 0),
+            verify_compiles=getattr(engine, "verify_compiles", 0),
             arrival_scans=arrival_scans,
+            peak_replicas=peak_replicas,
         )

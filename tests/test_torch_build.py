@@ -48,13 +48,16 @@ def test_ptxas_lines_keep_registers_and_spills():
 
 def test_reset_launch_counts_zeroes_the_body_counters():
     fa.tc_launches, pa.split_launches, ssd.tc_launches = 3, 5, 7
+    fa.window_launches = 2
     assert ops.body_launches() == {"flash_attention_tc": 3,
                                    "paged_decode_attention_split": 5,
-                                   "ssd_scan_tc": 7}
+                                   "ssd_scan_tc": 7,
+                                   "flash_attention_window": 2}
     ops.reset_launch_counts()
     assert ops.body_launches() == {"flash_attention_tc": 0,
                                    "paged_decode_attention_split": 0,
-                                   "ssd_scan_tc": 0}
+                                   "ssd_scan_tc": 0,
+                                   "flash_attention_window": 0}
     assert set(ops.launch_counts()) == {
         "flash_attention", "paged_decode_attention", "ssd_scan",
         "rg_lru_scan", "fused_adamw", "weighted_average",

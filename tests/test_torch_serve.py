@@ -7,8 +7,6 @@ of these inputs.  Latencies and tick counts come from the same host-side
 scheduling and must be equal exactly too.
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +21,7 @@ from repro.serve import FaultRoutedServer as JaxServer
 from repro.serve import ServeParams as JaxServeParams
 from repro.serve import synthetic_requests as jax_requests
 from repro_torch._bridge import params_from_jax
-from repro_torch.config import Scenario, get_arch, reduced
+from repro_torch.config import get_arch, reduced
 from repro_torch.data.synthetic import make_token_stream
 from repro_torch.serve import (DecodeEngine, FaultRoutedServer, ServeParams,
                                synthetic_requests)
@@ -98,23 +96,10 @@ def test_router_contiguous_matches_jax_router(model):
     assert got.latencies == want.latencies
 
 
-def test_router_refuses_fault_scenarios(model):
-    cfg, _, tp, _ = model
-    engine = DecodeEngine(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="sim/faults.py"):
-        FaultRoutedServer(engine, tp, ServeParams(),
-                          scenario=Scenario(name="replica-drop",
-                                            dropout_prob=0.25))
-
-
 def test_unported_engine_modes_raise(model):
     cfg, _, tp, _ = model
-    with pytest.raises(NotImplementedError, match="split-mode"):
-        DecodeEngine(cfg, cuts=(1,), device="cpu")
-    engine = DecodeEngine(cfg, device="cpu")
-    state = engine.new_batch_state(2, 32)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        engine.spec_chunk(state, tp, 4)
+    with pytest.raises(NotImplementedError, match="decode_window_override"):
+        DecodeEngine(cfg, decode_window_override=16, device="cpu")
     with pytest.raises(ValueError, match="unknown attn impl"):
         DecodeEngine(cfg, impl="chunked", device="cpu")
 
@@ -134,18 +119,6 @@ def test_released_slot_decodes_past_max_len_without_touching_others(model):
     solo = eng.generate(tp, prompt[None], 7)[0]
     assert [first] + toks[0].tolist() == solo.tolist()
     assert int(state.pos[1]) == 20
-
-
-def test_router_refuses_deadlines(model):
-    """SLO shedding is not ported: a request with a finite deadline raises
-    before anything is served, rather than being served without its SLO."""
-    cfg, _, tp, _ = model
-    reqs = synthetic_requests(cfg, 2, prompt_len=12, gen=4, seed=3)
-    reqs[1] = dataclasses.replace(reqs[1], deadline=10.0)
-    engine = DecodeEngine(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="deadline"):
-        FaultRoutedServer(engine, tp, ServeParams(max_len=32)).run(reqs)
-    assert engine.prefill_compiles == 0
 
 
 def test_temperature_sampling_draws_from_the_given_generator(model):
