@@ -863,16 +863,18 @@ def profile_train(torch, state, cfg, wssl_cfg, train_cfg):
     return out
 
 
-def _device_profile(torch, fn, top: int = 25):
-    """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA activity)
-    from a synchronised start to a synchronise after it: the wall time,
-    the device's busy time (the kernels' summed device time) and share of
-    the wall, the launches, and the ``top`` kernels by device time."""
+def _device_profile(torch, fn, top: int = 25, cpu: bool = True):
+    """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA activity, or
+    CUDA alone without ``cpu``: a round's ~10^5 launches make the host
+    events' processing, not the card, the cost) from a synchronised start
+    to a synchronise after it: the wall time, the device's busy time (the
+    kernels' summed device time) and share of the wall, the launches, and
+    the ``top`` kernels by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2991,6 +2993,552 @@ def run_gemma3_serve(torch, ops):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The bounded-staleness async round (phase 20)
+# ---------------------------------------------------------------------------
+
+# module values, so a CPU rehearsal can shrink them.  20a: phase 16's full
+# Mamba-2-370M at 8 clients (FAULT_RUN), participation 1.0, under
+# async-stragglers (clients 4-7 at 8x); the buffer adds 8 client stages in
+# fp32, ~3.5 GB (reckoned: the 51.5 M embedding and 8 layers).  20b: phase
+# 17's 4-layer cut; 20c: phase 18's gait FFN at 10 clients.
+ASYNC_RUN = dict(inf_rounds=2, park_rounds=3, int8_rounds=2, chunk=4,
+                 chunk_rounds=1, parity_rounds=3, parity_byz_rounds=4,
+                 paper_clients=10, paper_rounds=6, paper_steps=10)
+# 20b: (scenario, deadline, rule, compression at delivery)
+ASYNC_PARITY = (("async-stragglers", 4.0, "importance", "none"),
+                ("async-byzantine", 2.0, "krum", "none"),
+                ("async-stragglers", 4.0, "importance", "int8"),
+                ("async-stragglers", 4.0, "importance", "topk"))
+
+
+def _async_setup(layers, cuts, participation, rule="importance",
+                 scheme="none", chunk=None, **acfg):
+    """Phase 16's configs with an async block, a compression scheme and a
+    client chunk."""
+    import dataclasses
+    from repro_torch.config import AsyncRoundsConfig, CompressionConfig
+    cfg, wssl_cfg, train_cfg = _fault_setup(layers, cuts, participation, rule)
+    wssl_cfg = dataclasses.replace(
+        wssl_cfg, async_rounds=AsyncRoundsConfig(**acfg),
+        compression=CompressionConfig(scheme=scheme))
+    return cfg, wssl_cfg, dataclasses.replace(train_cfg, client_chunk=chunk)
+
+
+def _latencies(sc, n):
+    """The fault plan's latencies of ``sc``'s stragglers, as the round
+    computes them in fp32: 1 / (1 / slowdown)."""
+    import numpy as np
+    f = np.float32
+    slow = f(1.0) / max(f(sc.straggler_slowdown), f(1.0))
+    strag = set(sc.straggler_ids(n))
+    return np.asarray([f(1.0) / slow if i in strag else f(1.0)
+                       for i in range(n)], f)
+
+
+def _replay_async(lat, acfg, n, rounds):
+    """The async round's admission rule on the host, in fp32 as the round
+    computes it, for rounds in which every idle client is drawn (the
+    participation is 1.0 and the preset drops nobody): per round the
+    on-time, parked, arrived and evicted counts, the fresh-work mask and
+    the counters after it."""
+    import numpy as np
+    f = np.float32
+    cap = n if acfg.buffer_size is None else acfg.buffer_size
+    delay = np.maximum(np.ceil(lat / f(acfg.deadline)) - f(1.0), f(0.0))
+    pending, stale = np.zeros(n, int), np.zeros(n, int)
+    out = []
+    for _ in range(rounds):
+        mask = (pending == 0).astype(f)
+        on_time, late = mask * (delay == 0), mask * (delay > 0)
+        evict = late * (delay >= f(acfg.max_staleness))
+        admit = late - evict
+        order = np.cumsum(admit) - admit
+        over = admit * ((f((pending > 1).sum()) + order) >= f(cap))
+        admit = admit - over
+        out.append({"on_time": float(on_time.sum()),
+                    "buffered": float(admit.sum()),
+                    "arrived": float((pending == 1).sum()),
+                    "evicted": float((evict + over).sum()),
+                    "mask": (on_time + admit).tolist()})
+        d = delay.astype(int)
+        pending, stale = (np.where(admit > 0, d, np.maximum(pending - 1, 0)),
+                          np.where(admit > 0, d,
+                                   np.where(pending > 1, stale, 0)))
+        out[-1].update(pending=pending.tolist(), staleness=stale.tolist())
+    return out
+
+
+ASYNC_FIELDS = ("on_time", "buffered", "arrived", "evicted", "mask",
+                "pending", "staleness")
+
+
+def _drive_async_rounds(torch, cfg, wssl_cfg, train_cfg, scenario, rounds, *,
+                        sync=False, gumbels=None, before_round=None,
+                        seq=None):
+    """``init_state`` from the seed, then ``make_async_round_fn``'s round
+    (``make_round_fn``'s with ``sync``) under ``scenario`` on per-client
+    streams.  Returns the state, the async state (None with ``sync``) and
+    one record per round: every metric as host numbers, the counters after
+    the round and the global model's validation loss."""
+    from repro_torch.core.async_round import (init_async_state,
+                                              make_async_round_fn)
+    from repro_torch.core.round import init_state, make_round_fn
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.sim import scenario_params
+    dev = torch.device(FAULT_RUN["device"])
+    n, b, s = (wssl_cfg.num_clients, FAULT_RUN["batch"],
+               seq or FAULT_RUN["seq"])
+    sp = None if scenario is None else scenario_params(scenario)
+    gen = torch.Generator(device=dev).manual_seed(FAULT_RUN["seed"])
+    state = init_state(gen, cfg, wssl_cfg, train_cfg, device=dev)
+    astate = None if sync else init_async_state(state)
+    round_fn = (make_round_fn if sync else make_async_round_fn)(
+        cfg, wssl_cfg, train_cfg)
+    val = {k: torch.as_tensor(v, device=dev) for k, v in lm_batch(
+        FAULT_RUN["val_batch"], s, cfg.vocab_size, seed=10_000).items()}
+    host = lambda v: (v.cpu().tolist() if torch.is_tensor(v) and v.dim()
+                      else float(v))
+    recs = []
+    for r in range(rounds):
+        batch = _client_streams(torch, cfg, n, b, s, r, dev)
+        if before_round is not None:
+            before_round(state, r)
+        gumbel = None if gumbels is None else gumbels[r]
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        if sync:
+            state, m = round_fn(state, batch, val, sp, gumbel=gumbel)
+            extra = {}
+        else:
+            state, astate, am = round_fn(state, astate, batch, val, sp,
+                                         gumbel=gumbel)
+            m = am.base
+            extra = {f: float(getattr(am, f)) for f in am._fields
+                     if f != "base"}
+            extra.update(pending=astate.pending.cpu().tolist(),
+                         staleness=astate.staleness.cpu().tolist())
+        _sync(torch, dev)
+        dt = time.perf_counter() - t0
+        rec = {"round": r, "dt_s": dt,
+               **{f: host(getattr(m, f)) for f in m._fields}, **extra,
+               "global_val_loss": _global_val_loss(torch, state, cfg, val)}
+        recs.append(rec)
+    return state, astate, recs
+
+
+def _state_tensors(st, ast=None):
+    tensors = _leaves((st.client_stack, st.server_params, st.edge_stages,
+                       st.opt_client.m, st.opt_client.v, st.opt_server.m,
+                       st.opt_server.v, [o.m for o in st.opt_edge],
+                       [o.v for o in st.opt_edge], st.importance,
+                       st.ef_residual))
+    if ast is not None:
+        tensors += _leaves((ast.pending, ast.staleness, ast.buffer))
+    return tensors
+
+
+def _check_async_recs(where, recs, replay, stage_bytes):
+    """Counts, masks and counters equal to the host replay, the resync in
+    bytes_sync at fp32, finite losses."""
+    import numpy as np
+    for r, (rec, want) in enumerate(zip(recs, replay)):
+        got = {f: rec[f] for f in ASYNC_FIELDS}
+        if got != {f: want[f] for f in ASYNC_FIELDS}:
+            raise AssertionError(f"{where}: round {r} admission {got} is "
+                                 f"not the host replay {want}")
+        resync = float(np.float32(rec["evicted"]) * np.float32(stage_bytes))
+        if rec["bytes_resync"] != resync:
+            raise AssertionError(f"{where}: round {r} bytes_resync "
+                                 f"{rec['bytes_resync']} != {resync}")
+        if not (math.isfinite(rec["loss"])
+                and all(map(math.isfinite, rec["val_loss"]))):
+            raise AssertionError(f"{where}: round {r} non-finite loss")
+
+
+def _check_frozen(where, recs, sums):
+    """A client without fresh work in a round (busy, evicted, masked) keeps
+    its AdamW moment rows bit for bit."""
+    for r, rec in enumerate(recs):
+        for i, part in enumerate(rec["mask"]):
+            if part == 0.0 and not sums[r][i].equal(sums[r + 1][i]):
+                raise AssertionError(f"{where}: round {r} client {i} had no "
+                                     f"fresh work and its moments moved")
+
+
+def _profile_async_round(torch, state, astate, cfg, wssl_cfg, train_cfg, sc,
+                         r):
+    from repro_torch.core.async_round import make_async_round_fn
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.sim import scenario_params
+    dev = state.importance.device
+    batch = _client_streams(torch, cfg, wssl_cfg.num_clients,
+                            FAULT_RUN["batch"], FAULT_RUN["seq"], r, dev)
+    val = {k: torch.as_tensor(v, device=dev) for k, v in lm_batch(
+        FAULT_RUN["val_batch"], FAULT_RUN["seq"], cfg.vocab_size,
+        seed=10_000).items()}
+    round_fn = make_async_round_fn(cfg, wssl_cfg, train_cfg)
+    return _device_profile(torch, lambda: round_fn(
+        state, astate, batch, val, scenario_params(sc)), cpu=False)
+
+
+def run_async_train(torch, ops):
+    """Phase 20a: full Mamba-2-370M at 8 clients through the async round
+    under async-stragglers: deadline inf against the sync round bit for
+    bit; deadline 4 (the stragglers park, land at staleness 1, park
+    again); deadline 1 (evicted and resynced); deadline 2 with two buffer
+    slots (overflow); deadline 4 with int8 uploads; a chunked round."""
+    import numpy as np
+    from repro_torch import compress
+    from repro_torch.core import fairness
+    from repro_torch.core.round import client_stage_bytes
+    from repro_torch.sim import get_scenario
+    dev = torch.device(FAULT_RUN["device"])
+    sc = get_scenario("async-stragglers")
+    n = FAULT_RUN["clients"]
+    strag = sc.straggler_ids(n)
+    lat = _latencies(sc, n)
+    cut = (FAULT_RUN["cut"],)
+    out = {}
+
+    # run 1: deadline inf against the sync round, both states live
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sides = {}
+    for side in ("sync", "async"):
+        cfg, wssl_cfg, train_cfg = _async_setup(None, cut, 1.0)
+        ops.reset_launch_counts()
+        st, ast, recs = _drive_async_rounds(
+            torch, cfg, wssl_cfg, train_cfg, sc, ASYNC_RUN["inf_rounds"],
+            sync=side == "sync")
+        counts = ops.launch_counts()
+        if counts["fused_adamw"] != _fault_launches(st, recs):
+            raise AssertionError(f"async train inf {side}: launches {counts}")
+        sides[side] = (st, ast, recs)
+    (a, _, ra), (b, bst, rb) = sides["sync"], sides["async"]
+    bits = sum(_bit_diffs(torch, x, y) for x, y in zip(_state_tensors(a),
+                                                       _state_tensors(b)))
+    metric_keys = [k for k in ra[0] if k not in ("dt_s",)]
+    differ = sorted({k for x, y in zip(ra, rb) for k in metric_keys
+                     if x[k] != y[k]})
+    if any(rec["buffered"] or rec["arrived"] or rec["evicted"] for rec in rb):
+        raise AssertionError(f"async train inf: the buffer moved {rb}")
+    out["inf"] = {"rounds": ASYNC_RUN["inf_rounds"],
+                  "state_elements": sum(t.numel() for t in _state_tensors(a)),
+                  "state_elements_differing": bits,
+                  "metrics_differing": differ,
+                  "wall_s": time.perf_counter() - t0,
+                  "peak_bytes": (torch.cuda.max_memory_allocated()
+                                 if dev.type == "cuda" else 0),
+                  "sync_round_s": [r["dt_s"] for r in ra],
+                  "async_round_s": [r["dt_s"] for r in rb],
+                  "sync_global_val_loss": [r["global_val_loss"] for r in ra],
+                  "sync_importance_gap": fairness.importance_gap(
+                      ra[-1]["importance"], strag)}
+    print(f"async train: {cfg.name} {cfg.num_layers} layers, {n} clients, "
+          f"cut {FAULT_RUN['cut']}, {sc.name}: deadline inf vs the sync "
+          f"round, {ASYNC_RUN['inf_rounds']} rounds: {bits} of "
+          f"{out['inf']['state_elements']} state elements differ, metrics "
+          f"differing {differ} (bit-exact required); sync rounds "
+          f"{', '.join(f'{t:.3f}' for t in out['inf']['sync_round_s'])} s, "
+          f"async {', '.join(f'{t:.3f}' for t in out['inf']['async_round_s'])}"
+          f" s; peak memory {out['inf']['peak_bytes'] / 2**30:.2f} GiB (both "
+          f"states live)", flush=True)
+    if bits or differ:
+        raise AssertionError(f"async train: deadline inf differs from the "
+                             f"sync round: {out['inf']}")
+    sync_recs = ra
+    del sides, a, b, bst, st, ast
+    _free(torch)
+
+    # runs 2-6
+    runs = (("park", dict(deadline=4.0), "none", None,
+             ASYNC_RUN["park_rounds"]),
+            ("evict", dict(deadline=1.0), "none", None, 1),
+            ("overflow", dict(deadline=2.0, buffer_size=2), "none", None, 1),
+            ("int8", dict(deadline=4.0), "int8", None,
+             ASYNC_RUN["int8_rounds"]),
+            ("chunked", dict(deadline=4.0), "none", ASYNC_RUN["chunk"],
+             ASYNC_RUN["chunk_rounds"]))
+    for name, acfg_kw, scheme, chunk, rounds in runs:
+        cfg, wssl_cfg, train_cfg = _async_setup(None, cut, 1.0, scheme=scheme,
+                                                chunk=chunk, **acfg_kw)
+        _free(torch)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        sums = []
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, ast, recs = _drive_async_rounds(
+            torch, cfg, wssl_cfg, train_cfg, sc, rounds,
+            before_round=lambda s, r: sums.append(_moment_sums(torch, s)))
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+                else 0)
+        sums.append(_moment_sums(torch, st))
+        where = f"async train {name}"
+        stage = client_stage_bytes(st)
+        _check_async_recs(where, recs, _replay_async(
+            lat, wssl_cfg.async_rounds, n, rounds), stage)
+        _check_frozen(where, recs, sums)
+        leaves = sum(1 for l in compress.tree_leaves(st.client_stack)
+                     if l[0].numel())
+        want = {"fused_adamw": _fault_launches(st, recs)}
+        if scheme == "int8":
+            want.update(quantize_stochastic=rounds * leaves,
+                        dequantize=rounds * leaves)
+        if _nonzero(counts) != want:
+            raise AssertionError(f"{where}: launches {counts}, expected "
+                                 f"{want}")
+        prof = None
+        if name == "park" and dev.type == "cuda":
+            # one more round (the stragglers land) under the profiler; its
+            # launches are not counted
+            t1 = time.perf_counter()
+            prof = _profile_async_round(torch, st, ast, cfg, wssl_cfg,
+                                        train_cfg, sc, rounds)
+            prof["profile_s"] = time.perf_counter() - t1
+            print(f"async train {name}: one profiled round (4 fresh, 4 "
+                  f"arriving; CUDA activity only): " + _profile_line(prof)
+                  + f"; {prof['profile_s']:.1f} s with the profiler's "
+                  f"processing", flush=True)
+        gap = fairness.importance_gap(recs[-1]["importance"], strag)
+        rec = {"profile": prof,
+               "async": acfg_kw, "compression": scheme, "client_chunk": chunk,
+               "rounds": recs, "round_s": [r["dt_s"] for r in recs],
+               "wall_s": wall, "peak_bytes": peak, "launches": counts,
+               "stage_bytes": stage, "importance_gap": gap,
+               "buffer_bytes": sum(t.numel() * t.element_size()
+                                   for t in _leaves(ast.buffer))}
+        counts_line = [(r["on_time"], r["buffered"], r["arrived"],
+                        r["evicted"]) for r in recs]
+        print(f"async train {name}: {acfg_kw}, {scheme}, chunk {chunk}: "
+              f"(on time, parked, arrived, evicted) by round {counts_line} "
+              f"= the host replay; rounds "
+              f"{', '.join(f'{t:.3f}' for t in rec['round_s'])} s; losses "
+              f"{[round(r['loss'], 4) for r in recs]}; stragglers {strag} "
+              f"importance {gap['corrupt_mean']:.4f} against the others' "
+              f"{gap['clean_mean']:.4f}; global validation loss by round "
+              f"{[round(r['global_val_loss'], 4) for r in recs]}; resync "
+              f"{[r['bytes_resync'] for r in recs]} B; launches "
+              f"{_nonzero(counts)}; peak memory {peak / 2**30:.2f} GiB",
+              flush=True)
+        out[name] = rec
+        del st, ast
+        _free(torch)
+    park, k = out["park"]["rounds"], ASYNC_RUN["inf_rounds"] - 1
+    out["global_val_loss_vs_sync"] = {
+        "round": k, "async_deadline_4": park[k]["global_val_loss"],
+        "sync": sync_recs[k]["global_val_loss"]}
+    print(f"async train: global validation loss after {k + 1} rounds under "
+          f"{sc.name}: deadline 4 {park[k]['global_val_loss']:.4f}, sync "
+          f"{sync_recs[k]['global_val_loss']:.4f} (a reading)", flush=True)
+    return out
+
+
+def run_async_parity(torch, ops):
+    """Phase 20b: the async round at full width and 4 layers, cuts (1, 3),
+    8 clients, participation 0.5, through the AdamW and compression
+    kernels and through their plain versions, the same seed and Gumbel
+    draws: masks, losses, stages, moments, residuals, the buffer and the
+    counters bit-exact."""
+    import contextlib
+    from unittest import mock
+    import numpy as np
+    from repro_torch import compress
+    from repro_torch.kernels import ref
+    from repro_torch.sim import get_scenario
+    dev = torch.device(FAULT_RUN["device"])
+    rng = np.random.default_rng(29)
+    rounds_max = max(ASYNC_RUN["parity_rounds"],
+                     ASYNC_RUN["parity_byz_rounds"])
+    gumbels = [torch.as_tensor(rng.gumbel(size=FAULT_RUN["clients"]).astype(
+        np.float32)) for _ in range(rounds_max)]
+    plain = {"none": {}, "int8": dict(
+        quantize_stochastic=ref.quantize_stochastic_2d,
+        dequantize=ref.dequantize_2d),
+        "topk": dict(topk_mask=ref.topk_mask_2d)}
+    out = []
+    for name, deadline, rule, scheme in ASYNC_PARITY:
+        rounds = (ASYNC_RUN["parity_byz_rounds"] if name == "async-byzantine"
+                  else ASYNC_RUN["parity_rounds"])
+        t0 = time.perf_counter()
+        sides = {}
+        for side in ("kernel", "plain"):
+            cfg, wssl_cfg, train_cfg = _async_setup(
+                FAULT_RUN["parity_layers"], FAULT_RUN["parity_cuts"],
+                FAULT_RUN["parity_participation"], rule, scheme=scheme,
+                deadline=deadline)
+            patch = (contextlib.nullcontext() if side == "kernel" else
+                     mock.patch.multiple(ops,
+                                         fused_adamw=ops.fused_adamw_plain,
+                                         **plain[scheme]))
+            sums = []
+            ops.reset_launch_counts()
+            with patch:
+                st, ast, recs = _drive_async_rounds(
+                    torch, cfg, wssl_cfg, train_cfg, get_scenario(name),
+                    rounds, gumbels=gumbels, seq=FAULT_RUN["parity_seq"],
+                    before_round=lambda s, r: sums.append(
+                        _moment_sums(torch, s)))
+            sums.append(_moment_sums(torch, st))
+            counts = ops.launch_counts()
+            leaves = sum(1 for l in compress.tree_leaves(st.client_stack)
+                         if l[0].numel())
+            want = {}
+            if side == "kernel":
+                want = {"fused_adamw": _fault_launches(st, recs),
+                        **{k: rounds * leaves
+                           for k in PAPER_COMP_KERNELS[scheme]}}
+            if _nonzero(counts) != want:
+                raise AssertionError(f"async parity {name} {scheme} {side}: "
+                                     f"launches {counts}, expected {want}")
+            _check_frozen(f"async parity {name} {side}", recs, sums)
+            sides[side] = (st, ast, recs, counts)
+        (sk, ak, rk, ck), (sp, ap, rp, _) = sides["kernel"], sides["plain"]
+        keys = [k for k in rk[0] if k not in ("dt_s",)]
+        differ = sorted({k for a, b in zip(rk, rp) for k in keys
+                         if a[k] != b[k]})
+        bits = sum(_bit_diffs(torch, a, b) for a, b in zip(
+            _state_tensors(sk, ak), _state_tensors(sp, ap)))
+        rec = {"scenario": name, "deadline": deadline, "rule": rule,
+               "compression": scheme, "rounds": rounds,
+               "counts": [(r["on_time"], r["buffered"], r["arrived"],
+                           r["evicted"]) for r in rk],
+               "masks": [r["mask"] for r in rk],
+               "losses": [r["loss"] for r in rk],
+               "fields_differing": differ, "state_elements_differing": bits,
+               "state_elements": sum(t.numel() for t in _state_tensors(
+                   sk, ak)), "launches": ck,
+               "seconds": time.perf_counter() - t0}
+        print(f"async parity: {name} at deadline {deadline} under {rule}, "
+              f"{scheme}, {cfg.num_layers} layers, cuts "
+              f"{FAULT_RUN['parity_cuts']}, {rounds} rounds: (on time, "
+              f"parked, arrived, evicted) {rec['counts']}, losses "
+              f"{[round(v, 5) for v in rec['losses']]}; kernel launches "
+              f"{_nonzero(ck)}; fields differing "
+              f"{differ}, {bits} of {rec['state_elements']} state elements "
+              f"differ (bit-exact required); {rec['seconds']:.1f} s",
+              flush=True)
+        if differ or bits:
+            raise AssertionError(f"async parity {name} {scheme}: kernel and "
+                                 f"plain runs differ: {rec}")
+        out.append(rec)
+        del sides, sk, sp, ak, ap, st, ast
+        _free(torch)
+    return out
+
+
+def _replay_paper_async(sc, nc, acfg, rounds):
+    """The paper loop's admission on the host (participation 1.0, no
+    dropout): per round the selected, parked, arrived and evicted
+    clients."""
+    import numpy as np
+    strag = set(sc.straggler_ids(nc))
+    latency = np.asarray([sc.straggler_slowdown if i in strag else 1.0
+                          for i in range(nc)], np.float64)
+    delay = np.maximum(np.ceil(latency / acfg.deadline) - 1, 0).astype(int)
+    cap = nc if acfg.buffer_size is None else acfg.buffer_size
+    parked, out = {}, []
+    for _ in range(rounds):
+        sel = [i for i in range(nc) if i not in parked]
+        arrivals = sorted(i for i, p in parked.items() if p == 1)
+        free, evicted, late = cap - (len(parked) - len(arrivals)), [], []
+        for i in sel:
+            if delay[i] > 0 and (delay[i] >= acfg.max_staleness or free <= 0):
+                evicted.append(i)
+            elif delay[i] > 0:
+                free -= 1
+                late.append(i)
+        out.append({"selected": [i for i in sel if i not in evicted],
+                    "buffered": late, "arrived": arrivals,
+                    "evicted": len(evicted)})
+        parked = {i: p - 1 for i, p in parked.items() if p > 1}
+        parked.update({i: int(delay[i]) for i in late})
+    return out
+
+
+def run_async_paper(torch, ops):
+    """Phase 20c: the paper loop with a finite deadline — the gait FFN at
+    10 clients under async-stragglers (clients 5-9 at 8x), 6 rounds x 10
+    steps, participation 1.0, at deadline 4 and 1 and synchronously."""
+    from repro_torch.config import AsyncRoundsConfig, WSSLConfig
+    from repro_torch.core import paper_loop as pl
+    from repro_torch.sim import get_scenario
+    dev = torch.device(PAPER_RUN["device"])
+    ad, cfg, val, test, loaders, _ = _paper_experiment("gait")
+    n_client, n_server = _paper_leaves(torch, ad)
+    nc, rounds, steps = (ASYNC_RUN["paper_clients"], ASYNC_RUN["paper_rounds"],
+                         ASYNC_RUN["paper_steps"])
+    sc = get_scenario("async-stragglers")
+    det = lambda: torch.backends.cudnn.flags(
+        enabled=True, benchmark=False, deterministic=True, allow_tf32=False)
+    out = {}
+    for deadline in (4.0, 1.0, float("inf")):
+        acfg = AsyncRoundsConfig(deadline=deadline)
+        _free(torch)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with det():
+            h = pl.train_wssl(ad, loaders(nc), val, test, WSSLConfig(
+                num_clients=nc, participation_fraction=1.0,
+                async_rounds=acfg), rounds=rounds, local_steps=steps,
+                lr=PAPER_RUN["gait"]["lr"], seed=0, scenario=sc, device=dev)
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        where = f"async paper deadline {deadline}"
+        if acfg.enabled:
+            taken = steps * sum(len(s) for s in h["selected"])
+            replay = _replay_paper_async(sc, nc, acfg, rounds)
+            got = [{k: h[k][r] for k in ("selected", "buffered", "arrived",
+                                         "evicted")} for r in range(rounds)]
+            if got != replay:
+                raise AssertionError(f"{where}: history {got} is not the host "
+                                     f"replay {replay}")
+        else:
+            taken = _steps_taken(h, sc, nc, steps)
+        want = {"fused_adamw": (n_client + n_server) * taken}
+        if _nonzero(counts) != want:
+            raise AssertionError(f"{where}: launches {counts}, expected "
+                                 f"{want}")
+        losses = h["test_loss"] + h["train_loss"] + [
+            v for vs in h["val_loss"] for v in vs]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{where}: non-finite loss")
+        h.pop("params")
+        key = "sync" if not acfg.enabled else f"deadline-{deadline:g}"
+        out[key] = _paper_summary(h, len(test["y"])) | {
+            k: h[k] for k in ("buffered", "arrived", "evicted",
+                              "mean_staleness")} | {
+            "steps_taken": taken, "launches": counts, "wall_s": wall}
+        print(f"async paper: gait {nc} clients, {sc.name}, deadline "
+              f"{deadline}: parked {[len(b) for b in h['buffered']]}, "
+              f"arrived {[len(a) for a in h['arrived']]}, evicted "
+              f"{h['evicted']} by round"
+              f"{' (the host replay)' if acfg.enabled else ''}; {taken} steps, "
+              f"launches {_nonzero(counts)}; test accuracy by round "
+              f"{[round(a, 4) for a in h['test_acc']]}; {wall:.1f} s",
+              flush=True)
+    return out
+
+
+def run_async(torch, ops):
+    """Phase 20: 20a, 20b and 20c, each timed."""
+    out = {}
+    for key, label, fn in (("train", "20a", run_async_train),
+                           ("parity", "20b", run_async_parity),
+                           ("paper", "20c", run_async_paper)):
+        t0 = time.perf_counter()
+        out[key] = fn(torch, ops)
+        out[f"{key}_s"] = time.perf_counter() - t0
+        print(f"{label}. async {key}: {out[f'{key}_s']:.1f} s", flush=True)
+        _free(torch)
+    return out
+
+
 def _check_bodies(ops, where, bf16=True):
     """The counted run's flash and SSD-scan launches all took their
     tensor-core bodies (bf16, at the models' shapes; none of them in fp32)
@@ -3278,7 +3826,8 @@ def main(argv=None) -> int:
             ("fault_parity", "17. fault parity", run_fault_parity),
             ("paper_robust", "18. the paper's robustness",
              run_paper_robust),
-            ("gemma3_serve", "19. Gemma-3-12B serving", run_gemma3_serve)):
+            ("gemma3_serve", "19. Gemma-3-12B serving", run_gemma3_serve),
+            ("async", "20. the async round", run_async)):
         t0 = time.perf_counter()
         record[key] = fn(torch, ops)
         record[f"{key}_s"] = time.perf_counter() - t0

@@ -4,10 +4,11 @@
 example ``jax.tree.map(np.asarray, params)``) and returns the port's tree:
 the same nesting of dicts and lists, each leaf a tensor on ``device``.
 ``state_from_jax`` does the same for a whole training state, and
-``state_to_numpy`` goes back, for comparisons.  ``paper_params_from_jax``
-and ``paper_params_to_numpy`` do it for the paper's gait FFN and ResNet-18
-(``models/paper_models.py``), whose trees keep the JAX layout, HWIO
-convolutions included, so no leaf is permuted.  Only numpy is needed on
+``state_to_numpy`` goes back, for comparisons; ``async_state_from_jax``
+and ``async_state_to_numpy`` do it for the async round's buffer state.
+``paper_params_from_jax`` and ``paper_params_to_numpy`` do it for the
+paper's gait FFN and ResNet-18 (``models/paper_models.py``), whose trees
+keep the JAX layout, HWIO convolutions included, so no leaf is permuted.  Only numpy is needed on
 the JAX side.
 
 Matrices are stored in ``dtype``: serving passes the activation dtype (the
@@ -123,6 +124,32 @@ def state_to_numpy(state: Any) -> dict:
             "importance": arr(state.importance),
             "ef_residual": arr(state.ef_residual),
             "round_index": np.asarray(int(state.round_index), np.int32)}
+
+
+def async_state_from_jax(np_astate: Any, cfg: ModelConfig, *, device="cuda",
+                         dtype=torch.float32):
+    """The JAX package's ``AsyncState`` with numpy leaves -> the port's
+    :class:`~repro_torch.core.async_round.AsyncState`: ``pending`` and
+    ``staleness`` int32, the buffer in ``dtype`` (the client stack's) in
+    the client stack's tree layout."""
+    from repro_torch.core.async_round import AsyncState
+    device = resolve_device(device)
+    i32 = lambda a: torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
+    return AsyncState(pending=i32(np_astate.pending),
+                      staleness=i32(np_astate.staleness),
+                      buffer=params_from_jax(np_astate.buffer, cfg,
+                                             device=device, dtype=dtype))
+
+
+def async_state_to_numpy(astate: Any) -> dict:
+    """The port's ``AsyncState`` as ``{"pending", "staleness", "buffer"}``
+    numpy copies (int32 counters, an fp32 buffer in the JAX tree layout),
+    so a snapshot taken between rounds stays as it was."""
+    copy = lambda a, dtype: np.array(a.detach().cpu().numpy(), dtype=dtype)
+    return {"pending": copy(astate.pending, np.int32),
+            "staleness": copy(astate.staleness, np.int32),
+            "buffer": tree_map(lambda a: copy(a.float(), np.float32),
+                               astate.buffer)}
 
 
 def paper_params_from_jax(np_params: Any, *, device="cuda") -> Any:

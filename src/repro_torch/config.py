@@ -4,9 +4,7 @@ training blocks (:class:`WSSLConfig`, :class:`TrainConfig`,
 :class:`AggregationConfig`, and the async and compression blocks).
 
 A copy of the parts of ``repro/config.py`` that the serving path and the
-synchronous training round read.  The async-round block comes in its
-default, off state: a finite deadline raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+training rounds read, the synchronous and the bounded-staleness async one.
 It is stdlib-only, like the original, and the port keeps its own copy so
 that it imports nothing of ``repro``.  Field names, defaults and
 ``reduced`` are the same, so a config built here and one built by the JAX
@@ -268,9 +266,17 @@ class Scenario:
 
 @dataclass(frozen=True)
 class AsyncRoundsConfig:
-    """Bounded-staleness asynchronous rounds.  Only the default
-    ``deadline = inf`` (the synchronous algorithm) is ported; a finite
-    deadline raises until ``core/async_round.py`` is ported."""
+    """Bounded-staleness asynchronous rounds (``core/async_round.py``).
+
+    ``deadline`` is measured in simulated client latencies: a clean client
+    finishes its round at t = 1.0, a straggler at slowdown x4 at t = 4.0
+    (``sim.faults.client_latencies``).  A client that misses the deadline
+    is buffered: its update lands ``ceil(latency / deadline) - 1`` rounds
+    later at a staleness discount fused into the aggregation coefficients
+    (``wssl.staleness_weights``).  ``deadline = inf`` is the synchronous
+    round, bit for bit; ``max_staleness`` evicts (and resyncs) updates
+    that would land that stale; ``buffer_size`` caps the parked updates
+    (None: one slot per client)."""
 
     deadline: float = float("inf")
     max_staleness: int = 4
@@ -292,10 +298,6 @@ class AsyncRoundsConfig:
         if self.buffer_size is not None and self.buffer_size < 1:
             raise ValueError("buffer_size must be >= 1 (None = one slot "
                              "per client)")
-        if math.isfinite(self.deadline):
-            raise NotImplementedError(
-                "async rounds (a finite deadline) are not ported yet "
-                "(ROADMAP Queue 1, item 10: core/async_round.py)")
 
     @property
     def enabled(self) -> bool:
@@ -488,8 +490,9 @@ class TrainConfig:
     remat: bool = True
     # recompute every `remat_span` super-blocks in the backward
     remat_span: int = 4
-    # per-client fwd/bwd in chunks of this many clients (ROADMAP Queue 1,
-    # item 7); None = all clients, the only value the port runs so far
+    # per-client fwd/bwd in chunks of this many clients: shared-stage
+    # gradients and the loss sum per chunk, then across chunks; must divide
+    # num_clients.  None = all clients at once
     client_chunk: Optional[int] = None
     # accepted for parity with the JAX config and changes nothing: the
     # port's AdamW always steps through kernels/ops.fused_adamw (the CUDA

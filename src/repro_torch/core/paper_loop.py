@@ -37,9 +37,18 @@ training labels, gradient noise and sign flips inside the split step,
 Byzantine amplification of the round's update, and the adaptive (ALIE)
 attack from the round's honest updates.  Compressed uploads go through
 ``repro_torch.compress`` (and so through the compression kernels on the
-card), and every rule of the aggregation registry runs.  A finite async
-deadline (ROADMAP Queue 1, item 10) is refused by ``AsyncRoundsConfig``
-itself.
+card), and every rule of the aggregation registry runs.
+
+A finite ``WSSLConfig.async_rounds.deadline`` runs the bounded-staleness
+rounds of ``core/async_round.py`` on the host, as JAX's loop does: the
+straggler slowdown becomes an arrival delay (``ceil(slowdown /
+deadline) - 1`` rounds, in float64 numpy), stragglers take full local
+steps, busy clients take no fresh work, eviction (at ``max_staleness`` or
+a full buffer) is decided at admission, before local training, a late
+client parks ``new - start`` and reverts, and an arrival lands as
+``global + delta`` at ``wssl.staleness_weights(s)``; the compression and
+the aggregation see that fractional ``contrib``, and the eviction resync
+is counted in ``bytes_sync``.
 """
 
 from __future__ import annotations
@@ -228,6 +237,16 @@ def train_wssl(adapter: ModelAdapter,
     latency = np.asarray([sc.straggler_slowdown if i in stragglers else 1.0
                           for i in range(n)], np.float64)
 
+    # ---- bounded-staleness async rounds: with a finite deadline the
+    # slowdown is an arrival time (full local work, landed late); with
+    # deadline = inf all of this is inert ---------------------------------
+    acfg = wssl_cfg.async_rounds
+    async_on = acfg.enabled
+    arrival_delay = (np.maximum(np.ceil(latency / acfg.deadline) - 1, 0)
+                     .astype(int) if async_on else np.zeros(n, int))
+    buffer_cap = n if acfg.buffer_size is None else acfg.buffer_size
+    parked: Dict[int, list] = {}  # client -> [rounds_left, staleness, delta]
+
     importance = torch.full((n,), 1.0 / n, dtype=torch.float32, device=dev)
     participation = np.zeros(n)
     history: Dict[str, Any] = {"round": [], "test_acc": [], "test_loss": [],
@@ -260,18 +279,20 @@ def train_wssl(adapter: ModelAdapter,
         ef_stack = tree_map(lambda l: torch.zeros(
             (n,) + tuple(l.shape), dtype=torch.float32, device=dev), client0)
     # the rows before the round are read by the amplification, the
-    # adaptive attack and the compressed upload
-    keep_prev = (comp_cfg.enabled or bool(adaptive_clients)
+    # adaptive attack, the compressed upload and the async deltas
+    keep_prev = (comp_cfg.enabled or bool(adaptive_clients) or async_on
                  or (bool(scaled_clients) and sc.grad_scale_factor != 1.0))
 
     for r in range(rounds):
         t0 = time.perf_counter()
         # ---- Algorithm 1: selection (round-0 rule lives in wssl); with
-        # select_staleness_beta > 0 slow clients pay a latency penalty
+        # select_staleness_beta > 0 busy (parked) and slow clients pay a
+        # penalty
         pen = None
         if wssl_cfg.select_staleness_beta:
-            pen = torch.as_tensor(latency - 1.0, dtype=torch.float32,
-                                  device=dev)
+            pen = torch.as_tensor(
+                [latency[i] - 1.0 + (parked[i][0] if i in parked else 0)
+                 for i in range(n)], dtype=torch.float32, device=dev)
         idx, _ = wssl.select_clients(
             importance, wssl_cfg, r, generator=gen,
             gumbel=None if gumbels is None else gumbels[r], penalty=pen)
@@ -279,14 +300,32 @@ def train_wssl(adapter: ModelAdapter,
         # transient failures: selected clients drop out of the round
         dropped = [i for i in sel if fault_rng.random() < sc.dropout_prob]
         sel = [i for i in sel if i not in dropped]
+        # async: clients with an update in flight take no fresh work; a
+        # client whose update would land at / over max_staleness or
+        # overflow the buffer is evicted at admission, before it trains
+        sel = [i for i in sel if i not in parked]
+        arrivals = {i: p for i, p in parked.items() if p[0] == 1}
+        evicted_now: List[int] = []
+        if async_on:
+            free_slots = buffer_cap - (len(parked) - len(arrivals))
+            for i in sel:
+                d = int(arrival_delay[i])
+                if d > 0 and (d >= acfg.max_staleness or free_slots <= 0):
+                    evicted_now.append(i)
+                elif d > 0:
+                    free_slots -= 1
+            sel = [i for i in sel if i not in evicted_now]
         participation[sel] += 1
         # every client starts the round on the synced global stage
         global_prev = _copy(clients[0]) if keep_prev else None
 
         # ---- Algorithm 2: local split training ------------------------
-        round_bytes, losses = 0, []
+        round_bytes, losses, late = 0, [], []
         for i in sel:
-            steps_i = strag_steps if i in stragglers else local_steps
+            # a finite deadline models slowness as lateness: full local
+            # work, delivered arrival_delay[i] rounds later
+            steps_i = (local_steps if async_on
+                       else strag_steps if i in stragglers else local_steps)
             sigma = sc.gradient_noise_scale if i in noisy_clients else 0.0
             for s in range(steps_i):
                 x, y = _on(loaders[i].next_batch(), dev)
@@ -312,10 +351,22 @@ def train_wssl(adapter: ModelAdapter,
                     for old, new in zip(tree_leaves(global_prev),
                                         tree_leaves(clients[i])):
                         new.copy_(old + f * (new - old))
+            if arrival_delay[i] > 0:
+                # past the deadline: park the local update and revert the
+                # visible stage
+                with torch.no_grad():
+                    delta = tree_map(lambda new, old: new - old, clients[i],
+                                     global_prev)
+                    for a, g in zip(tree_leaves(clients[i]),
+                                    tree_leaves(global_prev)):
+                        a.copy_(g)
+                late.append((i, int(arrival_delay[i]), delta))
+        on_time = [i for i in sel if not arrival_delay[i] > 0]
         # adaptive adversaries craft their sent stage from this round's
-        # honest updates: global + mean(d) - z std(d), the population std
-        adaptive_now = [i for i in sel if i in adaptive_clients]
-        honest_now = [i for i in sel if i not in adaptive_clients]
+        # on-time honest updates: global + mean(d) - z std(d), the
+        # population std
+        adaptive_now = [i for i in on_time if i in adaptive_clients]
+        honest_now = [i for i in on_time if i not in adaptive_clients]
         if adaptive_now and honest_now:
             z = float(sc.adaptive_margin)
             count = torch.tensor(float(len(honest_now)), dtype=torch.float32,
@@ -330,18 +381,24 @@ def train_wssl(adapter: ModelAdapter,
                     crafted = g + mu - z * sd
                     for a in rows[len(honest_now):]:
                         a.copy_(crafted)
-        uploads = len(sel)
+        resync_bytes = len(evicted_now) * client_stage_bytes
+        uploads = len(on_time) + len(arrivals)
         update_raw = uploads * client_stage_bytes
         update_comp = uploads * comp_stage_bytes
         if comp_cfg.enabled:
             # compressed upload from the participants + raw broadcast back
-            sync_bytes = uploads * comp_stage_bytes + n * client_stage_bytes
+            sync_bytes = (uploads * comp_stage_bytes
+                          + n * client_stage_bytes + resync_bytes)
         else:
-            sync_bytes = protocol.sync_round_bytes(uploads, n,
-                                                   client_stage_bytes)
+            sync_bytes = protocol.sync_round_bytes(
+                uploads, n, client_stage_bytes) + resync_bytes
+        mean_stale = (float(np.mean([p[1] for p in arrivals.values()]))
+                      if arrivals else 0.0)
         comm.record(r, len(sel), bytes_up=round_bytes // 2,
                     bytes_down=round_bytes // 2, bytes_sync=sync_bytes,
                     bytes_per_hop=(round_bytes // 2,),
+                    arrived=len(arrivals), mean_staleness=mean_stale,
+                    buffered=len(late), evicted=len(evicted_now),
                     bytes_update_raw=update_raw,
                     bytes_update_comp=update_comp)
 
@@ -351,10 +408,21 @@ def train_wssl(adapter: ModelAdapter,
         importance = wssl.compute_importance(val_losses, wssl_cfg,
                                              prev=importance)
 
-        # ---- aggregation through the registry + sync --------------------
+        # ---- aggregation through the registry + sync: an arrival applies
+        # its parked delta to the current global stage, at its staleness
+        # discount ---------------------------------------------------------
         contrib = torch.zeros((n,), dtype=torch.float32, device=dev)
-        contrib[sel] = 1.0
+        contrib[on_time] = 1.0
         with torch.no_grad():
+            for i, (_, stale, delta) in arrivals.items():
+                contrib[i] = float(wssl.staleness_weights(
+                    torch.tensor(float(stale)), acfg.max_staleness,
+                    kind=acfg.staleness_weighting,
+                    alpha=acfg.staleness_alpha))
+                for a, g, dl in zip(tree_leaves(clients[i]),
+                                    tree_leaves(global_prev),
+                                    tree_leaves(delta)):
+                    torch.add(g, dl, out=a)
             stacked = tree_map(lambda *xs: torch.stack(xs), *clients)
             if comp_cfg.enabled:
                 # the uploaded deltas cross the wire compressed; the server
@@ -380,6 +448,10 @@ def train_wssl(adapter: ModelAdapter,
             for c in clients:
                 for a, g in zip(tree_leaves(c), tree_leaves(global_client)):
                     a.copy_(g)
+        # advance the buffer clock: arrivals leave, admissions enter
+        parked = {i: [p[0] - 1, p[1], p[2]] for i, p in parked.items()
+                  if p[0] > 1}
+        parked.update({i: [d, d, delta] for i, d, delta in late})
 
         # ---- evaluation of the global model ------------------------------
         tl, ta = evaluate(global_client, server, xt, yt)
@@ -394,10 +466,10 @@ def train_wssl(adapter: ModelAdapter,
         history["importance"].append(importance.tolist())
         history["bytes_up"].append(round_bytes)
         history["bytes_sync"].append(sync_bytes)
-        history["arrived"].append([])
-        history["buffered"].append([])
-        history["evicted"].append(0)
-        history["mean_staleness"].append(0.0)
+        history["arrived"].append(sorted(arrivals))
+        history["buffered"].append(sorted(i for i, _, _ in late))
+        history["evicted"].append(len(evicted_now))
+        history["mean_staleness"].append(mean_stale)
         history["round_s"].append(time.perf_counter() - t0)
 
     history["participation"] = participation.tolist()

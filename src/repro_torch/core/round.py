@@ -58,8 +58,9 @@ What differs from the JAX round, and why:
   compression draws), or from ``fault_draws`` when given.
 * Compression draws come from ``comp_uniform(tag, leaf, shape)`` when
   given (tests feed the JAX draws: ``tag`` is the integer the JAX round
-  folds into its selection key, ``leaf`` the leaf index folded in after it
-  for updates and None for activations), else from a ``torch.Generator``
+  folds into its selection key, ``leaf`` the integer folded in after it:
+  the leaf index for updates, the chunk index for a chunked round's
+  activations and None for a flat round's), else from a ``torch.Generator``
   seeded from the selection generator's seed, the round, the tag and the
   leaf.  They never advance the selection stream: every round draws its
   selection from the state it would without compression (the masks then
@@ -67,14 +68,26 @@ What differs from the JAX round, and why:
   activation ``u`` for all clients; the loop takes client i's rows.
 * Dense stacks have no MoE aux loss, so the edge and server aux terms of
   the JAX objective are 0 here (MoE is ROADMAP Queue 1, item 11).
+* ``TrainConfig.client_chunk`` reproduces JAX's client-chunked scan
+  (``_client_grads_chunked``): the shared stages' gradients and the loss
+  sum per chunk, then across chunks in fp32, and the activation
+  compression draws one ``(chunk * rows, d)`` tensor per chunk and hop,
+  ``comp_uniform(tag, chunk_index, shape)``.  The loop runs one client at
+  a time either way, so the chunk changes no memory bound here.
+
+The round is built from pieces that ``core/async_round.py`` shares, as
+the JAX async round imports the sync round's: the per-client split
+forward/backward (:func:`_client_grads`), the clip and the gradient
+corruption, the masked step on kept pre-step rows, the update
+transforms, validation and the byte accounting.
 
 Every ported layer kind trains: global and local attention, the Mamba-2
 SSD block and the RG-LRU block, the recurrent ones through their plain
 scans (``ssd_chunked``, the doubling scan), as the JAX round trains them
 with ``impl="dense"``.  Not ported yet, and raising
 ``NotImplementedError`` naming the ROADMAP item rather than being
-ignored: client-axis sharding (item 13), ``TrainConfig.client_chunk``
-(item 7) and frontend embeddings (item 11).
+ignored: client-axis sharding (item 13) and frontend embeddings
+(item 11).
 """
 
 from __future__ import annotations
@@ -200,15 +213,17 @@ def _row(tree: Params, i: int) -> Params:
 
 def _check_ported(batch, shard_ctx, train_cfg: TrainConfig,
                   wssl_cfg: WSSLConfig, impl: str) -> None:
-    """Refuse, before any state moves, what the port does not run yet."""
+    """Refuse, before any state moves, what the port does not run yet, and
+    a client chunk that does not divide the clients (``ValueError``, as
+    the JAX round raises at trace time)."""
     if shard_ctx is not None:
         raise NotImplementedError(
             "client-axis sharding is not ported yet (ROADMAP Queue 1, "
             "item 13)")
-    if train_cfg.client_chunk is not None:
-        raise NotImplementedError(
-            "TrainConfig.client_chunk is not ported yet (ROADMAP Queue 1, "
-            "item 7: the client-chunked round)")
+    chunk = train_cfg.client_chunk
+    if chunk is not None and wssl_cfg.num_clients % chunk:
+        raise ValueError(f"client_chunk={chunk} must divide num_clients="
+                         f"{wssl_cfg.num_clients}")
     if "embeds" in batch:
         raise NotImplementedError(
             "frontend embeddings are not ported yet (ROADMAP Queue 1, "
@@ -259,12 +274,13 @@ def _compress_update(state: WSSLState, old_rows: List[torch.Tensor],
                      saved: List[int], sel: List[int], mask: torch.Tensor,
                      comp_cfg, comp_p: compress.CompressionParams,
                      draw: Uniform) -> None:
-    """Send the selected clients' stage deltas through the wire, in place:
-    each saved row of the client stack (``old_rows`` holds the pre-step
-    rows of the clients ``saved``, the selected ones among them) becomes
-    ``old + sent`` (what the aggregation reads; sent is 0 on an
-    unselected row) and the residuals carry what the wire dropped.  One
-    leaf at a time, so one leaf's transients are live at once."""
+    """Send the participating clients' stage deltas through the wire, in
+    place: each saved row of the client stack (``old_rows`` holds the
+    pre-step rows of the clients ``saved``, the ``mask > 0`` clients
+    ``sel`` among them) becomes ``old + sent`` (what the aggregation
+    reads; sent is 0 on a masked row) and the residuals carry what the
+    wire dropped.  One leaf at a time, so one leaf's transients are live
+    at once."""
     res = tree_leaves(state.ef_residual)
     pos = [saved.index(i) for i in sel]
     for i, (leaf, old) in enumerate(zip(tree_leaves(
@@ -299,6 +315,274 @@ def _keep_rows(plan: Optional[sim_faults.FaultPlan], sel: List[int],
     return sorted(set(sel) | adaptive)
 
 
+# ---------------------------------------------------------------------------
+# The pieces of a round, shared with core/async_round.py
+# ---------------------------------------------------------------------------
+
+
+def _fault_plan(state: WSSLState, scenario, wssl_cfg: WSSLConfig,
+                fd: sim_faults.FaultDraws, device
+                ) -> Optional[sim_faults.FaultPlan]:
+    """The round's fault plan, from a stream of its own (or ``fd``), or
+    None without a scenario."""
+    if scenario is None:
+        return None
+    return sim_faults.sample_fault_plan(
+        scenario, wssl_cfg.num_clients, num_hops=len(state.edge_stages),
+        hop_replicas=wssl_cfg.hop_replicas,
+        generator=_stream(state, TAG_FAULT, None, device), draws=fd,
+        device=device)
+
+
+class _Grads(NamedTuple):
+    loss: torch.Tensor                 # the weighted CE objective
+    pcl: torch.Tensor                  # (N,) per-client loss (0 unrun)
+    client: Params                     # leaves (N, ...), param dtype
+    server: Params
+    edges: List[Params]
+    hop_bytes: List[int]               # per client, per hop crossing
+    rows: int                          # d-vectors per client
+
+
+def _client_grads(state: WSSLState, tokens: torch.Tensor,
+                  labels: torch.Tensor, coef: torch.Tensor,
+                  run_rows: List[int], *, model_cfg: ModelConfig,
+                  train_cfg: TrainConfig, comp_cfg,
+                  comp_p: Optional[compress.CompressionParams],
+                  draw: Uniform, impl: str) -> _Grads:
+    """Algorithm 2 steps 2-4 for the clients ``run_rows``: each one's split
+    forward and chained backward, its loss weighted by ``coef[i]``.
+
+    With ``train_cfg.client_chunk`` the clients go in chunks of that many,
+    as JAX's ``_client_grads_chunked`` scans them: each chunk's
+    shared-stage gradients (param dtype) and weighted loss are summed
+    over its clients, then added into fp32 accumulators across chunks and
+    cast back; the activation-compression draws are one ``(chunk * rows,
+    d)`` draw per chunk and hop, ``draw(tag, chunk_index, shape)`` (JAX
+    folds the chunk index in after the tag).  Without it the loop is one
+    chunk of all N clients, one ``(N * rows, d)`` draw per hop with
+    ``leaf=None``."""
+    cfg = model_cfg
+    n = coef.shape[0]
+    num_edges = len(state.edge_stages)
+    remat, span = train_cfg.remat, train_cfg.remat_span
+    compress_acts = comp_cfg.enabled and comp_cfg.activations
+    chunk = train_cfg.client_chunk
+    k = n if chunk is None else chunk
+    rows = tokens.shape[1] * tokens.shape[2]        # d-vectors per client
+    hop_u: Dict[int, torch.Tensor] = {}
+    run = set(run_rows)
+
+    def hop(a: torch.Tensor, tag: int, i: int) -> torch.Tensor:
+        """What crosses a hop: ``a`` itself, or its wire reconstruction."""
+        if not compress_acts:
+            return a
+        u = None
+        if comp_cfg.kind == "quant":
+            if tag not in hop_u:
+                hop_u[tag] = draw(tag, None if chunk is None else i // k,
+                                  (k * rows, a.shape[-1]))
+            j = i % k
+            u = hop_u[tag][j * rows:(j + 1) * rows]
+        return compress.compress_activations(a, comp_cfg, comp_p, u=u)
+
+    g_client = tree_map(torch.zeros_like, state.client_stack)
+    g_server = tree_map(torch.zeros_like, state.server_params)
+    g_edges = [tree_map(torch.zeros_like, e) for e in state.edge_stages]
+    pcl = torch.zeros((n,), dtype=torch.float32, device=coef.device)
+
+    def client_pass(i: int, server_b, edges_b) -> torch.Tensor:
+        """Client i's split forward and chained backward; returns its loss.
+        Its graph, and with it the bound leaves whose ``.grad`` views keep
+        the gradient buffers alive, dies when it returns."""
+        client_b = _bind(_row(state.client_stack, i), _row(g_client, i))
+        acts = tf.client_forward(client_b, cfg, tokens[i], impl=impl,
+                                 remat=remat, remat_span=span)
+        x = hop(acts.detach(), TAG_ACT_UP, i).requires_grad_(True)
+        relays = []
+        for j, edge_b in enumerate(edges_b):
+            y = tf.stage_forward(edge_b, cfg, x, j + 1, impl=impl,
+                                 remat=remat, remat_span=span)
+            relays.append((x, y))
+            x = hop(y.detach(), TAG_ACT_UP + j + 1, i).requires_grad_(True)
+        loss_i, _ = tf.server_loss(server_b, cfg, x, labels[i], impl=impl,
+                                   remat=remat, remat_span=span)
+        (coef[i] * loss_i).backward()
+        g_x = hop(x.grad, TAG_ACT_DOWN + num_edges, i)
+        for j in reversed(range(num_edges)):
+            x_in, y = relays[j]
+            y.backward(g_x)
+            g_x = hop(x_in.grad, TAG_ACT_DOWN + j, i)
+        acts.backward(g_x)
+        return loss_i.detach()
+
+    def chunk_pass(members: range, gs: Params, ge: List[Params]) -> None:
+        server_b = _bind(state.server_params, gs)
+        edges_b = [_bind(e, g) for e, g in zip(state.edge_stages, ge)]
+        with torch.enable_grad():
+            for i in members:
+                if i in run:
+                    pcl[i] = client_pass(i, server_b, edges_b)
+
+    if chunk is None:
+        chunk_pass(range(n), g_server, g_edges)
+        loss = torch.sum(coef * pcl)
+    else:
+        f32 = lambda t: tree_map(lambda a: torch.zeros(
+            a.shape, dtype=torch.float32, device=a.device), t)
+        acc_s, acc_e = f32(state.server_params), [f32(e) for e in
+                                                   state.edge_stages]
+        loss = torch.zeros((), dtype=torch.float32, device=coef.device)
+        for c in range(0, n, k):
+            members = range(c, c + k)
+            if run.isdisjoint(members):
+                continue            # its gradients and loss terms are 0
+            hop_u.clear()
+            chunk_pass(members, g_server, g_edges)
+            for acc, g in zip(tree_leaves((acc_s, acc_e)),
+                              tree_leaves((g_server, g_edges))):
+                acc.add_(g.float())
+                g.zero_()
+            loss = loss + torch.sum(coef[c:c + k] * pcl[c:c + k])
+        cast = lambda acc, p: tree_map(lambda a, b: a.to(b.dtype), acc, p)
+        g_server = cast(acc_s, state.server_params)
+        g_edges = [cast(a, e) for a, e in zip(acc_e, state.edge_stages)]
+        del acc_s, acc_e
+    del hop_u
+    hop_bytes = [rows * cfg.d_model * torch_dtype(cfg.dtype).itemsize
+                 ] * (num_edges + 1)
+    return _Grads(loss, pcl, g_client, g_server, g_edges, hop_bytes, rows)
+
+
+def _clip_and_corrupt(state: WSSLState, g: _Grads,
+                      plan: Optional[sim_faults.FaultPlan],
+                      train_cfg: TrainConfig, fd: sim_faults.FaultDraws,
+                      device) -> None:
+    """The global-norm clip of each stage's gradients, then the plan's
+    corruption of the client-stage gradients, in place (adversarial
+    corruption models the *sent* update, so it follows the clip)."""
+    if train_cfg.grad_clip:
+        clip_by_global_norm(g.client, train_cfg.grad_clip)
+        clip_by_global_norm(g.server, train_cfg.grad_clip)
+        for ge in g.edges:
+            clip_by_global_norm(ge, train_cfg.grad_clip)
+    if plan is not None:
+        sim_faults.corrupt_client_grads(
+            plan, g.client, noise=fd.noise,
+            generator=_stream(state, TAG_NOISE, None, device))
+
+
+def _saved_rows(state: WSSLState, saved: List[int]) -> List[torch.Tensor]:
+    """Copies of the clients ``saved``'s rows of every client leaf."""
+    return ([leaf[saved] for leaf in tree_leaves(state.client_stack)]
+            if saved else [])
+
+
+def _step(state: WSSLState, g: _Grads, mask: torch.Tensor,
+          train_cfg: TrainConfig, schedule, step_shared: bool) -> None:
+    """The optimizer step, in place: the client stack masked to ``mask``
+    (a masked row is frozen bit for bit), the server and edge stages only
+    when ``step_shared`` (a round without a participant leaves them and
+    their optimizer state untouched; JAX steps them and keeps the old
+    values)."""
+    _, opt_update = make_optimizer(train_cfg.optimizer)
+    lr = schedule(int(state.round_index))
+    wd = train_cfg.weight_decay
+    opt_update(state.client_stack, g.client, state.opt_client, lr=lr,
+               weight_decay=wd, mask=mask)
+    if step_shared:
+        opt_update(state.server_params, g.server, state.opt_server, lr=lr,
+                   weight_decay=wd)
+        for ep, ge, oe in zip(state.edge_stages, g.edges, state.opt_edge):
+            opt_update(ep, ge, oe, lr=lr, weight_decay=wd)
+
+
+def _transform_updates(plan: sim_faults.FaultPlan, state: WSSLState,
+                       old_rows: List[torch.Tensor], saved: List[int],
+                       mask: torch.Tensor) -> None:
+    """Straggler / slow-hop progress and Byzantine amplification on the
+    post-optimizer update, then the adaptive clients' crafted stage from
+    the ``mask`` clients' honest updates, in place."""
+    sim_faults.scale_client_updates(plan, state.client_stack, old_rows,
+                                    rows=saved)
+    sim_faults.adaptive_scale_updates(plan, state.client_stack, old_rows,
+                                      mask, rows=saved)
+
+
+def _validate(state: WSSLState, val_batch, *, model_cfg: ModelConfig,
+              wssl_cfg: WSSLConfig, impl: str
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every client's stage (as it stands) through the shared stages on
+    the server-held set -> ``(val_losses, importance)``; without a set
+    the losses are 0 and the importance carries over."""
+    n = wssl_cfg.num_clients
+    dev = state.importance.device
+    val_losses = torch.zeros((n,), dtype=torch.float32, device=dev)
+    if val_batch is None:
+        return val_losses, state.importance.clone()
+    vt, vl = val_batch["tokens"], val_batch["labels"]
+    with torch.no_grad():
+        for i in range(n):
+            a = tf.client_forward(_row(state.client_stack, i), model_cfg,
+                                  vt, impl=impl, remat=False)
+            for j, ep in enumerate(state.edge_stages):
+                a = tf.stage_forward(ep, model_cfg, a, j + 1, impl=impl,
+                                     remat=False)
+            val_losses[i], _ = tf.server_loss(state.server_params, model_cfg,
+                                              a, vl, impl=impl, remat=False)
+    return val_losses, wssl.compute_importance(val_losses, wssl_cfg,
+                                               prev=state.importance)
+
+
+def client_stage_bytes(state: WSSLState) -> int:
+    """Bytes of one client's stage (the sync and resync payload)."""
+    return tree_bytes(state.client_stack) // tree_leaves(
+        state.client_stack)[0].shape[0]
+
+
+def _byte_metrics(state: WSSLState, g: _Grads, sel: torch.Tensor,
+                  uploads: torch.Tensor, *, model_cfg: ModelConfig,
+                  comp_cfg, comp_p, resync: Optional[torch.Tensor] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """The round's byte counts as :class:`RoundMetrics` fields: ``sel``
+    clients ran the split pipeline, ``uploads`` stage updates went up
+    (compressed when compression is on) and the global stage went back
+    to all N; ``resync`` (async rounds) is added to ``bytes_sync``."""
+    n = tree_leaves(state.client_stack)[0].shape[0]
+    num_hops = len(g.hop_bytes)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=sel.device)
+    bytes_per_hop = sel * f32(g.hop_bytes)
+    stage_bytes = f32(client_stage_bytes(state))
+    update_raw = uploads * stage_bytes
+    if comp_cfg.enabled:
+        comp_stage = f32(compress.compressed_stage_bytes(
+            state.client_stack, comp_cfg, comp_p))
+        update_comp = uploads * comp_stage
+        # sync = compressed upload from the uploaders + raw broadcast to all
+        bytes_sync = uploads * comp_stage + n * stage_bytes
+    else:
+        update_comp = update_raw
+        bytes_sync = sync_round_bytes(uploads, n, stage_bytes)
+    if resync is not None:
+        bytes_sync = bytes_sync + resync
+    if comp_cfg.enabled and comp_cfg.activations:
+        wire = compress.activation_wire_bytes(g.rows, model_cfg.d_model,
+                                              comp_cfg, comp_p)
+        act_raw = sel * 2.0 * f32(g.hop_bytes).sum()
+        act_comp = sel * 2.0 * f32(wire * num_hops)
+    else:
+        act_raw = act_comp = f32(0.0)
+    return dict(bytes_up=bytes_per_hop.sum(), bytes_down=bytes_per_hop.sum(),
+                bytes_per_hop=bytes_per_hop, bytes_sync=bytes_sync,
+                bytes_update_raw=update_raw, bytes_update_comp=update_comp,
+                bytes_act_raw=act_raw, bytes_act_comp=act_comp)
+
+
+# ---------------------------------------------------------------------------
+# The synchronous round
+# ---------------------------------------------------------------------------
+
+
 def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
                val_batch: Optional[Dict[str, torch.Tensor]] = None,
                scenario=None, agg_p=None,
@@ -327,27 +611,17 @@ def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
     plan's and the gradient noise's (tests feed the JAX draws); the
     compression and fault draws never advance ``state.rng``."""
     _check_ported(batch, shard_ctx, train_cfg, wssl_cfg, impl)
-    cfg = model_cfg
     n = wssl_cfg.num_clients
-    num_edges = len(state.edge_stages)
-    remat, span = train_cfg.remat, train_cfg.remat_span
     comp_cfg = wssl_cfg.compression
     if comp_cfg.enabled and comp_p is None:
         comp_p = compress.compression_params(comp_cfg)
-    compress_acts = comp_cfg.enabled and comp_cfg.activations
     dev = state.importance.device
     draw = _draws(state, comp_uniform, dev)
     fd = fault_draws if fault_draws is not None else sim_faults.FaultDraws()
 
-    # ---- fault injection: the plan first, from a stream of its own, so
-    # its latencies can reach the selection draw ---------------------------
-    plan = None
-    if scenario is not None:
-        plan = sim_faults.sample_fault_plan(
-            scenario, n, num_hops=num_edges,
-            hop_replicas=wssl_cfg.hop_replicas,
-            generator=_stream(state, TAG_FAULT, None, dev), draws=fd,
-            device=dev)
+    # ---- fault injection: the plan first, so its latencies can reach the
+    # selection draw ------------------------------------------------------
+    plan = _fault_plan(state, scenario, wssl_cfg, fd, dev)
 
     # ---- Algorithm 1: selection (round 0 selects every client); with
     # select_staleness_beta > 0 slow clients pay a latency penalty --------
@@ -361,125 +635,32 @@ def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
         # dropout: dropped clients compose like unselected ones
         mask = mask * plan.keep
     agg_w = wssl.aggregation_weights(state.importance, mask, wssl_cfg)
-    coef = agg_w * mask
     selected = mask.cpu().tolist()
     sel_rows = [i for i in range(n) if selected[i] > 0]
 
     # ---- Algorithm 2 steps 2-4: split forward, chained backward ---------
-    tokens, labels = batch["tokens"], batch["labels"]
+    labels = batch["labels"]
     if plan is not None:
-        labels = sim_faults.corrupt_labels(plan, labels, cfg.vocab_size)
-    rows = tokens.shape[1] * tokens.shape[2]        # d-vectors per client
-    hop_u: Dict[int, torch.Tensor] = {}
-
-    def hop(a: torch.Tensor, tag: int, i: int) -> torch.Tensor:
-        """What crosses a hop: ``a`` itself, or its wire reconstruction."""
-        if not compress_acts:
-            return a
-        u = None
-        if comp_cfg.kind == "quant":
-            if tag not in hop_u:
-                hop_u[tag] = draw(tag, None, (n * rows, a.shape[-1]))
-            u = hop_u[tag][i * rows:(i + 1) * rows]
-        return compress.compress_activations(a, comp_cfg, comp_p, u=u)
-
-    g_client = tree_map(torch.zeros_like, state.client_stack)
-    g_server = tree_map(torch.zeros_like, state.server_params)
-    g_edges = [tree_map(torch.zeros_like, e) for e in state.edge_stages]
-    server_b = _bind(state.server_params, g_server)
-    edges_b = [_bind(e, g) for e, g in zip(state.edge_stages, g_edges)]
-    pcl = torch.zeros((n,), dtype=torch.float32, device=mask.device)
-
-    def client_pass(i: int) -> torch.Tensor:
-        """Client i's split forward and chained backward; returns its loss.
-        Its graph, and with it the bound leaves whose ``.grad`` views keep
-        the gradient buffers alive, dies when it returns."""
-        client_b = _bind(_row(state.client_stack, i), _row(g_client, i))
-        acts = tf.client_forward(client_b, cfg, tokens[i], impl=impl,
-                                 remat=remat, remat_span=span)
-        x = hop(acts.detach(), TAG_ACT_UP, i).requires_grad_(True)
-        relays = []
-        for j, edge_b in enumerate(edges_b):
-            y = tf.stage_forward(edge_b, cfg, x, j + 1, impl=impl,
-                                 remat=remat, remat_span=span)
-            relays.append((x, y))
-            x = hop(y.detach(), TAG_ACT_UP + j + 1, i).requires_grad_(True)
-        loss_i, _ = tf.server_loss(server_b, cfg, x, labels[i], impl=impl,
-                                   remat=remat, remat_span=span)
-        (coef[i] * loss_i).backward()
-        g_x = hop(x.grad, TAG_ACT_DOWN + num_edges, i)
-        for j in reversed(range(num_edges)):
-            x_in, y = relays[j]
-            y.backward(g_x)
-            g_x = hop(x_in.grad, TAG_ACT_DOWN + j, i)
-        acts.backward(g_x)
-        return loss_i.detach()
-
-    with torch.enable_grad():
-        for i in sel_rows:
-            pcl[i] = client_pass(i)
-    del server_b, edges_b, hop_u
-    loss = torch.sum(coef * pcl)
-    hop_bytes = [rows * cfg.d_model * torch_dtype(cfg.dtype).itemsize
-                 ] * (num_edges + 1)
-
-    if train_cfg.grad_clip:
-        clip_by_global_norm(g_client, train_cfg.grad_clip)
-        clip_by_global_norm(g_server, train_cfg.grad_clip)
-        for g in g_edges:
-            clip_by_global_norm(g, train_cfg.grad_clip)
-    if plan is not None:
-        # adversarial corruption models the *sent* update, so it follows
-        # the shared global-norm clip
-        sim_faults.corrupt_client_grads(
-            plan, g_client, noise=fd.noise,
-            generator=_stream(state, TAG_NOISE, None, dev))
+        labels = sim_faults.corrupt_labels(plan, labels, model_cfg.vocab_size)
+    g = _client_grads(state, batch["tokens"], labels, agg_w * mask, sel_rows,
+                      model_cfg=model_cfg, train_cfg=train_cfg,
+                      comp_cfg=comp_cfg, comp_p=comp_p, draw=draw, impl=impl)
+    _clip_and_corrupt(state, g, plan, train_cfg, fd, dev)
 
     # ---- optimizer (masked for unselected clients), in place ------------
     # the update transforms and the compressed upload read the pre-step
     # rows, which the in-place step overwrites: keep the ones they read
     saved = _keep_rows(plan, sel_rows, comp_cfg.enabled)
-    old_rows = ([leaf[saved] for leaf in
-                 tree_leaves(state.client_stack)] if saved else [])
-    _, opt_update = make_optimizer(train_cfg.optimizer)
-    lr = schedule(int(state.round_index))
-    wd = train_cfg.weight_decay
-    opt_update(state.client_stack, g_client, state.opt_client, lr=lr,
-               weight_decay=wd, mask=mask)
-    # an all-dropped round leaves the shared stages and their optimizer
-    # state untouched (JAX steps them and keeps the old values)
-    if plan is None or sel_rows:
-        opt_update(state.server_params, g_server, state.opt_server, lr=lr,
-                   weight_decay=wd)
-        for ep, ge, oe in zip(state.edge_stages, g_edges, state.opt_edge):
-            opt_update(ep, ge, oe, lr=lr, weight_decay=wd)
-    del g_client, g_server, g_edges
+    old_rows = _saved_rows(state, saved)
+    _step(state, g, mask, train_cfg, schedule,
+          step_shared=plan is None or bool(sel_rows))
+    g = g._replace(client=(), server=(), edges=[])   # free the gradients
     if plan is not None:
-        # straggler / slow-hop progress and Byzantine amplification on the
-        # post-optimizer update, then the adaptive clients' crafted stage
-        sim_faults.scale_client_updates(plan, state.client_stack, old_rows,
-                                        rows=saved)
-        sim_faults.adaptive_scale_updates(plan, state.client_stack,
-                                          old_rows, mask, rows=saved)
+        _transform_updates(plan, state, old_rows, saved, mask)
 
     # ---- validation on the server-held set -> importance ----------------
-    if val_batch is not None:
-        vt, vl = val_batch["tokens"], val_batch["labels"]
-        val_losses = torch.zeros((n,), dtype=torch.float32, device=mask.device)
-        with torch.no_grad():
-            for i in range(n):
-                a = tf.client_forward(_row(state.client_stack, i), cfg, vt,
-                                      impl=impl, remat=False)
-                for j, ep in enumerate(state.edge_stages):
-                    a = tf.stage_forward(ep, cfg, a, j + 1, impl=impl,
-                                         remat=False)
-                val_losses[i], _ = tf.server_loss(state.server_params, cfg, a,
-                                                  vl, impl=impl, remat=False)
-        importance = wssl.compute_importance(val_losses, wssl_cfg,
-                                             prev=state.importance)
-    else:
-        val_losses = torch.zeros((n,), dtype=torch.float32, device=mask.device)
-        importance = state.importance.clone()
+    val_losses, importance = _validate(state, val_batch, model_cfg=model_cfg,
+                                       wssl_cfg=wssl_cfg, impl=impl)
 
     # ---- update-path compression, then Algorithm 2 step 5: aggregation
     # through the registry + sync (dropout can empty the selection: `safe`
@@ -499,33 +680,11 @@ def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
 
     # ---- communication accounting --------------------------------------
     sel = mask.sum()
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=sel.device)
-    bytes_per_hop = sel * f32(hop_bytes)
-    stage_bytes = f32(tree_bytes(state.client_stack) // n)
-    update_raw = sel * stage_bytes
-    if comp_cfg.enabled:
-        comp_stage = f32(compress.compressed_stage_bytes(
-            state.client_stack, comp_cfg, comp_p))
-        update_comp = sel * comp_stage
-        # sync = compressed upload from the selected + raw broadcast to all
-        bytes_sync = sel * comp_stage + n * stage_bytes
-    else:
-        update_comp = update_raw
-        bytes_sync = sync_round_bytes(sel, n, stage_bytes)
-    if compress_acts:
-        wire = compress.activation_wire_bytes(rows, cfg.d_model, comp_cfg,
-                                              comp_p)
-        act_raw = sel * 2.0 * f32(hop_bytes).sum()
-        act_comp = sel * 2.0 * f32(wire * (num_edges + 1))
-    else:
-        act_raw = act_comp = f32(0.0)
     metrics = RoundMetrics(
-        loss=loss, per_client_loss=pcl * mask, val_loss=val_losses,
+        loss=g.loss, per_client_loss=g.pcl * mask, val_loss=val_losses,
         mask=mask, importance=importance,
-        bytes_up=bytes_per_hop.sum(), bytes_down=bytes_per_hop.sum(),
-        bytes_per_hop=bytes_per_hop, bytes_sync=bytes_sync,
-        bytes_update_raw=update_raw, bytes_update_comp=update_comp,
-        bytes_act_raw=act_raw, bytes_act_comp=act_comp)
+        **_byte_metrics(state, g, sel, sel, model_cfg=model_cfg,
+                        comp_cfg=comp_cfg, comp_p=comp_p))
     return state, metrics
 
 

@@ -279,3 +279,15 @@ def broadcast_global(stacked: Params, global_params: Params) -> Params:
     for a, g in zip(tree_leaves(stacked), tree_leaves(global_params)):
         a.copy_(g[None].expand_as(a))
     return stacked
+
+
+@torch.no_grad()
+def interpolate_to_global(stacked: Params, global_params: Params,
+                          alpha: float) -> Params:
+    """Partial sync, in place: theta_i <- (1 - alpha) theta_i + alpha
+    theta_global in fp32, rounded once to the leaf's dtype (alpha = 1 is
+    the full sync); returns ``stacked``."""
+    for a, g in zip(tree_leaves(stacked), tree_leaves(global_params)):
+        a.copy_(((1.0 - alpha) * a.float()
+                 + alpha * g[None].float()).to(a.dtype))
+    return stacked

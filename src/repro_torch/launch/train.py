@@ -49,7 +49,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="attention implementation; training runs 'dense'")
     ap.add_argument("--client-chunk", type=int, default=None,
                     help="per-client forward/backward in chunks of this many "
-                         "clients (not ported yet)")
+                         "clients (must divide --clients)")
     ap.add_argument("--fused-adam", action="store_true",
                     help="accepted for parity with the JAX launcher; AdamW "
                          "always takes the fused masked-AdamW kernel on the "
@@ -65,10 +65,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def make_configs(args: argparse.Namespace
                  ) -> Tuple[ModelConfig, WSSLConfig, TrainConfig]:
-    if args.client_chunk is not None:
-        raise NotImplementedError(
-            "--client-chunk is not ported yet (ROADMAP Queue 1, item 7: the "
-            "client-chunked round)")
     if args.checkpoint is not None:
         raise NotImplementedError(
             "--checkpoint is not ported yet (ROADMAP Queue 1, item 14: "
@@ -79,7 +75,8 @@ def make_configs(args: argparse.Namespace
     wssl_cfg = WSSLConfig(num_clients=args.clients,
                           participation_fraction=args.participation)
     train_cfg = TrainConfig(rounds=args.rounds, learning_rate=args.lr,
-                            remat=not args.reduced, fused_adam=args.fused_adam)
+                            remat=not args.reduced, fused_adam=args.fused_adam,
+                            client_chunk=args.client_chunk)
     return cfg, wssl_cfg, train_cfg
 
 

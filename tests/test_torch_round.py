@@ -506,12 +506,8 @@ def test_round_refuses_what_is_not_ported():
     batch = {k: torch.as_tensor(v).reshape(2, 2, 8) for k, v in d.items()}
     before = [x.clone() for x in _state_tensors(state)]
     rf = make_round_fn(cfg, w, t)
-    for fn, item in (
-            (make_round_fn(cfg, w, TrainConfig(client_chunk=1, **TRAIN_KW)),
-             "item 7"),
-            (make_round_fn(cfg, w, t, impl="chunked"), "item 6")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            fn(state, batch)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
+        make_round_fn(cfg, w, t, impl="chunked")(state, batch)
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
         rf(state, batch, shard_ctx=object())
     for x, y in zip(before, _state_tensors(state)):
@@ -580,10 +576,21 @@ def test_cli_trains_on_cpu(capsys, tmp_path):
     assert all(np.isfinite(h["loss"]) for h in hist)
 
 
+def test_cli_trains_client_chunked_on_cpu(capsys):
+    """``--client-chunk 2`` runs the chunked round (and a chunk that does
+    not divide the clients raises, as in JAX)."""
+    base = ["--arch", "gemma-2b", "--reduced", "--device", "cpu",
+            "--clients", "4", "--rounds", "2", "--seq-len", "16",
+            "--batch-per-client", "2"]
+    launch_train.main(base + ["--client-chunk", "2"])
+    out = capsys.readouterr().out
+    assert out.count("round ") == 2
+    with pytest.raises(ValueError, match="divide"):
+        launch_train.main(base + ["--client-chunk", "3"])
+
+
 def test_cli_refuses_unported_flags_and_needs_a_card():
     base = ["--arch", "gemma-2b", "--reduced", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
-        launch_train.main(base + ["--client-chunk", "2"])
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
         launch_train.main(base + ["--checkpoint", "x"])
     if not torch.cuda.is_available():

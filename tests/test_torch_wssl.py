@@ -256,15 +256,20 @@ def test_training_configs_copy_jax_defaults_and_refuse_unported():
         # a nested config block compares by its fields
         return {f.name: dataclasses.asdict(f.default)
                 if dataclasses.is_dataclass(f.default) else f.default
-                for f in dataclasses.fields(cls) if f.name != "async_rounds"}
+                for f in dataclasses.fields(cls)}
 
+    from repro.config import AsyncRoundsConfig as JAsyncRoundsConfig
     for jcls, tcls in ((JWSSLConfig, WSSLConfig),
                        (JTrainConfig, TrainConfig),
                        (JAggregationConfig, AggregationConfig),
-                       (JCompressionConfig, CompressionConfig)):
+                       (JCompressionConfig, CompressionConfig),
+                       (JAsyncRoundsConfig, AsyncRoundsConfig)):
         assert defaults(jcls) == defaults(tcls)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-        AsyncRoundsConfig(deadline=2.0)
+    # a finite deadline is the async round, ported: it constructs as JAX's
+    kw = dict(deadline=2.0, max_staleness=3, buffer_size=2)
+    got, want = AsyncRoundsConfig(**kw), JAsyncRoundsConfig(**kw)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.enabled and want.enabled
     for scheme in ("none", "topk", "int8", "int4"):
         got = CompressionConfig(scheme=scheme, rate=0.1, activations=True)
         want = JCompressionConfig(scheme=scheme, rate=0.1, activations=True)
