@@ -211,9 +211,35 @@ Phases, each printing its lines before the last:
              timed beside SDPA (a band mask for the local layers); one
              admission and two decode steps of the kernel path profiled.
 
-Each of phases 12-19 prints its wall time.  Then one JSON line with every
+20. the async round — see ``run_async``: the bounded-staleness round of
+             full Mamba-2-370M under ``async-stragglers`` (20a), a 4-layer
+             cut against the plain AdamW and compression bit for bit
+             (20b), the gait loop under deadlines (20c).
+21. StableLM-2-12B and Qwen2.5-32B — 21a: flash (bf16 on the tensor-
+             core body, fp32 on the SIMT body) and paged decode against
+             their plain versions at StableLM's 32 query heads over 8 at
+             head dim 160 (the tensor-core body pads it to 192 through
+             TMA's zero fill) and Qwen's 40 over 8 at 128 (g 5), a ragged
+             admission too, graph-timed beside SDPA.  21b: full
+             StableLM-2-12B (40 layers, LayerNorm, bf16, its LayerNorm
+             scale and bias moved off their init) serving 16 requests
+             (prompts 256-1024, 16-32 new) on 2 replicas x 8 slots, chunk
+             8, block 16, through flash and paged decode, then the plain
+             path: exact launch counts on the tensor-core / split-K bodies,
+             tokens equal wherever the plain path's top-2 margin exceeds
+             0.5.  21c: full Qwen2.5-32B (64 layers, 65.5 GB, qkv biases
+             moved off zero) the same way, 8 requests (prompts 512-1024)
+             on 1 replica x 8 slots; both print their peak memory.  21d:
+             StableLM-2-12B at full width cut to 4 layers (cut 2, 2
+             clients, seq 128, fp32 params, 2 rounds) through the AdamW
+             kernel and then its plain version: AdamW launches = leaves x
+             rounds exactly, masks equal, losses and stages within phase
+             7's bands.
+
+Each of phases 12-21 prints its wall time.  Then one JSON line with every
 kernel's numbers (the nine kernels, then flash and paged decode at
-Gemma-3-12B's shapes), and as the last line
+Gemma-3-12B's, StableLM-2-12B's and Qwen2.5-32B's shapes), and as the
+last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
 exits non-zero before that line; it also exits non-zero, printing no
 result, when no card is present or the package is not beside it.
@@ -2795,6 +2821,40 @@ def _gemma3_kernel_checks(torch, ops, ref, cfg):
     return {"local": local, "global": glob, "paged": paged}, extra
 
 
+def _profile_paged_serving(torch, cfg, params, reqs, sp, dev, label):
+    """Where a kernel-path serving run's time goes, sampled as in phase 11
+    (a whole run's ~200k launches a replica would keep the profiler's
+    event processing busy for minutes): one admission of the longest
+    prompt into a fresh paged batch, then two decode steps of all its
+    slots (a step's thousands of launches make the profiler's event
+    processing, not the card, the cost of a longer window)."""
+    import numpy as np
+    from repro_torch.serve import BlockAllocator, DecodeEngine
+    engine = DecodeEngine(cfg, impl="kernel", paged_kernel=True, device=dev)
+    state = engine.new_batch_state(sp.slots, sp.max_len,
+                                   block_size=sp.block_size)
+    alloc = BlockAllocator(sp.slots * (sp.max_len // sp.block_size + 1),
+                           sp.block_size, reserved=sp.slots)
+    by_len = sorted(reqs, key=lambda r: r.prompt_len, reverse=True)
+    blocks = [alloc.allocate(min(r.prompt_len + r.max_new + sp.chunk,
+                                 sp.max_len))
+              for r in by_len[:sp.slots]]
+    out = {"admit_profile": _device_profile(torch, lambda: engine.admit(
+        state, params, by_len[0].prompt, 0, blocks=blocks[0]))}
+    for slot, r in enumerate(by_len[1:sp.slots], start=1):
+        engine.admit(state, params, r.prompt, slot, blocks=blocks[slot])
+    forced = np.zeros((sp.slots, 2), np.int32)
+    out["chunk_profile"] = _device_profile(
+        torch, lambda: engine.decode_chunk(state, params, forced,
+                                           np.zeros((sp.slots,), np.int32)))
+    print(f"{label} profiled, kernel path: one admission of "
+          f"{by_len[0].prompt_len} tokens: "
+          + _profile_line(out["admit_profile"], top=3)
+          + f"; two decode steps of {sp.slots} slots: "
+          + _profile_line(out["chunk_profile"]), flush=True)
+    return out
+
+
 def run_gemma3_serve(torch, ops):
     """Phase 19: full Gemma-3-12B through the whole serving plane — the
     fault-routed router with every serving scenario, EDF shedding,
@@ -2805,8 +2865,6 @@ def run_gemma3_serve(torch, ops):
     with finite deadlines, none unfinished.  Runs 2, 3, 6, 7 and 8 carry
     the clean run's tokens exactly on every request both served; the plain
     path equals them wherever its top-2 margin exceeds ARGMAX_MARGIN."""
-    import numpy as np
-
     from repro_torch.config import ATTN_LOCAL
     from repro_torch.kernels import ref
     from repro_torch.launch.serve import serve
@@ -2949,40 +3007,10 @@ def run_gemma3_serve(torch, ops):
                          - clean["flash_windowed"]),
         "paged": clean["launches"]["paged_decode_attention"]}
     if dev.type == "cuda":
-        # where a clean run's time goes, sampled as in phase 11 (a whole
-        # run's ~200k launches a replica would keep the profiler's event
-        # processing busy for minutes): one admission of the longest prompt
-        # into a fresh paged batch, then decode steps of all its slots
-        from repro_torch.serve import BlockAllocator
         t0 = time.perf_counter()
-        engine = DecodeEngine(cfg, impl="kernel", paged_kernel=True,
-                              device=dev)
-        state = engine.new_batch_state(base.slots, base.max_len,
-                                       block_size=base.block_size)
-        alloc = BlockAllocator(base.slots * (base.max_len // base.block_size
-                                             + 1), base.block_size,
-                               reserved=base.slots)
-        by_len = sorted(reqs, key=lambda r: r.prompt_len, reverse=True)
-        blocks = [alloc.allocate(min(r.prompt_len + r.max_new + base.chunk,
-                                     base.max_len))
-                  for r in by_len[:base.slots]]
-        out["admit_profile"] = _device_profile(torch, lambda: engine.admit(
-            state, params, by_len[0].prompt, 0, blocks=blocks[0]))
-        for slot, r in enumerate(by_len[1:base.slots], start=1):
-            engine.admit(state, params, r.prompt, slot, blocks=blocks[slot])
-        # two decode steps: a step's ~4,300 launches make the profiler's
-        # event processing, not the card, the cost of a longer window
-        forced = np.zeros((base.slots, 2), np.int32)
-        out["chunk_profile"] = _device_profile(
-            torch, lambda: engine.decode_chunk(
-                state, params, forced, np.zeros((base.slots,), np.int32)))
+        out.update(_profile_paged_serving(torch, cfg, params, reqs, base,
+                                          dev, "serve gemma3"))
         out["profile_s"] = time.perf_counter() - t0
-        print(f"serve gemma3 profiled, kernel path: one admission of "
-              f"{by_len[0].prompt_len} tokens: "
-              + _profile_line(out["admit_profile"], top=3)
-              + f"; two decode steps of {base.slots} slots: "
-              + _profile_line(out["chunk_profile"]), flush=True)
-        del engine, state
     print(f"serve gemma3: setup {out['setup_s']:.1f} s, kernel checks "
           f"{out.get('kernel_checks_s', 0.0):.1f} s, runs "
           f"{sum(r['seconds'] for r in out['runs'].values()):.1f} s, "
@@ -3539,6 +3567,336 @@ def run_async(torch, ops):
     return out
 
 
+# ---------------------------------------------------------------------------
+# StableLM-2-12B and Qwen2.5-32B: LayerNorm, biases, head_dim 160 (phase 21)
+# ---------------------------------------------------------------------------
+
+# module values, so a CPU rehearsal can shrink them.  Both models at full
+# size in bf16, random weights from seed 0 (StableLM-2-12B 40 layers, 32
+# query heads over 8 at hd 160, LayerNorm: 24.3 GB reckoned; Qwen2.5-32B
+# 64 layers, 40 over 8 at hd 128, qkv biases: 65.5 GB, ~14 GB left for KV
+# and transients).  JAX initialises every bias to zero and LayerNorm's
+# scale to one, so the serving runs first move them (``bias_std``,
+# ``norm_std``: seeded normal draws), or the biased path would compute
+# what the unbiased one does.  Prompt and generation lengths are drawn
+# uniformly from the given ranges.
+DENSE_RUN = dict(device="cuda", reduced=False, seed=0, chunk=8,
+                 block_size=16, bias_std=0.5, norm_std=0.2)
+DENSE_SERVE = {
+    "stablelm-12b": dict(requests=16, prompts=(256, 1024), gen=(16, 32),
+                         replicas=2, slots=8, flash_s=1536),
+    "qwen2.5-32b": dict(requests=8, prompts=(512, 1024), gen=(16, 32),
+                        replicas=1, slots=8, flash_s=1024),
+}
+# 21d: StableLM-2-12B at full width, depth cut to 4 layers, cut 2, 2
+# clients, fp32 params: 2 client stages (embedding + 2 layers) and the
+# server (2 layers + head) hold 3,208,775,680 elements, 51.3 GB of p, m,
+# v and g (reckoned; peak 50.77 GiB on an H100 80GB HBM3), through the
+# AdamW kernel and then its plain version
+DENSE_TRAIN = dict(arch="stablelm-12b", layers=4, clients=2, cut=2, seq=128,
+                   batch=2, rounds=2, val_batch=2, seed=0)
+
+
+def _dense_cfg(arch):
+    from repro_torch.config import get_arch, reduced
+    cfg = get_arch(arch)
+    if DENSE_RUN["reduced"]:
+        cfg = reduced(cfg)
+    return cfg.replace(dtype="bfloat16")
+
+
+def _dense_params(torch, cfg, dev):
+    """Random params from the seed, then LayerNorm's scale and bias and
+    the qkv biases moved off their init by seeded normal draws."""
+    from repro_torch.models import transformer as tf
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        DENSE_RUN["seed"]), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def add(t, std):
+        t.add_(torch.randn(t.shape, generator=gen, device=dev).mul_(std)
+               .to(t.dtype))
+
+    norms = [params["final_norm"]]
+    for layer in params["stack"] + params["rem"]:
+        norms += [layer["norm1"], layer["norm2"]]
+        if cfg.qkv_bias:
+            for k in ("bq", "bk", "bv"):
+                add(layer["mixer"][k], DENSE_RUN["bias_std"])
+    if cfg.norm == "layernorm":
+        for p in norms:
+            add(p["scale"], DENSE_RUN["norm_std"])
+            add(p["bias"], DENSE_RUN["norm_std"])
+    return params
+
+
+def _dense_requests(cfg, run):
+    import numpy as np
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(DENSE_RUN["seed"] + 21)
+    reqs = []
+    for rid in range(run["requests"]):
+        n = int(rng.integers(run["prompts"][0], run["prompts"][1] + 1))
+        g = int(rng.integers(run["gen"][0], run["gen"][1] + 1))
+        reqs.append(Request(rid=rid, prompt=make_token_stream(
+            1, n, cfg.vocab_size, seed=2100 + rid)[0], max_new=g))
+    return reqs
+
+
+def _dense_kernel_checks(torch, ops, ref, cfg, run):
+    """Flash and paged decode at the model's serving shapes: an admission
+    of ``flash_s`` tokens (bf16 on the tensor-core body, graph-timed beside
+    SDPA and profiled), a ragged one (the last 64-row tile partial) in
+    bf16 and fp32 (the SIMT body), and a decode step of 8 rows over 100
+    blocks of 16 in bf16 (profiled) and fp32."""
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = run["flash_s"]
+    flash = check_flash(torch, ops, ref, b=1, hq=hq, hkv=hkv, s=s, hd=hd,
+                        dtype="bfloat16", seed=210, profile=True)
+    paged = check_paged(torch, ops, ref, b=8, hq=hq, hkv=hkv, hd=hd, bs=16,
+                        nb=100, dtype="bfloat16", pos_lo=512, seed=211,
+                        dead_row=False, profile=True)
+    extra = [check_flash(torch, ops, ref, b=1, hq=hq, hkv=hkv, s=s - 5,
+                         hd=hd, dtype=dtype, seed=212)
+             for dtype in ("bfloat16", "float32")]
+    extra.append(check_paged(torch, ops, ref, b=8, hq=hq, hkv=hkv, hd=hd,
+                             bs=16, nb=100, dtype="float32", seed=213))
+    for rec in (flash, paged, *extra):
+        _check_band(rec)
+    return {"flash": flash, "paged": paged}, extra
+
+
+def run_dense_kernels(torch, ops):
+    """21a: flash and paged decode at both models' shapes against their
+    plain versions: StableLM-2-12B's head dim 160 at g 4, Qwen2.5-32B's g
+    5 (a 64-row tile of 12 positions and 4 padding rows)."""
+    from repro_torch.kernels import ref
+    out = {}
+    for arch, run in DENSE_SERVE.items():
+        cfg = _dense_cfg(arch)
+        out[arch], out[f"{arch}_extra"] = _dense_kernel_checks(
+            torch, ops, ref, cfg, run)
+    return out
+
+
+def run_dense_serve(torch, ops):
+    """21b / 21c: each model at full size through the router and engine
+    (flash prefill, paged decode), then the plain path (dense prefill,
+    gathered decode) on the same weights and requests: exact launch
+    counts, all on the tensor-core / split-K bodies, every request served
+    in full, tokens equal wherever the plain path's top-2 margin exceeds
+    ARGMAX_MARGIN; the peak memory printed."""
+    from repro_torch.launch.serve import serve, serve_max_len
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import DecodeEngine, ServeParams
+    dev = torch.device(DENSE_RUN["device"])
+    chunk, block = DENSE_RUN["chunk"], DENSE_RUN["block_size"]
+    out = {}
+    for label, (arch, run) in zip(("21b", "21c"), DENSE_SERVE.items()):
+        t0 = time.perf_counter()
+        cfg = _dense_cfg(arch)
+        _free(torch)
+        params = _dense_params(torch, cfg, dev)
+        reqs = _dense_requests(cfg, run)
+        sp = ServeParams(replicas=run["replicas"], slots=run["slots"],
+                         chunk=chunk, block_size=block,
+                         max_len=serve_max_len(run["prompts"][1],
+                                               run["gen"][1], chunk, block))
+        rec = {"arch": arch, "layers": cfg.num_layers,
+               "requests": len(reqs), "replicas": sp.replicas,
+               "slots": sp.slots, "max_len": sp.max_len,
+               "prompt_lens": [r.prompt_len for r in reqs],
+               "param_bytes": sum(t.numel() * t.element_size()
+                                  for t in _leaves(params)),
+               "setup_s": time.perf_counter() - t0}
+        runs = {}
+        for impl in ("kernel", "dense"):
+            engine = DecodeEngine(cfg, impl=impl, paged_kernel=impl == "kernel",
+                                  device=dev)
+            _free(torch)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            report, secs = serve(engine, params, reqs, sp)
+            counts = ops.launch_counts()
+            admissions = int(report.log.summary()["admitted"])
+            if report.unfinished or any(
+                    len(report.outputs[r.rid]) != r.max_new for r in reqs):
+                raise AssertionError(f"serve {arch} {impl}: unfinished or "
+                                     f"short requests")
+            want = {k: 0 for k in counts}
+            if impl == "kernel":
+                want.update(_gemma3_launches(cfg, engine)(admissions))
+            if counts != want or ops.body_launches()[
+                    "flash_attention_window"]:
+                raise AssertionError(f"serve {arch} {impl}: launches "
+                                     f"{counts}, expected {want} (steps "
+                                     f"{engine.steps})")
+            bodies = _check_bodies(ops, f"serve {arch} {impl}")
+            runs[impl] = report
+            rec[impl] = {"seconds": secs, "tokens": report.tokens_out,
+                         "tokens_per_s": report.tokens_out / secs,
+                         "admissions": admissions,
+                         "steps": dict(engine.steps), "launches": counts,
+                         "bodies": bodies,
+                         "peak_bytes": (torch.cuda.max_memory_allocated()
+                                        if dev.type == "cuda" else 0)}
+            del engine
+        if dev.type == "cuda":
+            rec.update(_profile_paged_serving(torch, cfg, params, reqs, sp,
+                                              dev, f"{label}. serve {arch}"))
+        got, ref_out = runs["kernel"].outputs, runs["dense"].outputs
+        compared, diverged = 0, []
+        t1 = time.perf_counter()
+        for r in reqs:
+            for t, (a, b) in enumerate(zip(got[r.rid], ref_out[r.rid])):
+                compared += 1
+                if a == b:
+                    continue
+                margin = _plain_margin(torch, tf, params, cfg, r.prompt,
+                                       ref_out[r.rid], t, dev)
+                if margin > ARGMAX_MARGIN:
+                    raise AssertionError(
+                        f"serve {arch}: request {r.rid} token {t} differs "
+                        f"({a} vs {b}) at top-2 margin {margin:.3f} > "
+                        f"{ARGMAX_MARGIN}")
+                diverged.append({"rid": r.rid, "token": t, "margin": margin})
+                break
+        rec.update(tokens_compared=compared, diverged=diverged,
+                   compare_s=time.perf_counter() - t1,
+                   phase_s=time.perf_counter() - t0)
+        k, d = rec["kernel"], rec["dense"]
+        print(f"{label}. serve {arch} bf16, {cfg.num_layers} layers, "
+              f"{rec['param_bytes'] / 1e9:.2f} GB of params; "
+              f"{len(reqs)} requests (prompts {min(rec['prompt_lens'])}-"
+              f"{max(rec['prompt_lens'])}), {sp.replicas} x {sp.slots} "
+              f"slots: kernel path {k['tokens']} tokens in "
+              f"{k['seconds']:.2f} s ({k['tokens_per_s']:.1f} tok/s), "
+              f"launches {k['launches']} by body {k['bodies']}, steps "
+              f"{k['steps']}, peak memory {k['peak_bytes'] / 2**30:.2f} GiB; "
+              f"plain path {d['seconds']:.2f} s ({d['tokens_per_s']:.1f} "
+              f"tok/s), peak {d['peak_bytes'] / 2**30:.2f} GiB; {compared} "
+              f"greedy tokens compared, {len(diverged)} requests diverged "
+              f"at margin <= {ARGMAX_MARGIN}; {rec['phase_s']:.1f} s",
+              flush=True)
+        out[arch] = rec
+        del params, runs, got, ref_out
+        _free(torch)
+    return out
+
+
+def run_dense_train(torch, ops):
+    """21d: WSSL rounds of StableLM-2-12B at full width and a cut depth
+    through ``launch/train.py``, once through the AdamW kernel and once
+    through its plain version, the same seed and Gumbel draws: AdamW
+    launches = leaves x rounds exactly (no attention kernel: training is
+    dense), finite losses, masks equal, losses and trained stages within
+    phase 7's bands."""
+    from unittest import mock
+    import numpy as np
+    from repro_torch.config import TrainConfig, WSSLConfig, get_arch, reduced
+    from repro_torch.launch.train import train
+    run = DENSE_TRAIN
+    dev = torch.device(DENSE_RUN["device"])
+    cfg = get_arch(run["arch"])
+    if DENSE_RUN["reduced"]:
+        cfg = reduced(cfg)
+    cfg = cfg.replace(num_layers=run["layers"])
+    rng = np.random.default_rng(21)
+    gumbels = [torch.as_tensor(rng.gumbel(size=run["clients"]).astype(
+        np.float32)) for _ in range(run["rounds"])]
+    out = {"arch": run["arch"], "layers": run["layers"], "cut": run["cut"],
+           "clients": run["clients"], "seq": run["seq"]}
+    kept = None
+    for name, kernel in (("kernel", True), ("plain", False)):
+        wssl_cfg = WSSLConfig(num_clients=run["clients"],
+                              participation_fraction=0.5,
+                              split_layer=run["cut"])
+        train_cfg = TrainConfig(rounds=run["rounds"], learning_rate=1e-3,
+                                remat=not DENSE_RUN["reduced"],
+                                fused_adam=True)
+        _free(torch)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with mock.patch.object(ops, "fused_adamw", ops.fused_adamw if kernel
+                               else ops.fused_adamw_plain):
+            state, hist = train(
+                cfg, wssl_cfg, train_cfg, rounds=run["rounds"],
+                batch_per_client=run["batch"], seq_len=run["seq"],
+                val_batch=run["val_batch"], seed=run["seed"], device=dev,
+                gumbels=gumbels, log=lambda line: print(
+                    f"  21d {name} " + line, flush=True))
+        _sync(torch, dev)
+        counts = ops.launch_counts()
+        stages = _leaves((state.client_stack, state.server_params))
+        want = {k: 0 for k in counts}
+        if kernel:
+            want["fused_adamw"] = len(stages) * run["rounds"]
+        if counts != want:
+            raise AssertionError(f"21d {name}: launches {counts}, expected "
+                                 f"{want} ({len(stages)} leaves x "
+                                 f"{run['rounds']} rounds)")
+        if not all(math.isfinite(h["loss"]) and math.isfinite(
+                h["mean_val_loss"]) for h in hist):
+            raise AssertionError(f"21d {name}: non-finite loss {hist}")
+        out[name] = {"rounds": hist, "round_s": [h["dt_s"] for h in hist],
+                     "launches": counts, "leaves": len(stages),
+                     "stepped_elements": sum(t.numel() for t in stages),
+                     "peak_bytes": (torch.cuda.max_memory_allocated()
+                                    if dev.type == "cuda" else 0)}
+        if kept is None:
+            # the kernel run's trained stages, on the host, leaf by leaf
+            kept = (hist, [t.detach().cpu() for t in stages])
+        else:
+            hk, sk = kept
+            if [h["mask"] for h in hk] != [h["mask"] for h in hist]:
+                raise AssertionError(f"21d: masks differ {hk} {hist}")
+            out["loss_rel_err"] = max(
+                abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                for a, b in zip(hk, hist) for k in ("loss", "mean_val_loss"))
+            out["stage_max_abs_err"] = max(
+                (a.to(b.device) - b.detach()).abs().max().item()
+                for a, b in zip(sk, stages))
+            out["masks"] = [h["mask"] for h in hist]
+        del state, stages
+        _free(torch)
+    k = out["kernel"]
+    print(f"21d. train {run['arch']} fp32 params, {run['layers']} layers, "
+          f"cut {run['cut']}, {run['clients']} clients, seq {run['seq']}: "
+          f"{k['leaves']} leaves, {k['stepped_elements']} elements stepped "
+          f"(p, m, v, g {16 * k['stepped_elements'] / 1e9:.1f} GB); rounds "
+          f"{', '.join(f'{t:.3f}' for t in k['round_s'])} s (plain AdamW "
+          f"{', '.join(f'{t:.3f}' for t in out['plain']['round_s'])} s); "
+          f"losses {[round(h['loss'], 4) for h in k['rounds']]}; launches "
+          f"{k['launches']}; peak memory {k['peak_bytes'] / 2**30:.2f} GiB; "
+          f"masks {out['masks']} equal, loss/val rel diff "
+          f"{out['loss_rel_err']:.3g} (band {TRAIN_LOSS_RTOL:g}), trained "
+          f"stages max|diff| {out['stage_max_abs_err']:.3g} (band "
+          f"{TRAIN_STAGE_BAND:g})", flush=True)
+    if not (out["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and out["stage_max_abs_err"] <= TRAIN_STAGE_BAND):
+        raise AssertionError(f"21d outside its bands: {out}")
+    return out
+
+
+def run_dense(torch, ops):
+    """Phase 21: 21a, 21b-c and 21d, each timed."""
+    out = {}
+    for key, label, fn in (("kernels", "21a. kernels", run_dense_kernels),
+                           ("serve", "21b-c. serve", run_dense_serve),
+                           ("train", "21d. train", run_dense_train)):
+        if key == "kernels" and DENSE_RUN["device"] != "cuda":
+            continue
+        t0 = time.perf_counter()
+        out[key] = fn(torch, ops)
+        out[f"{key}_s"] = time.perf_counter() - t0
+        print(f"{label}: {out[f'{key}_s']:.1f} s", flush=True)
+        _free(torch)
+    return out
+
+
 def _check_bodies(ops, where, bf16=True):
     """The counted run's flash and SSD-scan launches all took their
     tensor-core bodies (bf16, at the models' shapes; none of them in fp32)
@@ -3827,7 +4185,8 @@ def main(argv=None) -> int:
             ("paper_robust", "18. the paper's robustness",
              run_paper_robust),
             ("gemma3_serve", "19. Gemma-3-12B serving", run_gemma3_serve),
-            ("async", "20. the async round", run_async)):
+            ("async", "20. the async round", run_async),
+            ("dense", "21. StableLM-2-12B and Qwen2.5-32B", run_dense)):
         t0 = time.perf_counter()
         record[key] = fn(torch, ops)
         record[f"{key}_s"] = time.perf_counter() - t0
@@ -3892,6 +4251,22 @@ def main(argv=None) -> int:
                         "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"],
                         "library_ms": rec["library_ms"]})
+    # and at StableLM-2-12B's (32 over 8 heads, hd 160) and Qwen2.5-32B's
+    # (40 over 8, g 5) shapes, launches from phase 21's kernel-path runs
+    dense = record["dense"]
+    for arch in DENSE_SERVE:
+        launched = dense["serve"][arch]["kernel"]["launches"]
+        for key in ("flash", "paged"):
+            rec = dense["kernels"][arch][key]
+            src, replaces = sources[rec["kernel"]]
+            kernels.append({"name": f"{rec['kernel']}/{arch}", "route": "cuda",
+                            "source": src, "replaces": replaces,
+                            "launches": launched[rec["kernel"]],
+                            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                            "plain_ms": rec["plain_ms"],
+                            "bound_ms": rec["bound_ms"],
+                            "bound_by": rec["bound_by"],
+                            "library_ms": rec["library_ms"]})
     record["kernels"] = kernels
     if record_path is not None:
         record_path.parent.mkdir(parents=True, exist_ok=True)

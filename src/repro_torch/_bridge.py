@@ -8,16 +8,19 @@ the same nesting of dicts and lists, each leaf a tensor on ``device``.
 and ``async_state_to_numpy`` do it for the async round's buffer state.
 ``paper_params_from_jax`` and ``paper_params_to_numpy`` do it for the
 paper's gait FFN and ResNet-18 (``models/paper_models.py``), whose trees
-keep the JAX layout, HWIO convolutions included, so no leaf is permuted.  Only numpy is needed on
-the JAX side.
+keep the JAX layout, HWIO convolutions included, so no leaf is permuted;
+every leaf of theirs stays fp32, their norms' ``bias`` too.  Only numpy
+is needed on the JAX side.
 
-Matrices are stored in ``dtype``: serving passes the activation dtype (the
+Matrices and biases (``bq``, ``bk``, ``bv``, ``bu``, ``bd``, LayerNorm's
+``bias``) are stored in ``dtype``: serving passes the activation dtype (the
 JAX package keeps fp32 params and casts them on every use, so the values
 the model computes with are the same); training passes
 ``torch.float32``, the JAX package's fp32 master params.  The leaves the
 model reads in fp32 stay fp32 (:data:`_FP32_LEAVES`): norm scales, because
-the norm forms ``1 + scale`` in fp32 before it rounds; the SSD block's
-``A_log``, ``D``, ``dt_bias`` and gated-norm ``norm_scale``; the RG-LRU
+RMSNorm forms ``1 + scale`` in fp32 before it rounds (LayerNorm's scale
+stays fp32 with them and is cast at use); the SSD block's ``A_log``,
+``D``, ``dt_bias`` and gated-norm ``norm_scale``; the RG-LRU
 ``lambda``, ``b_r``, ``b_i`` and the gate matrices ``w_r`` / ``w_i``,
 which the gates cast to fp32 at use (stored in bf16 they would lose bits
 the JAX model keeps).

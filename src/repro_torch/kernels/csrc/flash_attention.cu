@@ -40,12 +40,25 @@
 //   Shared memory: Q plus two stages of K and V, 640 * hd bytes (160 KB at
 //   hd 256), so one CTA per SM; the accumulator is hd / 2 registers a
 //   thread.
+//   Head dims that are not whole 64-column boxes (160: StableLM-2-12B)
+//   are padded to whole boxes through TMA: the tensor maps keep the true
+//   hd as their inner extent, and the last box of each row reaches past
+//   it, where TMA writes zeros (columns 160-191).  S = Q K^T walks only
+//   the hd / 16 true column steps; O += P V runs at n = 192 (the padded
+//   columns of V are zero, so are those of O) and stores hd columns.
+//   That costs 20% more PV work and shared memory (Q, K, V tiles of 192
+//   columns: 120 KB) and no extra bytes from device memory; the other
+//   design, a 32-column box of 64-byte swizzle for the tail, would need
+//   two swizzle modes in one PV operand (a split n = 128 + 32 product).
 // * float32 — the SIMT body (flash_fwd_kernel), fp32 FMAs out of shared
 //   memory.  Tensor cores in fp32 would mean TF32, about three decimal
 //   digits, which the fp32 callers' bands (1e-4 against the plain
 //   version) do not allow.  This is a choice by dtype, not a fallback: a
 //   bf16 call that fails to encode its tensor maps or to launch returns
 //   the error, and the wrapper raises.
+//   Shared memory: (64 (hd + 4) + 65 hd + 64 hd + 64 * 80) floats, 145 KB
+//   at hd 160 and 219 KB at hd 256; each thread keeps hd / 16 accumulator
+//   columns of 4 rows.
 //
 // What bounds it.  At the serving shape (B = 1, S = 512, Hq = 8, Hkv = 1,
 // hd = 256, bf16) the least time is set by bytes and operations about
@@ -277,11 +290,13 @@ constexpr int STAGES = 2;         // K/V ring depth
 template <int HD>
 struct Tc {
   static constexpr int SW = HD < 64 ? HD : 64;        // columns per swizzled box
-  static constexpr int CHUNKS = HD / SW;
+  // boxes across hd; a partial last box is zero-filled by TMA past hd
+  static constexpr int CHUNKS = (HD + SW - 1) / SW;
+  static constexpr int HDP = CHUNKS * SW;             // hd padded: 192 at 160
   static constexpr int ROW_BYTES = SW * 2;            // 128 (64 at hd 32)
   static constexpr uint32_t LAYOUT = SW == 64 ? 1 : 2;  // descriptor: 128 / 64 B swizzle
   static constexpr int CHUNK_BYTES = BN * ROW_BYTES;  // 64 rows of one box
-  static constexpr int TILE_BYTES = CHUNKS * CHUNK_BYTES;  // 64 x hd bf16
+  static constexpr int TILE_BYTES = CHUNKS * CHUNK_BYTES;  // 64 x HDP bf16
   static constexpr int Q_OFF = 0;
   static constexpr int KV_OFF = TILE_BYTES;            // stage s: K, then V
   static constexpr int BAR_OFF = TILE_BYTES * (1 + 2 * STAGES);
@@ -289,12 +304,16 @@ struct Tc {
   static constexpr size_t bytes = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
 };
 
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4],
+// O (64 x HDP, the padded head dim) += P V
+template <int HDP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HDP / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (HD == 256) sm90::wgmma_rs_m64n256k16(o, a, db);
-  else if constexpr (HD == 128) sm90::wgmma_rs_m64n128k16(o, a, db);
-  else if constexpr (HD == 64) sm90::wgmma_rs_m64n64k16(o, a, db);
+  static_assert(HDP == 256 || HDP == 192 || HDP == 128 || HDP == 64 || HDP == 32,
+                "no wgmma shape for this padded head dim");
+  if constexpr (HDP == 256) sm90::wgmma_rs_m64n256k16(o, a, db);
+  else if constexpr (HDP == 192) sm90::wgmma_rs_m64n192k16(o, a, db);
+  else if constexpr (HDP == 128) sm90::wgmma_rs_m64n128k16(o, a, db);
+  else if constexpr (HDP == 64) sm90::wgmma_rs_m64n64k16(o, a, db);
   else sm90::wgmma_rs_m64n32k16(o, a, db);
 }
 
@@ -354,6 +373,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   if (tid >= 128) {
     // producer: one thread issues every TMA load of the CTA
     if (tid == 128) {
+      // a box's bytes count whole, the zero-filled ones past the
+      // tensor's edge (the ragged last tile, hd 160's last box) too
       sm90::mbar_expect_tx(bar_q, C::CHUNKS * rows * C::ROW_BYTES);
       for (int c = 0; c < C::CHUNKS; ++c)
         sm90::tma_load_4d(sbase + C::Q_OFF + c * C::CHUNK_BYTES, &tq, bar_q,
@@ -375,7 +396,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   // consumer warpgroup: thread tid holds rows r0 and r0 + 8 of every
-  // accumulator (sm90.cuh), columns 8 j + 2 (tid % 4) + {0, 1}
+  // accumulator (sm90.cuh), columns 8 j + 2 (tid % 4) + {0, 1}; O spans
+  // the padded head dim, its columns past hd stay 0
   const int lane = tid & 31;
   const int r0 = (tid >> 5) * 16 + (lane >> 2);
   const int r1 = r0 + 8;
@@ -384,9 +406,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int qp1 = r1 < rows ? q0 + r1 / g : Sq;
   const int cq = 2 * (lane & 3);
 
-  float o[HD / 2];
+  constexpr int HDP = C::HDP;
+  float o[HDP / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
   float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
   constexpr uint32_t SBO = 8 * C::ROW_BYTES;           // 8 rows
 
@@ -397,7 +420,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const uint32_t k_addr = sbase + C::KV_OFF + s * 2 * C::TILE_BYTES;
     const uint32_t v_addr = k_addr + C::TILE_BYTES;
 
-    // S = Q K^T over hd in steps of 16 (32 bytes inside a swizzled row)
+    // S = Q K^T over the true hd in steps of 16 (32 bytes inside a
+    // swizzled row); the zero-filled padding columns are not walked
     float sc[32];
 #pragma unroll
     for (int j = 0; j < 32; ++j) sc[j] = 0.f;
@@ -458,7 +482,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     m0 = mn0;
     m1 = mn1;
 #pragma unroll
-    for (int j = 0; j < HD / 2; ++j) o[j] *= (j & 2) ? corr1 : corr0;
+    for (int j = 0; j < HDP / 2; ++j) o[j] *= (j & 2) ? corr1 : corr0;
 
     // P = P_hi + P_lo, both bf16, as A fragments: slice k (keys 16 k ..
     // 16 k + 15) packs score registers 8 k .. 8 k + 7 in pairs
@@ -475,7 +499,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       }
 
     // O += P V: V's tile is the MN-major B operand; 16 keys a step, the
-    // next 64 columns of hd one box (CHUNK_BYTES) further on
+    // next 64 columns of the padded hd one box (CHUNK_BYTES) further on
     sm90::fence_regs(o);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -487,8 +511,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     for (int k = 0; k < 4; ++k) {
       const uint64_t db = sm90::smem_desc(v_addr + k * 16 * C::ROW_BYTES,
                                           C::CHUNK_BYTES, SBO, C::LAYOUT);
-      wgmma_pv<HD>(o, ahi[k], db);
-      wgmma_pv<HD>(o, alo[k], db);
+      wgmma_pv<HDP>(o, ahi[k], db);
+      wgmma_pv<HDP>(o, alo[k], db);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait_all();
@@ -507,7 +531,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     __nv_bfloat16* orow = out + ((size_t)b * Sq + qp) * q_pos_stride +
                           (size_t)(kvh * g + r % g) * HD;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < HD / 8; ++j) {   // the true hd columns only
       const float x = o[4 * j + 2 * half] / den;
       const float y = o[4 * j + 2 * half + 1] / den;
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + cq) = __floats2bfloat162_rn(x, y);
@@ -531,6 +555,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
   const int tile_pos = BM / g;
   const CUtensorMapSwizzle swz =
       C::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  // the maps' inner extent is the true hd: TMA zero-fills a box past it
   CUtensorMap tq, tk, tv;
   if ((err = sm90::encode_bshd(&tq, q, HD, Hq, Sq, B, C::SW, g, tile_pos, swz))) return err;
   if ((err = sm90::encode_bshd(&tk, k, HD, Hkv, Sk, B, C::SW, 1, BN, swz))) return err;
@@ -550,6 +575,7 @@ int dispatch_hd_f32(int hd, const void* q, const void* k, const void* v,
     case 32: return launch_simt<float, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
     case 64: return launch_simt<float, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
     case 128: return launch_simt<float, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
+    case 160: return launch_simt<float, 160>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
     case 256: return launch_simt<float, 256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -563,6 +589,7 @@ int dispatch_hd_bf16(int hd, const void* q, const void* k, const void* v,
     case 32: return launch_tc<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
     case 64: return launch_tc<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
     case 128: return launch_tc<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
+    case 160: return launch_tc<160>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
     case 256: return launch_tc<256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, softcap, window, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }

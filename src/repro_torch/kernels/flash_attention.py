@@ -24,7 +24,9 @@ tc_launches = 0
 window_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128, 256)
+# head dims the CUDA source is built for (160: padded to 192 in the
+# tensor-core body's tiles, csrc/flash_attention.cu)
+_HEAD_DIMS = (32, 64, 128, 160, 256)
 _TILE_ROWS = 64   # rows of the grouped query tile (BM in the source)
 
 _fn = None

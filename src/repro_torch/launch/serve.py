@@ -12,7 +12,9 @@ both CUDA kernels:
       --requests 16 --replicas 1 --slots 8 --prompt-len 512 --gen 64 \
       --block-size 16 --paged-kernel --impl kernel
 
-The recurrent families serve the same way (``--arch mamba2-370m`` or
+The other dense families (``--arch gemma3-12b``, ``stablelm-12b`` with
+its LayerNorm and head_dim 160, ``qwen2.5-32b`` with its qkv biases) serve
+the same way, as do the recurrent families (``--arch mamba2-370m`` or
 ``--arch recurrentgemma-2b``).  A Mamba-2 prompt must be at most one SSD
 chunk (128 tokens; 32 reduced) or a whole number of chunks, since prefill
 is never padded:
@@ -114,8 +116,8 @@ def profile_serve(engine: DecodeEngine, params, requests: Sequence[Request],
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="gemma-2b | gemma3-12b | mamba2-370m | "
-                         "recurrentgemma-2b")
+                    help="gemma-2b | gemma3-12b | stablelm-12b | "
+                         "qwen2.5-32b | mamba2-370m | recurrentgemma-2b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -2,7 +2,8 @@
 ``repro/launch/train.py``.
 
 Runs synchronous WSSL rounds (Algorithm 1 + 2) over the decoder stack —
-Gemma-2B, Mamba-2-370M or RecurrentGemma-2B — on synthetic LM data, with
+Gemma-2B, Gemma-3-12B, StableLM-2-12B, Qwen2.5-32B, Mamba-2-370M or
+RecurrentGemma-2B — on synthetic LM data, with
 random weights from a seed:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
@@ -36,7 +37,9 @@ from repro_torch.models.layers import resolve_device
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="gemma-2b | gemma3-12b | stablelm-12b | "
+                         "qwen2.5-32b | mamba2-370m | recurrentgemma-2b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--clients", type=int, default=4)
     ap.add_argument("--rounds", type=int, default=10)

@@ -39,21 +39,22 @@ IMPLS = ("dense", "kernel", "pallas")
 
 def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
                  positions: torch.Tensor):
-    """x (B,S,D) -> q (B,S,Hq,hd), k, v (B,S,Hkv,hd), with RoPE applied."""
-    if cfg.qkv_bias:
-        raise NotImplementedError(
-            "qkv biases are not ported yet (ROADMAP Queue 1, item 11: the "
-            "other model families)")
+    """x (B,S,D) -> q (B,S,Hq,hd), k, v (B,S,Hkv,hd), with RoPE applied.
+    With ``qkv_bias`` each projection adds its bias ``bq`` (Hq, hd) /
+    ``bk``, ``bv`` (Hkv, hd) in the activation dtype before RoPE, as the
+    JAX package does; every attention path (dense and kernel prefill,
+    contiguous and paged decode) projects here."""
     b, s, d = x.shape
     dtype = x.dtype
 
-    def proj(w):
+    def proj(w, bias):
         h, e = w.shape[1], w.shape[2]
-        return (x @ w.reshape(d, h * e).to(dtype)).view(b, s, h, e)
+        y = (x @ w.reshape(d, h * e).to(dtype)).view(b, s, h, e)
+        return y + p[bias].to(dtype) if cfg.qkv_bias else y
 
-    q = apply_rope(cfg, proj(p["wq"]), positions)
-    k = apply_rope(cfg, proj(p["wk"]), positions)
-    return q, k, proj(p["wv"])
+    q = apply_rope(cfg, proj(p["wq"], "bq"), positions)
+    k = apply_rope(cfg, proj(p["wk"], "bk"), positions)
+    return q, k, proj(p["wv"], "bv")
 
 
 def _out_proj(p: Params, out: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,12 @@
-"""Shared building blocks: parameter init, RMSNorm, RoPE, the gated MLP.
+"""Shared building blocks: parameter init, RMSNorm and LayerNorm, RoPE,
+the gated MLP (with optional biases).
 
 The PyTorch twin of ``repro/models/layers.py``.  Parameters are plain
-dicts of tensors in the JAX package's layout.  Matrices are cast to the
-activation dtype on every use, as in the JAX package: serving stores them
-in that dtype already, training keeps fp32 master weights.  Norm scales
-stay fp32, because the norm forms ``1 + scale`` in fp32 before it rounds
-to the activation dtype.
+dicts of tensors in the JAX package's layout.  Matrices and biases are
+cast to the activation dtype on every use, as in the JAX package: serving
+stores them in that dtype already, training keeps fp32 master weights.
+Norm scales stay fp32, because RMSNorm forms ``1 + scale`` in fp32 before
+it rounds to the activation dtype.
 """
 
 from __future__ import annotations
@@ -62,17 +63,35 @@ def true_fp32():
 # ---------------------------------------------------------------------------
 
 
+# a stacked leaf of more elements than this is drawn layer by layer
+# (2^31: 8 GiB of fp32).  Every config ported before Qwen2.5-32B and
+# StableLM-2-12B stays below it (the largest leaf, Gemma-3-12B's embedding,
+# has 1,006,632,960), so a seed gives those configs the weights it gave
+# them before; Qwen2.5-32B's stacked MLP leaves (64, 5120, 27648) would
+# take a 36.2 GB fp32 temporary each drawn whole.
+SLICED_DRAW_ELEMENTS = 2 ** 31
+
+
 def dense_param(gen: torch.Generator, shape: Sequence[int], *,
                 layers: int = 0, scale: Optional[float] = None,
                 dtype=torch.float32, device=None) -> torch.Tensor:
     """A normal-init weight leaf N(0, 1) * scale, drawn in fp32 from
     ``gen`` and stored in ``dtype``.  ``scale`` defaults to
     1/sqrt(shape[0]) (the fan-in, as in the JAX package).  ``layers > 0``
-    stacks that many independent draws on a leading layer axis."""
+    stacks that many independent draws on a leading layer axis.  A stacked
+    leaf above :data:`SLICED_DRAW_ELEMENTS` is drawn one layer at a time
+    straight into a tensor of ``dtype``, so its fp32 temporary is one
+    layer's; below it the whole leaf is one draw."""
     if scale is None:
         fan_in = shape[0] if len(shape) > 1 else shape[-1]
         scale = 1.0 / math.sqrt(max(fan_in, 1))
     full = ((layers,) if layers else ()) + tuple(shape)
+    if layers and math.prod(full) > SLICED_DRAW_ELEMENTS:
+        w = torch.empty(full, dtype=dtype, device=device)
+        for i in range(layers):
+            w[i] = torch.randn(tuple(shape), generator=gen,
+                               dtype=torch.float32, device=device).mul_(scale)
+        return w
     w = torch.randn(full, generator=gen, dtype=torch.float32, device=device)
     return w.mul_(scale).to(dtype)
 
@@ -83,13 +102,25 @@ def dense_param(gen: torch.Generator, shape: Sequence[int], *,
 
 
 def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Gemma RMSNorm: statistics in fp32, the elementwise path in the
-    activation dtype, weight ``(1 + scale)`` formed in fp32 then rounded."""
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {cfg.norm!r} is not ported yet (ROADMAP Queue 1, item 11: "
-            f"the other model families)")
+    """Statistics in fp32, the elementwise path in the activation dtype,
+    op by op as the JAX package orders it.
+
+    ``layernorm``: ``(x - mu) * rsqrt(var + eps)``, mean and variance in
+    fp32 and each rounded to the activation dtype before it meets ``x``,
+    then ``* scale + bias`` (scale initialised to ones, bias to zeros).
+    ``F.layer_norm`` would keep fp32 intermediates for a bf16 ``x`` and
+    round elsewhere.  ``rmsnorm`` (Gemma's): weight ``(1 + scale)`` formed
+    in fp32 then rounded, scale initialised to zeros."""
     dtype = x.dtype
+    if cfg.norm == "layernorm":
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        inv = torch.rsqrt(var + cfg.norm_eps)
+        y = (x - mu.to(dtype)) * inv.to(dtype)
+        return y * p["scale"].to(dtype) + p["bias"].to(dtype)
+    if cfg.norm != "rmsnorm":
+        raise ValueError(f"unknown norm {cfg.norm!r}")
     ms = x.float().square().mean(dim=-1, keepdim=True)
     inv = torch.rsqrt(ms + cfg.norm_eps).to(dtype)
     return x * inv * (1.0 + p["scale"]).to(dtype)
@@ -159,17 +190,20 @@ def _act(cfg: ModelConfig, g: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    if cfg.mlp_bias:
-        raise NotImplementedError(
-            "MLP biases are not ported yet (ROADMAP Queue 1, item 11: the "
-            "other model families)")
+    """The (gated) MLP; with ``mlp_bias`` the up projection takes ``bu``
+    and the down projection ``bd``, added in the activation dtype."""
     dtype = x.dtype
     up = x @ p["wu"].to(dtype)
+    if cfg.mlp_bias:
+        up = up + p["bu"].to(dtype)
     if cfg.activation in ("swiglu", "geglu"):
         h = _act(cfg, x @ p["wg"].to(dtype)) * up
     else:
         h = _act(cfg, up)
-    return h @ p["wd"].to(dtype)
+    out = h @ p["wd"].to(dtype)
+    if cfg.mlp_bias:
+        out = out + p["bd"].to(dtype)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -108,10 +108,10 @@ def _layer_init(gen, cfg: ModelConfig, spec: LayerSpec, layers: int, dtype,
         return dense_param(gen, shape, layers=layers, scale=scale,
                            dtype=dtype, device=device)
 
-    def zeros():
-        return torch.zeros(lead + (d,), dtype=torch.float32, device=device)
+    def bias(*shape):
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
 
-    p: Params = {"norm1": {"scale": zeros()}}
+    p: Params = {"norm1": _norm_init(cfg, lead, dtype, device)}
     # the MLP is drawn before the mixer, so a seed keeps giving the dense
     # models the weights it gave them before the other mixers came
     mlp = {}
@@ -120,10 +120,15 @@ def _layer_init(gen, cfg: ModelConfig, spec: LayerSpec, layers: int, dtype,
             mlp["wg"] = w((d, f))
         mlp["wu"] = w((d, f))
         mlp["wd"] = w((f, d), scale=1.0 / f ** 0.5)
+        if cfg.mlp_bias:
+            mlp["bu"], mlp["bd"] = bias(f), bias(d)
     if _is_attn(spec):
         p["mixer"] = {"wq": w((d, hq, hd)), "wk": w((d, hkv, hd)),
                       "wv": w((d, hkv, hd)),
                       "wo": w((hq, hd, d), scale=1.0 / (hq * hd) ** 0.5)}
+        if cfg.qkv_bias:
+            p["mixer"].update(bq=bias(hq, hd), bk=bias(hkv, hd),
+                              bv=bias(hkv, hd))
     elif spec.mixer == MIX_SSM:
         p["mixer"] = ssm_mod.ssm_init(gen, cfg, layers=layers, dtype=dtype,
                                       device=device)
@@ -131,9 +136,23 @@ def _layer_init(gen, cfg: ModelConfig, spec: LayerSpec, layers: int, dtype,
         p["mixer"] = rglru_mod.rglru_init(gen, cfg, layers=layers,
                                           dtype=dtype, device=device)
     if spec.mlp != MLP_NONE:
-        p["norm2"] = {"scale": zeros()}
+        p["norm2"] = _norm_init(cfg, lead, dtype, device)
         p["mlp"] = mlp
     return p
+
+
+def _norm_init(cfg: ModelConfig, lead: Tuple[int, ...], dtype,
+               device) -> Params:
+    """A norm's leaves, as the JAX package initialises them: RMSNorm's
+    ``scale`` zeros (it applies ``1 + scale``); LayerNorm's ``scale`` ones
+    and ``bias`` zeros.  Scales are fp32; the bias is stored in ``dtype``
+    like the matrices (the norm casts both at use)."""
+    shape = lead + (cfg.d_model,)
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones(shape, dtype=torch.float32,
+                                    device=device),
+                "bias": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"scale": torch.zeros(shape, dtype=torch.float32, device=device)}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
@@ -142,10 +161,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     package's init scales and tree layout.  Matrices are stored in
     ``dtype`` — by default ``cfg.dtype``, what serving computes in;
     training passes ``cfg.param_dtype`` (fp32 master weights, cast to
-    ``cfg.dtype`` on use as in JAX) — and the leaves the model reads in
-    fp32 in fp32 (norm scales; the SSD block's ``A_log``, ``D``,
-    ``dt_bias``, ``norm_scale``; the RG-LRU gates ``w_r``, ``w_i``, ``b_r``,
-    ``b_i`` and ``lambda``)."""
+    ``cfg.dtype`` on use as in JAX), the biases (``bq``, ``bk``, ``bv``,
+    ``bu``, ``bd``, LayerNorm's ``bias``; zeros, as in JAX) too — and the
+    leaves the model reads in fp32 in fp32 (norm scales; the SSD block's
+    ``A_log``, ``D``, ``dt_bias``, ``norm_scale``; the RG-LRU gates
+    ``w_r``, ``w_i``, ``b_r``, ``b_i`` and ``lambda``).  The tree's keys
+    and shapes are the JAX package's, so ``tree.py``'s sorted-key leaf
+    order is shared with it."""
     device = resolve_device(device)
     period_specs, n_full, n_rem = _superblock_layout(cfg)
     rem_specs = cfg.layer_specs()[n_full * len(period_specs):]
@@ -158,8 +180,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
                   for spec in period_specs],
         "rem": [_layer_init(gen, cfg, spec, 0, dtype, device)
                 for spec in rem_specs],
-        "final_norm": {"scale": torch.zeros((cfg.d_model,), dtype=torch.float32,
-                                            device=device)},
+        "final_norm": _norm_init(cfg, (), dtype, device),
     }
     if not cfg.tie_embeddings:
         params["head"] = dense_param(gen, (cfg.d_model, cfg.vocab_size),

@@ -15,7 +15,10 @@ their arithmetic:
 * flash, bf16 body (``csrc/flash_attention.cu``): 64-row tiles of
   floor(64 / g) positions x g heads with zero padding rows, 64-key tiles,
   bf16 products summed in fp32, the online softmax per key tile, and P
-  split into bf16 P_hi + P_lo for the two P V products.  Tolerance: one
+  split into bf16 P_hi + P_lo for the two P V products.  A head dim that
+  is not whole 64-column boxes (StableLM-2-12B's 160) is padded with zero
+  columns to whole boxes (192), as TMA fills them: S = Q K^T over the true
+  columns, P V over the padded ones, hd columns kept.  Tolerance: one
   bf16 ulp at max|plain| and at most 1% of the bf16 outputs differing
   from the plain version (both round fp32 results once; only the order of
   the fp32 sums and the ~16-bit P differ).
@@ -46,17 +49,31 @@ FP32 = dict(atol=1e-5, rtol=1e-5)
 # ---------------------------------------------------------------------------
 
 
-def emulate_flash_tc(q, k, v, *, window=None, softcap=None, split_p=True):
+def padded_head_dim(hd):
+    """The head dim of the bf16 body's tiles: whole swizzled boxes of 64
+    columns (one box of hd below 64), the last one zero-filled past hd."""
+    sw = min(hd, 64)
+    return -(-hd // sw) * sw
+
+
+def emulate_flash_tc(q, k, v, *, window=None, softcap=None, split_p=True,
+                     padded_out=False):
     """The bf16 body's arithmetic, causal: q (B, S, Hq, hd), k, v
     (B, S, Hkv, hd) bf16 (the model layout) -> (B, S, Hq, hd) bf16.
-    ``split_p=False`` rounds P to bf16 once, as the usual kernels do."""
+    ``split_p=False`` rounds P to bf16 once, as the usual kernels do.
+    The tiles hold :func:`padded_head_dim` columns, zero past hd;
+    ``padded_out`` returns the padded accumulator's columns too."""
     b, s, hq, hd = q.shape
+    hdp = padded_head_dim(hd)
+    scale = 1.0 / np.sqrt(hd)
+    # TMA's zero fill past hd; S = Q K^T steps over the true columns only
+    q, k, v = (torch.nn.functional.pad(x, (0, hdp - hd)) for x in (q, k, v))
+    hd_true, hd = hd, hdp
     hkv = k.shape[2]
     g = hq // hkv
     tile_pos = BM // g
     rows = tile_pos * g
     n_qt = -(-s // tile_pos)
-    scale = 1.0 / np.sqrt(hd)
     # grouped tiles: row r of tile i is position i * tile_pos + r // g,
     # head r % g of its kv head; padding rows and positions >= S are zero
     qp = torch.arange(n_qt)[:, None] * tile_pos + torch.arange(BM)[None] // g
@@ -79,7 +96,8 @@ def emulate_flash_tc(q, k, v, *, window=None, softcap=None, split_p=True):
         kt[:, :, :n], vt[:, :, :n] = kf[:, :, t * BN:t * BN + n], \
             vf[:, :, t * BN:t * BN + n]
         # the products of bf16 values are exact in fp32
-        z = torch.einsum("bkird,bknd->bkirn", qg, kt) * scale
+        z = torch.einsum("bkird,bknd->bkirn", qg[..., :hd_true],
+                         kt[..., :hd_true]) * scale
         if softcap is not None:
             z = softcap * torch.tanh(z / softcap)
         ok = (kp < s) & (qp[..., None] < s) & (kp <= qp[..., None])
@@ -100,7 +118,8 @@ def emulate_flash_tc(q, k, v, *, window=None, softcap=None, split_p=True):
             o = o + hi @ vt[:, :, None]
     o = (o / l.clamp_min(1e-30)[..., None]).bfloat16()
     o = o[:, :, :, :rows].reshape(b, hkv, n_qt, tile_pos, g, hd)
-    return o.permute(0, 2, 3, 1, 4, 5).reshape(b, n_qt * tile_pos, hq, hd)[:, :s]
+    o = o.permute(0, 2, 3, 1, 4, 5).reshape(b, n_qt * tile_pos, hq, hd)[:, :s]
+    return o if padded_out else o[..., :hd_true]
 
 
 def _bf16_inputs(b, hq, hkv, s, hd, seed):
@@ -129,13 +148,18 @@ def _ulp_bf16(t):
 
 
 # (B, Hq, Hkv, S, hd, window, softcap): Gemma's g 8, RecurrentGemma's g 10
-# with a window, ragged S (397, 200), a softcap, a GQA pair of kv heads
+# with a window, ragged S (397, 200), a softcap, a GQA pair of kv heads;
+# StableLM-2-12B's 32 over 8 heads at hd 160 (padded to 192; S 131 leaves
+# the last 16-position tile 3 positions) and Qwen2.5-32B's 40 over 8 at hd
+# 128 (g 5: a tile holds 12 positions and 4 padding rows)
 FLASH_CASES = [
     (1, 8, 1, 397, 32, None, None),
     (2, 8, 1, 200, 64, 48, 30.0),
     (1, 10, 1, 397, 32, 100, None),
     (2, 10, 1, 200, 32, None, 20.0),
     (1, 8, 2, 130, 64, None, None),
+    (1, 32, 8, 131, 160, None, None),
+    (1, 40, 8, 125, 128, None, None),
 ]
 
 
@@ -161,6 +185,22 @@ def test_flash_tc_padding_rows_and_ragged_edge_are_inert():
     want = _plain_flash(q, k, v)
     assert torch.isfinite(got.float()).all()
     assert (got.float() - want.float()).abs().max().item() <= _ulp_bf16(want)
+
+
+def test_flash_tc_padded_head_dim_is_exact_zero_past_hd():
+    """hd 160 in tiles of 192: the zero-filled columns of V leave the
+    accumulator's padded columns exactly 0, and the 160 stored columns
+    are the plain version's within one ulp, at most 1% differing."""
+    assert [padded_head_dim(h) for h in (32, 64, 128, 160, 256)] == \
+        [32, 64, 128, 192, 256]
+    q, k, v = _bf16_inputs(1, 32, 8, 70, 160, seed=13)
+    got = emulate_flash_tc(q, k, v, padded_out=True)
+    assert got.shape[-1] == 192
+    assert torch.count_nonzero(got[..., 160:]) == 0
+    want = _plain_flash(q, k, v)
+    kept = got[..., :160].float()
+    assert (kept - want.float()).abs().max().item() <= _ulp_bf16(want)
+    assert (kept != want.float()).float().mean().item() <= DIFFERING_MAX
 
 
 def test_flash_bf16_p_alone_moves_many_more_outputs():

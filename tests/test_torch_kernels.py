@@ -38,13 +38,16 @@ def _flash_inputs(b, hq, hkv, s, hd, seed):
 
 
 # (B, Hq, Hkv, S, hd, window, softcap): MQA as in Gemma, ragged S, GQA,
-# window + softcap, MHA, RecurrentGemma's 10 heads over 1 with a window
+# window + softcap, MHA, RecurrentGemma's 10 heads over 1 with a window,
+# StableLM-2-12B's head dim 160 at g 4, Qwen2.5-32B's g 5
 FLASH_CASES = [
     (2, 4, 1, 32, 16, None, None),
     (1, 8, 1, 45, 32, None, None),
     (1, 4, 2, 37, 32, 8, 30.0),
     (2, 2, 2, 13, 16, None, 5.0),
     (2, 10, 1, 50, 16, 16, None),
+    (1, 8, 2, 41, 160, None, None),
+    (1, 10, 2, 29, 128, None, None),
 ]
 
 
@@ -174,6 +177,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     args = [torch.as_tensor(a) for a in _paged_inputs(4)]
     with pytest.raises(ValueError, match="CUDA"):
         pa.paged_decode_attention(*args)
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+@pytest.mark.parametrize("hd,ok", [(32, True), (64, True), (128, True),
+                                   (160, True), (256, True), (96, False),
+                                   (192, False)])
+def test_flash_wrapper_head_dims(hd, ok):
+    """The CUDA source is built for head dims 32, 64, 128, 160 (StableLM-
+    2-12B's, padded to 192 in the tensor-core tiles) and 256: those get as
+    far as the device check, any other is refused by name."""
+    q, k = torch.zeros(1, 4, 8, hd), torch.zeros(1, 4, 2, hd)
+    with pytest.raises(ValueError, match="CUDA" if ok else "head_dim"):
+        fa.flash_attention_bshd(q, k, k)
     assert ops.launch_counts() == NO_LAUNCHES
 
 
