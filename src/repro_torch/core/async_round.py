@@ -42,6 +42,10 @@ What differs from the JAX round, and why:
   true fp32 division there (a CUDA division by a host scalar multiplies
   by its reciprocal, and ``ceil`` turns a one-ulp miss at an integer into
   a whole round of delay).
+* Which clients run their split forward and backward is the sync
+  round's rule (``core/round.py::_client_grads``): the fresh workers, or
+  every client where an MoE layer sits past the client stage (its aux is
+  a mean over all N in JAX too).
 * The shared stages are not stepped at all in a round without a fresh
   participant (JAX steps them and keeps the old values); that guard is
   unconditional here, as in JAX: a tight deadline can empty a round

@@ -35,10 +35,16 @@ What differs from the JAX round, and why:
   the same :class:`WSSLState` object.
 * The per-client forward/backward is a loop over clients where JAX vmaps
   it.  Each client's loss enters the objective with the coefficient
-  ``agg_w * mask``; a client with mask 0 has coefficient 0, so its
-  gradients are 0 and AdamW's mask freezes it — the loop skips it, and
-  every output stays what the vmapped round computes (its per-client
-  loss is reported as 0 either way).
+  ``agg_w * mask``.  In a stack whose edge and server stages hold no MoE
+  layer, a client with mask 0 has coefficient 0, so its gradients are 0
+  and AdamW's mask freezes it — the loop skips it, and every output stays
+  what the vmapped round computes (its per-client loss is reported as 0
+  either way).  Where an MoE layer sits in an edge or the server stage,
+  JAX adds that stage's load-balance aux as the mean over **all** N
+  clients, so an unselected client still moves the shared stages'
+  gradients, and its client-stage gradient (masked out of the step)
+  still enters the client stack's global-norm clip: then every client
+  runs, selected or not.
 * Autograd accumulates every gradient straight into one fp32 buffer per
   leaf: each stacked leaf is bound as per-layer leaf views whose ``.grad``
   is the matching slice of the buffer (:func:`_bind`).  The shared
@@ -66,8 +72,11 @@ What differs from the JAX round, and why:
   selection from the state it would without compression (the masks then
   match wherever the importance does).  JAX draws one (N*b*s, d)
   activation ``u`` for all clients; the loop takes client i's rows.
-* Dense stacks have no MoE aux loss, so the edge and server aux terms of
-  the JAX objective are 0 here (MoE is ROADMAP Queue 1, item 11).
+* The MoE aux terms enter as JAX sums them: each client's server-stage
+  and edge-stage aux at weight 1/N (the cotangent JAX's vmapped mean
+  gives each), the objective adding the server aux's mean and each edge
+  stage's mean over the clients; the client stage's aux is dropped, as in
+  JAX.  A dense stack has none, and its objective is unchanged.
 * ``TrainConfig.client_chunk`` reproduces JAX's client-chunked scan
   (``_client_grads_chunked``): the shared stages' gradients and the loss
   sum per chunk, then across chunks in fp32, and the activation
@@ -100,7 +109,7 @@ import torch
 from torch.utils._pytree import tree_map
 
 from repro_torch import compress
-from repro_torch.config import ModelConfig, TrainConfig, WSSLConfig
+from repro_torch.config import MLP_MOE, ModelConfig, TrainConfig, WSSLConfig
 from repro_torch.core import aggregation, wssl
 from repro_torch.core.protocol import sync_round_bytes, tree_bytes
 from repro_torch.models import attention as attn
@@ -334,8 +343,20 @@ def _fault_plan(state: WSSLState, scenario, wssl_cfg: WSSLConfig,
         device=device)
 
 
+def _moe_beyond_client(cfg: ModelConfig, state: WSSLState) -> bool:
+    """Whether an edge or the server stage holds an MoE layer, whose aux
+    loss enters the objective for every client, selected or not."""
+    specs = cfg.layer_specs()
+    rem = len(state.server_params.get("rem", []))
+    shared = sum(tf._num_blocks(st["stack"])
+                 for st in (*state.edge_stages, state.server_params))
+    return ((shared > 0 and any(sp.mlp == MLP_MOE
+                                for sp in specs[:cfg.period]))
+            or any(sp.mlp == MLP_MOE for sp in specs[len(specs) - rem:]))
+
+
 class _Grads(NamedTuple):
-    loss: torch.Tensor                 # the weighted CE objective
+    loss: torch.Tensor                 # the objective: weighted CE + aux
     pcl: torch.Tensor                  # (N,) per-client loss (0 unrun)
     client: Params                     # leaves (N, ...), param dtype
     server: Params
@@ -351,7 +372,9 @@ def _client_grads(state: WSSLState, tokens: torch.Tensor,
                   comp_p: Optional[compress.CompressionParams],
                   draw: Uniform, impl: str) -> _Grads:
     """Algorithm 2 steps 2-4 for the clients ``run_rows``: each one's split
-    forward and chained backward, its loss weighted by ``coef[i]``.
+    forward and chained backward, its loss weighted by ``coef[i]``.  With
+    an MoE layer past the client stage every client runs instead, and each
+    one's edge and server aux enters at 1/N (see the module docstring).
 
     With ``train_cfg.client_chunk`` the clients go in chunks of that many,
     as JAX's ``_client_grads_chunked`` scans them: each chunk's
@@ -371,7 +394,14 @@ def _client_grads(state: WSSLState, tokens: torch.Tensor,
     k = n if chunk is None else chunk
     rows = tokens.shape[1] * tokens.shape[2]        # d-vectors per client
     hop_u: Dict[int, torch.Tensor] = {}
-    run = set(run_rows)
+    with_aux = _moe_beyond_client(cfg, state)
+    run = set(range(n)) if with_aux else set(run_rows)
+    # each client's server aux and each edge stage's, and the weight 1/N
+    # each enters the objective at
+    srv_aux = torch.zeros((n,), dtype=torch.float32, device=coef.device)
+    edge_aux = torch.zeros((num_edges, n), dtype=torch.float32,
+                           device=coef.device)
+    aux_w = torch.tensor(1.0 / n, dtype=torch.float32, device=coef.device)
 
     def hop(a: torch.Tensor, tag: int, i: int) -> torch.Tensor:
         """What crosses a hop: ``a`` itself, or its wire reconstruction."""
@@ -401,17 +431,29 @@ def _client_grads(state: WSSLState, tokens: torch.Tensor,
         x = hop(acts.detach(), TAG_ACT_UP, i).requires_grad_(True)
         relays = []
         for j, edge_b in enumerate(edges_b):
-            y = tf.stage_forward(edge_b, cfg, x, j + 1, impl=impl,
-                                 remat=remat, remat_span=span)
-            relays.append((x, y))
+            y, aux_j = tf.stage_forward(edge_b, cfg, x, j + 1, impl=impl,
+                                        remat=remat, remat_span=span,
+                                        with_aux=True)
+            relays.append((x, y, aux_j))
+            if with_aux:
+                edge_aux[j, i] = aux_j.detach()
             x = hop(y.detach(), TAG_ACT_UP + j + 1, i).requires_grad_(True)
-        loss_i, _ = tf.server_loss(server_b, cfg, x, labels[i], impl=impl,
-                                   remat=remat, remat_span=span)
-        (coef[i] * loss_i).backward()
+        loss_i, aux_i = tf.server_loss(server_b, cfg, x, labels[i],
+                                       impl=impl, remat=remat,
+                                       remat_span=span)
+        obj = coef[i] * loss_i
+        if with_aux:
+            srv_aux[i] = aux_i.detach()
+            if aux_i.requires_grad:
+                obj = obj + aux_i * aux_w
+        obj.backward()
         g_x = hop(x.grad, TAG_ACT_DOWN + num_edges, i)
         for j in reversed(range(num_edges)):
-            x_in, y = relays[j]
-            y.backward(g_x)
+            x_in, y, aux_j = relays[j]
+            if with_aux and aux_j.requires_grad:
+                torch.autograd.backward([y, aux_j], [g_x, aux_w])
+            else:
+                y.backward(g_x)
             g_x = hop(x_in.grad, TAG_ACT_DOWN + j, i)
         acts.backward(g_x)
         return loss_i.detach()
@@ -424,15 +466,27 @@ def _client_grads(state: WSSLState, tokens: torch.Tensor,
                 if i in run:
                     pcl[i] = client_pass(i, server_b, edges_b)
 
+    n_t = torch.tensor(float(n), dtype=torch.float32, device=coef.device)
     if chunk is None:
         chunk_pass(range(n), g_server, g_edges)
         loss = torch.sum(coef * pcl)
+        if with_aux:
+            # JAX: the CE sum plus the server aux's client mean, then each
+            # edge stage's client mean
+            loss = loss + srv_aux.sum() / n_t
+            edge_total = torch.zeros((), dtype=torch.float32,
+                                     device=coef.device)
+            for j in range(num_edges):
+                edge_total = edge_total + edge_aux[j].sum() / n_t
+            loss = loss + edge_total
     else:
         f32 = lambda t: tree_map(lambda a: torch.zeros(
             a.shape, dtype=torch.float32, device=a.device), t)
         acc_s, acc_e = f32(state.server_params), [f32(e) for e in
                                                    state.edge_stages]
         loss = torch.zeros((), dtype=torch.float32, device=coef.device)
+        aux_acc = torch.zeros((), dtype=torch.float32, device=coef.device)
+        k_t = torch.tensor(float(k), dtype=torch.float32, device=coef.device)
         for c in range(0, n, k):
             members = range(c, c + k)
             if run.isdisjoint(members):
@@ -443,7 +497,19 @@ def _client_grads(state: WSSLState, tokens: torch.Tensor,
                               tree_leaves((g_server, g_edges))):
                 acc.add_(g.float())
                 g.zero_()
-            loss = loss + torch.sum(coef[c:c + k] * pcl[c:c + k])
+            loss_c = torch.sum(coef[c:c + k] * pcl[c:c + k])
+            if with_aux:
+                # JAX: the chunk's server-aux mean reweighted by chunk / N;
+                # the edge aux summed over the chunk, over all chunks, / N
+                loss_c = loss_c + srv_aux[c:c + k].sum() / k_t * (k / n)
+                aux_sum = torch.zeros((), dtype=torch.float32,
+                                      device=coef.device)
+                for j in range(num_edges):
+                    aux_sum = aux_sum + edge_aux[j, c:c + k].sum()
+                aux_acc = aux_acc + aux_sum
+            loss = loss + loss_c
+        if with_aux:
+            loss = loss + aux_acc / n_t
         cast = lambda acc, p: tree_map(lambda a, b: a.to(b.dtype), acc, p)
         g_server = cast(acc_s, state.server_params)
         g_edges = [cast(a, e) for a, e in zip(acc_e, state.edge_stages)]

@@ -14,7 +14,9 @@ both CUDA kernels:
 
 The other dense families (``--arch gemma3-12b``, ``stablelm-12b`` with
 its LayerNorm and head_dim 160, ``qwen2.5-32b`` with its qkv biases) serve
-the same way, as do the recurrent families (``--arch mamba2-370m`` or
+the same way, as do the Mixture-of-Experts models (``--arch olmoe-1b-7b``,
+13.8 GB in bf16, and ``phi3.5-moe-42b-a6.6b``, 83.7 GB: more than one
+card holds) and the recurrent families (``--arch mamba2-370m`` or
 ``--arch recurrentgemma-2b``).  A Mamba-2 prompt must be at most one SSD
 chunk (128 tokens; 32 reduced) or a whole number of chunks, since prefill
 is never padded:
@@ -117,7 +119,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
                     help="gemma-2b | gemma3-12b | stablelm-12b | "
-                         "qwen2.5-32b | mamba2-370m | recurrentgemma-2b")
+                         "qwen2.5-32b | olmoe-1b-7b | phi3.5-moe-42b-a6.6b | "
+                         "mamba2-370m | recurrentgemma-2b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

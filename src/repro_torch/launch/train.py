@@ -2,15 +2,17 @@
 ``repro/launch/train.py``.
 
 Runs synchronous WSSL rounds (Algorithm 1 + 2) over the decoder stack —
-Gemma-2B, Gemma-3-12B, StableLM-2-12B, Qwen2.5-32B, Mamba-2-370M or
-RecurrentGemma-2B — on synthetic LM data, with
-random weights from a seed:
+Gemma-2B, Gemma-3-12B, StableLM-2-12B, Qwen2.5-32B, OLMoE-1B-7B,
+Phi-3.5-MoE, Mamba-2-370M or RecurrentGemma-2B — on synthetic LM data,
+with random weights from a seed:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
       --clients 2 --rounds 3 --seq-len 128 --batch-per-client 2
 
 The recurrent families train through their plain scans (``impl="dense"``),
-as the JAX package trains them.  A Mamba-2 sequence is at most one SSD
+as the JAX package trains them.  The MoE models add their routers'
+load-balance aux loss past the client stage, for every client (selected
+or not), as the JAX round does.  A Mamba-2 sequence is at most one SSD
 chunk or a whole number of chunks; any other length raises ``ValueError``
 (``models/ssm.py::ssd_chunked``) where JAX asserts.
 
@@ -39,7 +41,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True,
                     help="gemma-2b | gemma3-12b | stablelm-12b | "
-                         "qwen2.5-32b | mamba2-370m | recurrentgemma-2b")
+                         "qwen2.5-32b | olmoe-1b-7b | phi3.5-moe-42b-a6.6b | "
+                         "mamba2-370m | recurrentgemma-2b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--clients", type=int, default=4)
     ap.add_argument("--rounds", type=int, default=10)

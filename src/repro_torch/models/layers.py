@@ -68,7 +68,10 @@ def true_fp32():
 # StableLM-2-12B stays below it (the largest leaf, Gemma-3-12B's embedding,
 # has 1,006,632,960), so a seed gives those configs the weights it gave
 # them before; Qwen2.5-32B's stacked MLP leaves (64, 5120, 27648) would
-# take a 36.2 GB fp32 temporary each drawn whole.
+# take a 36.2 GB fp32 temporary each drawn whole.  OLMoE-1B-7B's stacked
+# expert leaves (16, 64, 2048, 1024) hold exactly 2^31 elements, not more,
+# so each is drawn whole (an 8 GiB fp32 temporary); Phi-3.5-MoE's
+# (32, 16, 4096, 6400) are drawn layer by layer.
 SLICED_DRAW_ELEMENTS = 2 ** 31
 
 

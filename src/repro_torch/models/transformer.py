@@ -11,12 +11,16 @@ Caches mirror the same layout and are updated in place.
 
 Layer kinds: global and local (sliding-window) attention, the Mamba-2 SSD
 block (``models/ssm.py``) and the RG-LRU block (``models/rglru.py``), with
-a dense MLP or none.  ``impl="kernel"`` (alias ``"pallas"``) sends the
-full-sequence forward through the flash, SSD-scan and RG-LRU kernels, as
-the JAX forward's ``"pallas"`` does; prefill into a cache runs the
-recurrent blocks' plain scans, which return the final state the kernels do
-not.  MoE raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+a dense MLP, a Mixture-of-Experts MLP (``models/moe.py``) or none.
+``impl="kernel"`` (alias ``"pallas"``) sends the full-sequence forward
+through the flash, SSD-scan and RG-LRU kernels, as the JAX forward's
+``"pallas"`` does; prefill into a cache runs the recurrent blocks' plain
+scans, which return the final state the kernels do not.
+
+The MoE layers' load-balance aux loss is summed over the layers (fp32) by
+the forward, an edge stage (``stage_forward(with_aux=True)``) and the
+server stage, as in JAX; the client stage (stage 0), prefill and decode
+drop it.
 
 For training, a stacked leaf may also be a Python list of per-layer
 tensors (``core/round.py`` binds each layer's slice as a leaf of its own,
@@ -36,8 +40,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import (ATTN_GLOBAL, ATTN_LOCAL, MIX_RGLRU, MIX_SSM,
-                                MLP_DENSE, MLP_NONE, LayerSpec, ModelConfig)
+                                MLP_DENSE, MLP_MOE, MLP_NONE, LayerSpec,
+                                ModelConfig)
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_param,
@@ -53,10 +59,8 @@ _KERNEL_IMPLS = ("kernel", "pallas")
 def _check_spec(spec: LayerSpec) -> None:
     if spec.mixer not in _MIXERS:
         raise ValueError(f"unknown mixer {spec.mixer!r}")
-    if spec.mlp not in (MLP_DENSE, MLP_NONE):
-        raise NotImplementedError(
-            f"mlp {spec.mlp!r} is not ported yet (ROADMAP Queue 1, item 11: "
-            f"models/moe.py)")
+    if spec.mlp not in (MLP_DENSE, MLP_MOE, MLP_NONE):
+        raise ValueError(f"unknown mlp {spec.mlp!r}")
 
 
 def _is_attn(spec: LayerSpec) -> bool:
@@ -115,7 +119,10 @@ def _layer_init(gen, cfg: ModelConfig, spec: LayerSpec, layers: int, dtype,
     # the MLP is drawn before the mixer, so a seed keeps giving the dense
     # models the weights it gave them before the other mixers came
     mlp = {}
-    if spec.mlp != MLP_NONE:
+    if spec.mlp == MLP_MOE:
+        mlp = moe_mod.moe_init(gen, cfg, layers=layers, dtype=dtype,
+                               device=device)
+    elif spec.mlp != MLP_NONE:
         if cfg.activation in ("swiglu", "geglu"):
             mlp["wg"] = w((d, f))
         mlp["wu"] = w((d, f))
@@ -216,10 +223,24 @@ def _unembed(cfg: ModelConfig, params: Params, x: torch.Tensor
 
 
 def _mlp_block(cfg: ModelConfig, spec: LayerSpec, p: Params,
-               x: torch.Tensor) -> torch.Tensor:
+               x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The residual MLP -> (x, the MoE aux loss, or None for a dense MLP
+    or none)."""
     if spec.mlp == MLP_NONE:
-        return x
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+        return x, None
+    h = apply_norm(cfg, p["norm2"], x)
+    if spec.mlp == MLP_MOE:
+        y, aux = moe_mod.apply_moe(cfg, p["mlp"], h)
+        return x + y, aux
+    return x + apply_mlp(cfg, p["mlp"], h), None
+
+
+def _add_aux(total: Optional[torch.Tensor], aux: Optional[torch.Tensor]
+             ) -> Optional[torch.Tensor]:
+    """Sum aux terms left to right; None stands for a dense layer's 0."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
 
 
 # ---------------------------------------------------------------------------
@@ -289,7 +310,7 @@ def _decode_layer(cfg: ModelConfig, spec: LayerSpec, p: Params,
         mixed, _ = ssm_mod.decode_ssm(cfg, p["mixer"], h, cache)
     else:
         mixed, _ = rglru_mod.decode_rglru(cfg, p["mixer"], h, cache)
-    return _mlp_block(cfg, spec, p, x + mixed)
+    return _mlp_block(cfg, spec, p, x + mixed)[0]
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -417,7 +438,7 @@ def _prefill_layer(cfg: ModelConfig, spec: LayerSpec, p: Params,
         mixed, _ = ssm_mod.prefill_ssm(cfg, p["mixer"], h, cache)
     else:
         mixed, _ = rglru_mod.prefill_rglru(cfg, p["mixer"], h, cache)
-    return _mlp_block(cfg, spec, p, x + mixed)
+    return _mlp_block(cfg, spec, p, x + mixed)[0]
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -461,7 +482,7 @@ def _resolve_span(n_full: int, requested: int) -> int:
 
 def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Params,
                  x: torch.Tensor, positions: torch.Tensor,
-                 impl: str) -> torch.Tensor:
+                 impl: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     h = apply_norm(cfg, p["norm1"], x)
     use_kernel = impl in _KERNEL_IMPLS
     if _is_attn(spec):
@@ -486,44 +507,58 @@ def _num_blocks(stack: List[Params]) -> int:
 
 def _stack_forward(stack: List[Params], cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor, impl: str, remat: bool,
-                   remat_span: int) -> torch.Tensor:
-    """Run a stage's stacked super-blocks over ``x``.  With ``remat`` each
-    span of ``remat_span`` super-blocks (the largest divisor of the count
-    not above it) is recomputed in the backward, as the JAX scan body."""
+                   remat_span: int
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Run a stage's stacked super-blocks over ``x`` -> (x, the summed MoE
+    aux, None without MoE layers).  With ``remat`` each span of
+    ``remat_span`` super-blocks (the largest divisor of the count not
+    above it) is recomputed in the backward, as the JAX scan body; the
+    aux sums within a span, then across spans, as JAX's forward does."""
     period_specs, _, _ = _superblock_layout(cfg)
     n = _num_blocks(stack)
     if n == 0:
-        return x
+        return x, None
     span = _resolve_span(n, remat_span if remat else 1)
 
     def span_block(x, first):
+        aux = None
         for t in range(first, first + span):
             for j, spec in enumerate(period_specs):
-                x = _apply_layer(cfg, spec, _tree_index(stack[j], t), x,
-                                 positions, impl)
-        return x
+                x, a = _apply_layer(cfg, spec, _tree_index(stack[j], t), x,
+                                    positions, impl)
+                aux = _add_aux(aux, a)
+        return x, aux
 
+    total = None
     for first in range(0, n, span):
         if remat and torch.is_grad_enabled():
-            x = checkpoint(span_block, x, first, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, aux = checkpoint(span_block, x, first, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
-            x = span_block(x, first)
-    return x
+            x, aux = span_block(x, first)
+        total = _add_aux(total, aux)
+    return x, total
 
 
-def _zero_aux(x: torch.Tensor) -> torch.Tensor:
+def _aux_or_zero(aux: Optional[torch.Tensor], x: torch.Tensor
+                 ) -> torch.Tensor:
     # the MoE load-balance loss; a dense stack has none
+    if aux is not None:
+        return aux
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _rem_forward(rem: List[Params], cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor, impl: str) -> torch.Tensor:
-    """The remainder layers (the last ``len(rem)`` of the model) over x."""
+                 positions: torch.Tensor, impl: str
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The remainder layers (the last ``len(rem)`` of the model) over x ->
+    (x, their summed MoE aux or None)."""
     specs = cfg.layer_specs()[cfg.num_layers - len(rem):]
+    aux = None
     for spec, lp in zip(specs, rem):
-        x = _apply_layer(cfg, spec, lp, x, positions, impl)
-    return x
+        x, a = _apply_layer(cfg, spec, lp, x, positions, impl)
+        aux = _add_aux(aux, a)
+    return x, aux
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -540,13 +575,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     b, s, _ = x.shape
     if positions is None:
         positions = text_positions(b, s, x.device)
-    x = _stack_forward(params["stack"], cfg, x, positions, impl, remat,
-                       remat_span)
-    x = _rem_forward(params["rem"], cfg, x, positions, impl)
+    x, aux = _stack_forward(params["stack"], cfg, x, positions, impl, remat,
+                            remat_span)
+    x, rem_aux = _rem_forward(params["rem"], cfg, x, positions, impl)
     x = apply_norm(cfg, params["final_norm"], x)
     if last_only:
         x = x[:, -1:]
-    return _unembed(cfg, params, x), _zero_aux(x)
+    return _unembed(cfg, params, x), _aux_or_zero(_add_aux(aux, rem_aux), x)
 
 
 # ---------------------------------------------------------------------------
@@ -645,7 +680,7 @@ def client_forward(client_params: Params, cfg: ModelConfig,
     if positions is None:
         positions = text_positions(b, s, x.device)
     return _stack_forward(client_params["stack"], cfg, x, positions, impl,
-                          remat, remat_span)
+                          remat, remat_span)[0]
 
 
 def stage_forward(stage_params: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -654,9 +689,10 @@ def stage_forward(stage_params: Params, cfg: ModelConfig, x: torch.Tensor,
                   impl: str = "dense", remat: bool = True,
                   remat_span: int = 1, with_aux: bool = False):
     """Forward one non-final pipeline stage -> the hop activation (and,
-    with ``with_aux``, the stage's MoE aux loss: 0 for a dense stack).
-    Stage 0 reads ``x`` as tokens; an edge stage takes the upstream hop
-    activation."""
+    with ``with_aux``, the stage's MoE aux loss: 0 for a dense stack, and
+    always 0 for stage 0, whose aux JAX drops too).  Stage 0 reads ``x``
+    as tokens; an edge stage takes the upstream hop activation."""
+    aux = None
     if stage_index == 0:
         out = client_forward(stage_params, cfg, x, positions=positions,
                              impl=impl, remat=remat, remat_span=remat_span)
@@ -664,9 +700,9 @@ def stage_forward(stage_params: Params, cfg: ModelConfig, x: torch.Tensor,
         b, s, _ = x.shape
         if positions is None:
             positions = text_positions(b, s, x.device)
-        out = _stack_forward(stage_params["stack"], cfg, x, positions, impl,
-                             remat, remat_span)
-    return (out, _zero_aux(out)) if with_aux else out
+        out, aux = _stack_forward(stage_params["stack"], cfg, x, positions,
+                                  impl, remat, remat_span)
+    return (out, _aux_or_zero(aux, out)) if with_aux else out
 
 
 def server_hidden(server_params: Params, cfg: ModelConfig,
@@ -680,10 +716,11 @@ def server_hidden(server_params: Params, cfg: ModelConfig,
     b, s, _ = x.shape
     if positions is None:
         positions = text_positions(b, s, x.device)
-    x = _stack_forward(server_params["stack"], cfg, x, positions, impl,
-                       remat, remat_span)
-    x = _rem_forward(server_params["rem"], cfg, x, positions, impl)
-    return apply_norm(cfg, server_params["final_norm"], x), _zero_aux(x)
+    x, aux = _stack_forward(server_params["stack"], cfg, x, positions, impl,
+                            remat, remat_span)
+    x, rem_aux = _rem_forward(server_params["rem"], cfg, x, positions, impl)
+    return (apply_norm(cfg, server_params["final_norm"], x),
+            _aux_or_zero(_add_aux(aux, rem_aux), x))
 
 
 def server_loss(server_params: Params, cfg: ModelConfig,

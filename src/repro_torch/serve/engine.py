@@ -12,7 +12,9 @@ Caches are updated in place where the JAX engine donated its buffers.
 Every ported layer kind serves: global attention (contiguous or paged),
 local attention (a ring per slot), and the SSM and RG-LRU states (one row
 per slot).  Prefill is exact-length, never padded, so no pad token enters
-a recurrent state.
+a recurrent state.  An MoE layer routes the tokens of each call as one
+batch, its expert capacity set by their count, as in JAX: an admission's
+prompt, and at decode every slot, dead ones included.
 
 Split mode (``cuts``) decodes through the client -> edge -> server stages
 (``transformer.split_decode_step``): the same logits, every step crossing

@@ -74,12 +74,7 @@ def test_entry_points_raise_without_a_card():
 def test_unported_layer_kinds_raise():
     cfg = reduced(get_arch("gemma-2b"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeEngine(cfg.replace(mlp_pattern=("moe",)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(cfg, decode_window_override=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.init_params(cfg.replace(mlp_pattern=("moe",)), torch.Generator(),
-                       device="cpu")
     # local attention is ported: it builds and serves
     DecodeEngine(cfg.replace(pattern=(ATTN_LOCAL,), window=16), device="cpu")
 
@@ -89,6 +84,8 @@ def test_unported_layer_kinds_raise():
                   "--paged-kernel"]),
     # a Mamba-2 prompt of at most one reduced SSD chunk (32 tokens)
     ("mamba2-370m", ["--prompt-len", "32"]),
+    ("olmoe-1b-7b", ["--prompt-len", "12", "--block-size", "8",
+                     "--paged-kernel"]),
 ])
 def test_cli_serves_requests_on_cpu(capsys, arch, extra):
     launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
