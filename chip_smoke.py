@@ -117,8 +117,9 @@ Phases, each printing its lines before the last:
              versions, the same seed and so the same draws: masks, losses,
              trained stages, the aggregate and the residuals bit-exact.
 
-12. family training — 3 WSSL rounds of full Mamba-2-370M (48 layers, 4
-             clients, cut 8, seq 256: two SSD chunks) and full
+12. family training — 3 WSSL rounds of Mamba-2-370M (full width at 16
+             of its 48 layers, 4 clients, cut 8, seq 256: two SSD
+             chunks) and full
              RecurrentGemma-2B (26 layers, 2 clients, cut 3, seq 128)
              through ``launch/train.py``: fp32 params, bf16 activations,
              participation 0.5, fused AdamW, the plain scans (as the JAX
@@ -186,21 +187,22 @@ Phases, each printing its lines before the last:
              versions (AdamW and the scheme's compression kernels at the
              gait leaves' shapes): bit-exact.  Reports accuracy
              by round and each adversary cohort's importance.
-19. Gemma-3-12B serving — full Gemma-3-12B (48 layers, 40 local with
-             window 1024 and 8 global, 16 query heads over 8 kv heads, hd
-             256) in bf16 at random weights (output projections x3),
-             through the fault-routed router: 24 ``bursty_trace`` requests
+19. Gemma-3-12B serving — Gemma-3-12B at full width and 24 of its 48
+             layers (20 local with window 1024 and 4 global, 16 query
+             heads over 8 kv heads, hd 256; cut in depth to make room for
+             phase 23) in bf16 at random weights (output projections x3),
+             through the fault-routed router: 16 ``bursty_trace`` requests
              (prompts 768-1536, 16-32 new tokens, half with deadlines), 2
              replicas x 8 slots, chunk 8, paged KV of block 16, prefill
              priced at the card's 0.002 decode steps a token
              (``GEMMA3_RUN``), flash prefill and paged decode.  Nine runs: clean, ``replica-drop``, ``slow-host``,
              ``flash-crowd`` and ``degraded-fleet`` (both autoscaling to 4
              replicas), a pool of 60% of full residency, speculative
-             decode (4 drafts from the client stage at cut 12) under
-             ``replica-drop``, split mode at cuts (12, 36), and the plain
+             decode (4 drafts from the client stage at cut 6) under
+             ``replica-drop``, split mode at cuts (6, 18), and the plain
              path (dense prefill, gathered decode).  Checks: exact launch
-             counts (flash 48 per admission, re-admissions included; paged
-             8 per decode and verify step, 2 per draft step), every one on
+             counts (flash 24 per admission, re-admissions included; paged
+             4 per decode and verify step, 1 per draft step), every one on
              the tensor-core / split-K body; every request served or shed,
              shed ones with deadlines, none unfinished; re-routes under
              drops, a grown fleet under the flash crowd; runs 2, 3, 6, 7
@@ -212,7 +214,8 @@ Phases, each printing its lines before the last:
              admission and two decode steps of the kernel path profiled.
 
 20. the async round — see ``run_async``: the bounded-staleness round of
-             full Mamba-2-370M under ``async-stragglers`` (20a), a 4-layer
+             Mamba-2-370M (full width, 16 layers) under
+             ``async-stragglers`` (20a), a 4-layer
              cut against the plain AdamW and compression bit for bit
              (20b), the gait loop under deadlines (20c).
 21. StableLM-2-12B and Qwen2.5-32B — 21a: flash (bf16 on the tensor-
@@ -255,11 +258,35 @@ Phases, each printing its lines before the last:
              width cut to 4 layers, cuts (1, 3), 4 clients at
              participation 0.5, fp32, 2 rounds (every client runs: the
              edge and server aux enter for all N), as 21d.
+23. MusicGen-medium and Qwen2-VL-72B — 23a: flash and paged decode at
+             MusicGen's 24 query heads over 24 (g 1) at head dim 64 and
+             Qwen2-VL's 64 over 8 (g 8) at 128, flash at the vision
+             prefill's 2,048 positions and at MusicGen's 6,144-token
+             windowed admission, as in 21a.  23b: full MusicGen-medium (48
+             layers, ungated GELU MLP, LayerNorm moved off its init)
+             serving 16 requests (prompts 256-1024) on 2 x 8 slots; 23c:
+             Qwen2-VL-72B at 40 of its 80 layers (M-RoPE, qkv biases moved
+             off zero), 8 text requests (prompts 512-1024) on 1 x 8; each
+             as 21b; then Qwen2-VL's prefill step on 1,024 patch
+             embeddings before 1,024 text tokens through the kernels
+             against the same step with flash's plain version: flash once
+             a layer, the last position's argmax equal wherever the plain
+             top-2 margin exceeds 0.5, max|diff| beside LOGIT_BAND, and the
+             gap to the dense path's temporal-stream mask as a reading.
+             23d: MusicGen at full size, cuts (4, 44), 4 clients, fp32, 2
+             rounds, as 21d.  23e: reduced Qwen2-VL's round with 16 patch
+             embeddings a row, 4 clients, cut 1, fp32, the sync round and
+             a round of client chunks of 2, through the AdamW kernel and
+             its plain version: 0 elements differ.  23f: MusicGen whole
+             under the decode window 4096: 4 requests of 4608-6144 tokens,
+             64 new each, on 1 x 4 slots (every ring wraps), as 21b: flash
+             48 launches an admission, paged none.
 
-Each of phases 12-22 prints its wall time.  Then one JSON line with every
+Each of phases 12-23 prints its wall time.  Then one JSON line with every
 kernel's numbers (the nine kernels, then flash and paged decode at
-Gemma-3-12B's, StableLM-2-12B's, Qwen2.5-32B's, OLMoE-1B-7B's and
-Phi-3.5-MoE's shapes), and as the last line
+Gemma-3-12B's, StableLM-2-12B's, Qwen2.5-32B's, OLMoE-1B-7B's,
+Phi-3.5-MoE's, MusicGen-medium's and Qwen2-VL-72B's shapes), and as the
+last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
 exits non-zero before that line; it also exits non-zero, printing no
 result, when no card is present or the package is not beside it.
@@ -1645,7 +1672,8 @@ def _plain_margin(torch, tf, params, cfg, prompt, toks, t, dev):
     return _top2_margin(torch, lg[0, -1]).item()
 
 
-def _taped_engine(torch, cfg, impl, dev, tape, reqs=None):
+def _taped_engine(torch, cfg, impl, dev, tape, reqs=None,
+                  decode_window_override=None):
     """A ``DecodeEngine`` on ``impl``'s path that writes what each of its
     admissions and decode chunks emits onto ``tape`` (batch number, in the
     order the router opens batches -> the calls' tokens in order).  Given
@@ -1655,7 +1683,9 @@ def _taped_engine(torch, cfg, impl, dev, tape, reqs=None):
     teacher-forced ``forced`` lane of ``decode_chunk``), so both runs see
     the same tokens, and ``engine.seen[rid]`` keeps, for every token the
     request emits, this path's own (argmax, top-2 margin) of the logits
-    behind it (read off ``tf.prefill`` and ``tf.decode_step``)."""
+    behind it (read off ``tf.prefill`` and ``tf.decode_step``).
+    ``decode_window_override`` serves every global layer within that
+    window (a ring cache, never paged)."""
     from unittest import mock
     import numpy as np
     from repro_torch.models import transformer as tf
@@ -1667,6 +1697,7 @@ def _taped_engine(torch, cfg, impl, dev, tape, reqs=None):
     class Engine(DecodeEngine):
         def __init__(self):
             super().__init__(cfg, impl=impl, paged_kernel=impl == "kernel",
+                             decode_window_override=decode_window_override,
                              device=dev)
             self.batches = {}
             self.slot_rid = {}          # (batch, slot) -> [rid, next token]
@@ -1911,9 +1942,11 @@ def run_family_serve(torch, ops):
 FAMILY_TRAIN_RUN = dict(device="cuda", reduced=False, rounds=3, val_batch=2,
                         seed=0, parity_seq=128)
 FAMILY_TRAIN = {
-    # 11.7 GB of p, m, v and g (16 B x 732,544,768 elements); sequence
-    # 256 is two SSD chunks, so the state crosses a chunk boundary
-    "mamba2-370m": dict(layers=None, clients=4, cut=8, seq=256, batch=2,
+    # full width at 16 of its 48 layers, to make room for phase 23 (every
+    # check as at full depth): 8.3 GB of p, m, v and g (16 B x 521,384,704
+    # elements, reckoned; 11.7 GB at 48); sequence 256 is two SSD chunks,
+    # so the state crosses a chunk boundary
+    "mamba2-370m": dict(layers=16, clients=4, cut=8, seq=256, batch=2,
                         parity_layers=4, parity_cut=2),
     # 71.4 GB (16 B x 4,462,200,320 elements): 2 clients
     "recurrentgemma-2b": dict(layers=None, clients=2, cut=3, seq=128,
@@ -1965,8 +1998,8 @@ def _profile_family_round(torch, state, cfg, wssl_cfg, train_cfg, run):
 
 
 def run_family_train(torch, ops):
-    """Phase 12: 3 WSSL rounds of full Mamba-2-370M and full
-    RecurrentGemma-2B through ``launch/train.py`` (fp32 params, bf16
+    """Phase 12: 3 WSSL rounds of Mamba-2-370M (full width, 16 layers)
+    and full RecurrentGemma-2B through ``launch/train.py`` (fp32 params, bf16
     activations, participation 0.5, fused AdamW, the plain scans as the
     JAX package trains)."""
     from repro_torch.launch.train import train
@@ -2834,11 +2867,13 @@ def run_paper_robust(torch, ops):
 # Gemma-3-12B through the whole serving plane (phase 19)
 # ---------------------------------------------------------------------------
 
-# module values, so a CPU rehearsal can shrink them.  Full Gemma-3-12B in
-# bf16 at random weights from seed 0; 24 bursty requests of 768-1536 prompt
-# tokens (they cross the 1024 window: the local rings wrap) and 16-32 new
-# tokens, half of them with deadlines; 2 replicas x 8 slots, chunk 8,
-# paged KV of block 16; split runs at cuts (12, 36), two hops.
+# module values, so a CPU rehearsal can shrink them.  Gemma-3-12B at full
+# width in bf16 at random weights from seed 0, cut to 24 of its 48 layers
+# and to 16 bursty requests (from 48 and 24, to make room for phase 23:
+# two bursts of 8 still fill both replicas, and every check holds) of
+# 768-1536 prompt tokens (they cross the 1024 window: the local rings wrap)
+# and 16-32 new tokens, half of them with deadlines; 2 replicas x 8 slots,
+# chunk 8, paged KV of block 16; split runs at cuts (6, 18), two hops.
 #
 # The simulated clock prices a prefilled token at ``prefill_unit`` decode
 # steps.  The router's default, 0.25, prices a 1152-token admission at 288
@@ -2861,11 +2896,12 @@ def run_paper_robust(torch, ops):
 # always (the reduced configs accept every draft at the JAX package's
 # init, tests/test_torch_spec.py), and the speculative rollback would go
 # unexercised.
-GEMMA3_RUN = dict(device="cuda", reduced=False, requests=24, prompt_len=1536,
-                  gen=32, replicas=2, slots=8, chunk=8, block_size=16,
+GEMMA3_RUN = dict(device="cuda", reduced=False, layers=24, requests=16,
+                  prompt_len=1536, gen=32, replicas=2, slots=8, chunk=8,
+                  block_size=16,
                   burst_every=8, burst_size=8, deadline_frac=0.5,
                   slack=(0.125, 1.7), prefill_unit=0.002, out_scale=3.0,
-                  draft_k=4, cuts=(12, 36), autoscale_max=4, scale_up_queue=4,
+                  draft_k=4, cuts=(6, 18), autoscale_max=4, scale_up_queue=4,
                   pool_share=0.6)
 # (run, scenario, ServeParams overrides, DecodeEngine overrides); the first
 # is the reference of the comparisons below
@@ -2895,6 +2931,8 @@ def _gemma3_setup(torch):
     cfg = get_arch("gemma3-12b")
     if run["reduced"]:
         cfg = reduced(cfg).replace(dtype="bfloat16")
+    elif run["layers"]:
+        cfg = cfg.replace(num_layers=run["layers"])
     params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             device=dev)
     for layer in params["stack"] + params["rem"]:
@@ -2933,11 +2971,14 @@ def _gemma3_params(base, over):
 def _gemma3_launches(cfg, engine):
     """The attention kernels' launches a serving run must make: flash once
     per attention layer and admission; paged once per global layer and
-    decode step, a draft step reaching only the client stage's."""
+    decode step, a draft step reaching only the client stage's; under the
+    decode-window override no layer pages, so paged never."""
     from repro_torch.config import ATTN_GLOBAL
     kinds = [s.mixer for s in cfg.layer_specs()]
-    n_glob = kinds.count(ATTN_GLOBAL)
-    n_draft = kinds[:engine.spec_cut].count(ATTN_GLOBAL)
+    paging = lambda ks: (0 if engine.decode_window_override
+                         else ks.count(ATTN_GLOBAL))
+    n_glob = paging(kinds)
+    n_draft = paging(kinds[:engine.spec_cut])
     steps = engine.steps
     return lambda admissions: {
         "flash_attention": _family_launches(cfg)["flash_attention"]
@@ -2972,7 +3013,8 @@ def _gemma3_kernel_checks(torch, ops, ref, cfg):
     return {"local": local, "global": glob, "paged": paged}, extra
 
 
-def _profile_paged_serving(torch, cfg, params, reqs, sp, dev, label):
+def _profile_paged_serving(torch, cfg, params, reqs, sp, dev, label,
+                           decode_window_override=None):
     """Where a kernel-path serving run's time goes, sampled as in phase 11
     (a whole run's ~200k launches a replica would keep the profiler's
     event processing busy for minutes): one admission of the longest
@@ -2981,7 +3023,9 @@ def _profile_paged_serving(torch, cfg, params, reqs, sp, dev, label):
     processing, not the card, the cost of a longer window)."""
     import numpy as np
     from repro_torch.serve import BlockAllocator, DecodeEngine
-    engine = DecodeEngine(cfg, impl="kernel", paged_kernel=True, device=dev)
+    engine = DecodeEngine(cfg, impl="kernel", paged_kernel=True,
+                          decode_window_override=decode_window_override,
+                          device=dev)
     state = engine.new_batch_state(sp.slots, sp.max_len,
                                    block_size=sp.block_size)
     alloc = BlockAllocator(sp.slots * (sp.max_len // sp.block_size + 1),
@@ -3007,10 +3051,11 @@ def _profile_paged_serving(torch, cfg, params, reqs, sp, dev, label):
 
 
 def run_gemma3_serve(torch, ops):
-    """Phase 19: full Gemma-3-12B through the whole serving plane — the
-    fault-routed router with every serving scenario, EDF shedding,
-    autoscaling, a 60% pool, speculative decode under replica drops, split
-    mode at cuts (12, 36), and the plain path — then the attention kernels
+    """Phase 19: Gemma-3-12B (full width, 24 layers) through the whole
+    serving plane — the fault-routed router with every serving scenario,
+    EDF shedding, autoscaling, a 60% pool, speculative decode under
+    replica drops, split mode at cuts (6, 18), and the plain path — then
+    the attention kernels
     at its shapes.  Every kernel-path run: exact launch counts, all on the
     tensor-core / split-K bodies; every request served or shed, shed ones
     with finite deadlines, none unfinished.  Runs 2, 3, 6, 7 and 8 carry
@@ -3176,12 +3221,15 @@ def run_gemma3_serve(torch, ops):
 # The bounded-staleness async round (phase 20)
 # ---------------------------------------------------------------------------
 
-# module values, so a CPU rehearsal can shrink them.  20a: phase 16's full
-# Mamba-2-370M at 8 clients (FAULT_RUN), participation 1.0, under
-# async-stragglers (clients 4-7 at 8x); the buffer adds 8 client stages in
-# fp32, ~3.5 GB (reckoned: the 51.5 M embedding and 8 layers).  20b: phase
+# module values, so a CPU rehearsal can shrink them.  20a: phase 16's
+# Mamba-2-370M at full width and 8 clients (FAULT_RUN), its depth cut to 16
+# of 48 layers to make room for phase 23 (every check as at full depth),
+# participation 1.0, under async-stragglers (clients 4-7 at 8x); the buffer
+# adds 8 client stages in fp32, ~3.5 GB (reckoned: the 51.5 M embedding
+# and 8 layers).  20b: phase
 # 17's 4-layer cut; 20c: phase 18's gait FFN at 10 clients.
-ASYNC_RUN = dict(inf_rounds=2, park_rounds=3, int8_rounds=2, chunk=4,
+ASYNC_RUN = dict(layers=16, inf_rounds=2, park_rounds=3, int8_rounds=2,
+                 chunk=4,
                  chunk_rounds=1, parity_rounds=3, parity_byz_rounds=4,
                  paper_clients=10, paper_rounds=6, paper_steps=10)
 # 20b: (scenario, deadline, rule, compression at delivery)
@@ -3362,9 +3410,9 @@ def _profile_async_round(torch, state, astate, cfg, wssl_cfg, train_cfg, sc,
 
 
 def run_async_train(torch, ops):
-    """Phase 20a: full Mamba-2-370M at 8 clients through the async round
-    under async-stragglers: deadline inf against the sync round bit for
-    bit; deadline 4 (the stragglers park, land at staleness 1, park
+    """Phase 20a: Mamba-2-370M (full width, 16 layers) at 8 clients
+    through the async round under async-stragglers: deadline inf against
+    the sync round bit for bit; deadline 4 (the stragglers park, land at staleness 1, park
     again); deadline 1 (evicted and resynced); deadline 2 with two buffer
     slots (overflow); deadline 4 with int8 uploads; a chunked round."""
     import numpy as np
@@ -3386,7 +3434,7 @@ def run_async_train(torch, ops):
         torch.cuda.reset_peak_memory_stats()
     sides = {}
     for side in ("sync", "async"):
-        cfg, wssl_cfg, train_cfg = _async_setup(None, cut, 1.0)
+        cfg, wssl_cfg, train_cfg = _async_setup(ASYNC_RUN["layers"], cut, 1.0)
         ops.reset_launch_counts()
         st, ast, recs = _drive_async_rounds(
             torch, cfg, wssl_cfg, train_cfg, sc, ASYNC_RUN["inf_rounds"],
@@ -3441,8 +3489,9 @@ def run_async_train(torch, ops):
             ("chunked", dict(deadline=4.0), "none", ASYNC_RUN["chunk"],
              ASYNC_RUN["chunk_rounds"]))
     for name, acfg_kw, scheme, chunk, rounds in runs:
-        cfg, wssl_cfg, train_cfg = _async_setup(None, cut, 1.0, scheme=scheme,
-                                                chunk=chunk, **acfg_kw)
+        cfg, wssl_cfg, train_cfg = _async_setup(ASYNC_RUN["layers"], cut, 1.0,
+                                                scheme=scheme, chunk=chunk,
+                                                **acfg_kw)
         _free(torch)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -3842,7 +3891,7 @@ def run_dense_kernels(torch, ops):
 
 
 def _serve_vs_plain(torch, ops, label, arch, cfg, params, reqs, run, dev,
-                    chunk, block):
+                    chunk, block, decode_window_override=None):
     """One model at full width through the router and engine (flash
     prefill, paged decode), then the plain path (dense prefill, gathered
     decode) on the same weights and requests through the same schedule,
@@ -3852,7 +3901,8 @@ def _serve_vs_plain(torch, ops, label, arch, cfg, params, reqs, run, dev,
     path's argmax wherever the plain path's top-2 margin exceeds
     ARGMAX_MARGIN; tok/s, peak memory and a sampled profile (busy share)
     printed.  An MoE model's plain run also replays the kernel run's
-    expert choices (:class:`_Routing`)."""
+    expert choices (:class:`_Routing`).  ``decode_window_override`` serves
+    both runs within that window (no layer pages: no paged launch)."""
     from repro_torch.launch.serve import serve, serve_max_len
     from repro_torch.serve import ServeParams
     t0 = time.perf_counter()
@@ -3861,6 +3911,7 @@ def _serve_vs_plain(torch, ops, label, arch, cfg, params, reqs, run, dev,
                      max_len=serve_max_len(run["prompts"][1], run["gen"][1],
                                            chunk, block))
     rec = {"arch": arch, "layers": cfg.num_layers,
+           "decode_window_override": decode_window_override,
            "requests": len(reqs), "replicas": sp.replicas,
            "slots": sp.slots, "max_len": sp.max_len,
            "prompt_lens": [r.prompt_len for r in reqs],
@@ -3871,7 +3922,8 @@ def _serve_vs_plain(torch, ops, label, arch, cfg, params, reqs, run, dev,
     routing, tape = _Routing(), {}
     for impl in ("kernel", "dense"):
         engine = _taped_engine(torch, cfg, impl, dev, tape,
-                               reqs if impl == "dense" else None)
+                               reqs if impl == "dense" else None,
+                               decode_window_override)
         _free(torch)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -3919,7 +3971,8 @@ def _serve_vs_plain(torch, ops, label, arch, cfg, params, reqs, run, dev,
     del routing
     if dev.type == "cuda":
         rec.update(_profile_paged_serving(torch, cfg, params, reqs, sp, dev,
-                                          f"{label}. serve {arch}"))
+                                          f"{label}. serve {arch}",
+                                          decode_window_override))
     compared, low = 0, []
     for r in reqs:
         for t, (tok, (plain, margin)) in enumerate(zip(got[r.rid],
@@ -3937,7 +3990,9 @@ def _serve_vs_plain(torch, ops, label, arch, cfg, params, reqs, run, dev,
                serve_s=time.perf_counter() - t0)
     k, d = rec["kernel"], rec["dense"]
     print(f"{label}. serve {arch} bf16, {cfg.num_layers} layers, "
-          f"{rec['param_bytes'] / 1e9:.2f} GB of params; "
+          + (f"decode window {decode_window_override}, "
+             if decode_window_override else "")
+          + f"{rec['param_bytes'] / 1e9:.2f} GB of params; "
           f"{len(reqs)} requests (prompts {min(rec['prompt_lens'])}-"
           f"{max(rec['prompt_lens'])}), {sp.replicas} x {sp.slots} "
           f"slots: kernel path {k['tokens']} tokens in "
@@ -3959,9 +4014,11 @@ def _serve_vs_plain(torch, ops, label, arch, cfg, params, reqs, run, dev,
     return rec
 
 
-def _serve_models(torch, ops, labels, table, run):
+def _serve_models(torch, ops, labels, table, run, after=None):
     """Each model of ``table`` through :func:`_serve_vs_plain`, its
-    LayerNorm and qkv biases moved off their init first."""
+    LayerNorm and qkv biases moved off their init first; then
+    ``after(label, cfg, params, dev)`` on the same weights, its readings
+    added to the model's record."""
     dev = torch.device(run["device"])
     out = {}
     for label, (arch, spec) in zip(labels, table.items()):
@@ -3974,6 +4031,9 @@ def _serve_models(torch, ops, labels, table, run):
         out[arch] = _serve_vs_plain(torch, ops, label, arch, cfg, params,
                                     reqs, spec, dev, run["chunk"],
                                     run["block_size"])
+        if after is not None:
+            _free(torch)
+            out[arch].update(after(label, cfg, params, dev) or {})
         out[arch].update(setup_s=setup_s,
                          phase_s=time.perf_counter() - t0)
         del params
@@ -4314,6 +4374,286 @@ def run_moe(torch, ops):
         ("train", "22d. train", run_moe_train)))
 
 
+# ---------------------------------------------------------------------------
+# The modality frontend and the decode window: MusicGen-medium and
+# Qwen2-VL-72B (phase 23)
+# ---------------------------------------------------------------------------
+
+# module values, so a CPU rehearsal can shrink them.  MusicGen-medium
+# whole (48 layers, 24 query over 24 kv heads at hd 64, an ungated GELU
+# MLP, LayerNorm moved off its init as in phase 21: 2.73 GB in bf16,
+# reckoned) and Qwen2-VL-72B at 40 of its 80 layers (64 over 8 at hd 128,
+# M-RoPE, qkv biases moved off zero: 75.3 GB at the cut, 145.4 GB whole),
+# random weights from seed 0.  ``flash_s`` is the flash check's sequence:
+# an admission for MusicGen, the vision prefill's 1,024 patches before
+# 1,024 text tokens for Qwen2-VL; ``long_s`` MusicGen's longest admission
+# under the decode window.
+FRONT_RUN = dict(device="cuda", reduced=False, chunk=8, block_size=16,
+                 seed=0, patches=1024, text=1024)
+FRONT_SERVE = {
+    "musicgen-medium": dict(layers=None, requests=16, prompts=(256, 1024),
+                            gen=(16, 32), replicas=2, slots=8, flash_s=1024,
+                            long_s=6144),
+    "qwen2-vl-72b": dict(layers=40, requests=8, prompts=(512, 1024),
+                         gen=(16, 32), replicas=1, slots=8, flash_s=2048),
+}
+# 23d: MusicGen at full size, cuts (4, 44) (a client stage of 4 layers, an
+# edge stage of 40, the server's 4 and the head), 4 clients at
+# participation 0.5, fp32: 1.715 G elements stepped, 27.4 GB of p, m, v
+# and g (reckoned), through the AdamW kernel and then its plain version
+FRONT_TRAIN = dict(arch="musicgen-medium", layers=48, clients=4,
+                   cuts=(4, 44), seq=128, batch=2, rounds=2, val_batch=2,
+                   seed=0, gumbel_seed=23)
+# 23e: reduced Qwen2-VL (2 layers, d 256, 16 patches), 4 clients, cut 1,
+# fp32: the sync round, then one round of client chunks of 2.  Full width
+# cannot fit: even at cut 0 with one layer a stage, two clients'
+# embeddings and the head come to 4.75 G elements, 76 GB at 16 B each.
+FRONT_IMAGE = dict(clients=4, cuts=(1,), seq=32, batch=2, chunk=2, seed=0,
+                   gumbel_seed=24)
+# 23f: MusicGen whole under the long-context decode window: 4 requests of
+# 4608-6144 tokens, 64 new each, on 1 x 4 slots, so every ring wraps
+FRONT_WINDOW = dict(arch="musicgen-medium", window=4096, requests=4,
+                    prompts=(4608, 6144), gen=(64, 64), replicas=1, slots=4)
+
+
+def run_front_kernels(torch, ops):
+    """23a: flash and paged decode at MusicGen's (24 over 24, g 1, hd 64)
+    and Qwen2-VL's (64 over 8, g 8, hd 128; flash at the vision prefill's
+    2,048 positions) shapes against their plain versions, as in 21a, and
+    flash at MusicGen's longest windowed admission (6,144 positions)."""
+    from repro_torch.kernels import ref
+    out = _serve_kernel_checks(torch, ops, FRONT_SERVE, FRONT_RUN["reduced"])
+    cfg = _serve_cfg("musicgen-medium", small=FRONT_RUN["reduced"])
+    rec = check_flash(torch, ops, ref, b=1, hq=cfg.num_heads,
+                      hkv=cfg.num_kv_heads,
+                      s=FRONT_SERVE["musicgen-medium"]["long_s"],
+                      hd=cfg.head_dim, dtype="bfloat16", seed=230)
+    _check_band(rec)
+    out["musicgen_long_flash"] = rec
+    return out
+
+
+def _vision_prefill(label, cfg, params, dev):
+    """23c(ii): ``make_prefill_step(cfg, "kernel")`` on B 1 with 1,024
+    patch embeddings (0.1 x N(0, 1) from the seed, bf16) before 1,024 text
+    tokens, against the same step with the flash kernel's plain version in
+    its place (on the card): flash launched once per layer, none in the
+    plain run; the last position's argmax equal wherever the plain run's
+    top-2 margin exceeds ARGMAX_MARGIN; its max|diff| reported beside
+    LOGIT_BAND, and the gap to ``impl="dense"``, which masks by M-RoPE's
+    temporal stream (every patch at t = 0) where the kernel masks by index:
+    a reading, not a check."""
+    import torch
+    from unittest import mock
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import make_prefill_step
+    run = FRONT_RUN
+    f, s = run["patches"], run["text"]
+    if FRONT_RUN["reduced"]:
+        f, s = cfg.frontend_tokens, 48
+    gen = torch.Generator(device=dev).manual_seed(run["seed"] + 23)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, s), generator=gen,
+                                     device=dev, dtype=torch.int32),
+             "embeds": (torch.randn((1, f, cfg.d_model), generator=gen,
+                                    device=dev) * 0.1).bfloat16()}
+
+    def plain_flash(q, k, v, **kw):
+        t = lambda a: a.transpose(1, 2)
+        return t(ref.flash_attention(t(q), t(k), t(v), **kw))
+
+    step = make_prefill_step(cfg, "kernel")
+    ops.reset_launch_counts()
+    lk = step(params, batch)
+    _sync(torch, dev)
+    launched = ops.launch_counts()["flash_attention"]
+    with mock.patch.object(ops, "flash_attention", plain_flash):
+        ops.reset_launch_counts()
+        lp = step(params, batch)
+        _sync(torch, dev)
+        plain_launched = sum(ops.launch_counts().values())
+    ld = make_prefill_step(cfg, "dense")(params, batch)
+    if launched != cfg.num_layers or plain_launched:
+        raise AssertionError(f"{label} vision prefill: {launched} flash "
+                             f"launches ({cfg.num_layers} layers), "
+                             f"{plain_launched} in the plain run")
+    if not (torch.isfinite(lk).all() and lk.shape == (1, 1, cfg.vocab_size)):
+        raise AssertionError(f"{label} vision prefill: logits {lk.shape} "
+                             f"not finite or of the wrong shape")
+    margin = _top2_margin(torch, lp[0, -1]).item()
+    same = int(lk[0, -1].argmax()) == int(lp[0, -1].argmax())
+    if not same and margin > ARGMAX_MARGIN:
+        raise AssertionError(f"{label} vision prefill: argmax differs from "
+                             f"the plain flash's at top-2 margin "
+                             f"{margin:.3f} > {ARGMAX_MARGIN}")
+    rec = {"patches": f, "text": s, "flash_launches": launched,
+           "max_abs_diff": (lk - lp).abs().max().item(),
+           "logit_band": LOGIT_BAND, "argmax_equal": same,
+           "plain_margin": margin,
+           "dense_gap": (lk - ld).abs().max().item(),
+           "dense_argmax_equal": int(lk[0, -1].argmax())
+           == int(ld[0, -1].argmax())}
+    if dev.type == "cuda":
+        rec["ms"] = _time_ms(torch, lambda: step(params, batch), reps=3,
+                             warmup=1)
+    print(f"{label}. vision prefill, {f} patches before {s} text tokens: "
+          f"{launched} flash launches; last-position logits against the "
+          f"plain flash max|diff| {rec['max_abs_diff']:.4f} (LOGIT_BAND "
+          f"{LOGIT_BAND}), argmax equal {same} (plain top-2 margin "
+          f"{margin:.3f}); gap to the dense path's temporal-stream mask "
+          f"{rec['dense_gap']:.4f} (a reading), argmax equal "
+          f"{rec['dense_argmax_equal']}"
+          + (f"; {rec['ms']:.1f} ms a step" if "ms" in rec else ""),
+          flush=True)
+    return {"vision_prefill": rec}
+
+
+def run_front_serve(torch, ops):
+    """23b / 23c: MusicGen-medium whole and Qwen2-VL-72B at 40 layers
+    through :func:`_serve_vs_plain` (its LayerNorm or qkv biases moved off
+    their init first), then Qwen2-VL's vision prefill on the same weights
+    (:func:`_vision_prefill`)."""
+    return _serve_models(
+        torch, ops, ("23b", "23c"), FRONT_SERVE, FRONT_RUN,
+        after=lambda label, cfg, params, dev: (
+            _vision_prefill(label, cfg, params, dev)
+            if cfg.frontend == "vision" else None))
+
+
+def run_front_train(torch, ops):
+    """23d: MusicGen-medium at full size, cuts (4, 44), 4 clients, through
+    :func:`_train_kernel_vs_plain`."""
+    return _train_kernel_vs_plain(torch, ops, "23d", FRONT_TRAIN,
+                                  torch.device(FRONT_RUN["device"]),
+                                  FRONT_RUN["reduced"])
+
+
+def run_front_image_round(torch, ops):
+    """23e: the round with image patches on the card.  Reduced Qwen2-VL,
+    each client's 16 patch embeddings before its tokens, 4 clients at
+    participation 0.5, cut 1, fp32 params: the sync round, then a round in
+    client chunks of 2, once through the AdamW kernel and once through its
+    plain version, the same seed and Gumbel draws.  Checks: AdamW launches
+    = leaves x rounds, finite losses, masks and losses equal, 0 elements of
+    the stages and moments differ."""
+    import numpy as np
+    from unittest import mock
+    from repro_torch.config import TrainConfig, WSSLConfig, get_arch, reduced
+    from repro_torch.core.round import init_state, make_round_fn
+    from repro_torch.data.synthetic import lm_batch
+    run = FRONT_IMAGE
+    dev = torch.device(FRONT_RUN["device"])
+    cfg = reduced(get_arch("qwen2-vl-72b"))
+    n, b, s, f = run["clients"], run["batch"], run["seq"], cfg.frontend_tokens
+    w = WSSLConfig(num_clients=n, participation_fraction=0.5,
+                   split_layers=run["cuts"])
+    rng = np.random.default_rng(run["gumbel_seed"])
+    gumbels = [torch.as_tensor(rng.gumbel(size=n).astype(np.float32))
+               for _ in range(2)]
+    gen = torch.Generator(device=dev).manual_seed(run["seed"] + 1)
+    batches = []
+    for r in range(2):
+        d = lm_batch(n * b, s, cfg.vocab_size, seed=r)
+        batch = {k: torch.as_tensor(v, device=dev).reshape(n, b, s)
+                 for k, v in d.items()}
+        batch["embeds"] = torch.randn((n, b, f, cfg.d_model), generator=gen,
+                                      device=dev) * 0.1
+        batches.append(batch)
+    val = {k: torch.as_tensor(v, device=dev)
+           for k, v in lm_batch(2, s, cfg.vocab_size, seed=999).items()}
+    out, kept = {}, None
+    for name, kernel in (("kernel", True), ("plain", False)):
+        state = init_state(torch.Generator(device=dev).manual_seed(
+            run["seed"]), cfg, w, TrainConfig(), device=dev)
+        ops.reset_launch_counts()
+        hist = []
+        with mock.patch.object(ops, "fused_adamw", ops.fused_adamw if kernel
+                               else ops.fused_adamw_plain):
+            for r, chunk in enumerate((None, run["chunk"])):
+                rf = make_round_fn(cfg, w, TrainConfig(
+                    learning_rate=1e-3, client_chunk=chunk, fused_adam=True))
+                _, m = rf(state, batches[r], val, gumbel=gumbels[r])
+                hist.append({"loss": float(m.loss),
+                             "mask": m.mask.cpu().tolist(),
+                             "bytes_per_hop": [int(x) for x in
+                                               m.bytes_per_hop]})
+        _sync(torch, dev)
+        counts = ops.launch_counts()
+        tensors = _leaves((state.client_stack, state.edge_stages,
+                           state.server_params))
+        stages = len(tensors)
+        tensors += _leaves([(o.m, o.v) for o in (state.opt_client,
+                                                  *state.opt_edge,
+                                                  state.opt_server)])
+        want = {k: 0 for k in counts}
+        if kernel:
+            want["fused_adamw"] = stages * 2
+        if counts != want or not all(math.isfinite(h["loss"]) for h in hist):
+            raise AssertionError(f"23e {name}: launches {counts}, expected "
+                                 f"{want}; rounds {hist}")
+        out[name] = {"rounds": hist, "launches": counts}
+        if kept is None:
+            kept = (hist, [t.detach().clone() for t in tensors])
+        else:
+            out["elements_differing"] = sum(
+                _bit_diffs(torch, a, t.detach())
+                for a, t in zip(kept[1], tensors))
+            out["equal"] = kept[0] == hist
+        del state
+    print(f"23e. image round: reduced {cfg.name}, {f} patches before {s} "
+          f"tokens, {n} clients, cuts {run['cuts']}, fp32; the sync round "
+          f"then client chunks of {run['chunk']}: losses "
+          f"{[round(h['loss'], 5) for h in out['kernel']['rounds']]}, masks "
+          f"{[h['mask'] for h in out['kernel']['rounds']]}, per-hop bytes "
+          f"{out['kernel']['rounds'][0]['bytes_per_hop']}; launches "
+          f"{ {k: v for k, v in out['kernel']['launches'].items() if v} }; "
+          f"kernel vs plain AdamW: metrics equal {out['equal']}, "
+          f"{out['elements_differing']} elements of the stages and moments "
+          f"differ", flush=True)
+    if out["elements_differing"] or not out["equal"]:
+        raise AssertionError(f"23e: the AdamW kernel and its plain version "
+                             f"differ: {out}")
+    return out
+
+
+def run_front_window(torch, ops):
+    """23f: MusicGen whole with ``decode_window_override=4096`` through
+    :func:`_serve_vs_plain`: 4 prompts of 4608-6144 tokens on 1 x 4 slots,
+    so every global layer's ring wraps; flash 48 launches an admission
+    (the prompt attends in full), paged none (no layer pages)."""
+    run = dict(FRONT_WINDOW)
+    dev = torch.device(FRONT_RUN["device"])
+    cfg = _serve_cfg(run["arch"], small=FRONT_RUN["reduced"])
+    window = run["window"]
+    if FRONT_RUN["reduced"]:
+        window = cfg.long_context_window
+    t0 = time.perf_counter()
+    params = _dense_params(torch, cfg, dev)
+    reqs = _dense_requests(cfg, run)
+    setup_s = time.perf_counter() - t0
+    rec = _serve_vs_plain(torch, ops, "23f", run["arch"], cfg, params, reqs,
+                          run, dev, FRONT_RUN["chunk"],
+                          FRONT_RUN["block_size"],
+                          decode_window_override=window)
+    if rec["kernel"]["launches"]["paged_decode_attention"] or min(
+            r.prompt_len for r in reqs) <= window:
+        raise AssertionError(f"23f: paged launches "
+                             f"{rec['kernel']['launches']} or a prompt "
+                             f"within the window {window}")
+    rec.update(setup_s=setup_s, phase_s=time.perf_counter() - t0)
+    del params
+    return rec
+
+
+def run_front(torch, ops):
+    """Phase 23: 23a, 23b-c, 23d, 23e and 23f, each timed."""
+    return _run_parts(torch, ops, FRONT_RUN["device"], (
+        ("kernels", "23a. kernels", run_front_kernels),
+        ("serve", "23b-c. serve", run_front_serve),
+        ("train", "23d. train", run_front_train),
+        ("image", "23e. image round", run_front_image_round),
+        ("window", "23f. decode window", run_front_window)))
+
+
 def _check_bodies(ops, where, bf16=True):
     """The counted run's flash and SSD-scan launches all took their
     tensor-core bodies (bf16, at the models' shapes; none of them in fp32)
@@ -4604,7 +4944,8 @@ def main(argv=None) -> int:
             ("gemma3_serve", "19. Gemma-3-12B serving", run_gemma3_serve),
             ("async", "20. the async round", run_async),
             ("dense", "21. StableLM-2-12B and Qwen2.5-32B", run_dense),
-            ("moe", "22. OLMoE-1B-7B and Phi-3.5-MoE", run_moe)):
+            ("moe", "22. OLMoE-1B-7B and Phi-3.5-MoE", run_moe),
+            ("front", "23. MusicGen-medium and Qwen2-VL-72B", run_front)):
         t0 = time.perf_counter()
         record[key] = fn(torch, ops)
         record[f"{key}_s"] = time.perf_counter() - t0
@@ -4670,11 +5011,14 @@ def main(argv=None) -> int:
                         "bound_by": rec["bound_by"],
                         "library_ms": rec["library_ms"]})
     # and at StableLM-2-12B's (32 over 8 heads, hd 160), Qwen2.5-32B's
-    # (40 over 8, g 5), OLMoE-1B-7B's (16 over 16, g 1) and Phi-3.5-MoE's
-    # (32 over 8, g 4) shapes, launches from phases 21 and 22's kernel-path
-    # serving runs
+    # (40 over 8, g 5), OLMoE-1B-7B's (16 over 16, g 1), Phi-3.5-MoE's
+    # (32 over 8, g 4), MusicGen-medium's (24 over 24 at hd 64) and
+    # Qwen2-VL-72B's (64 over 8, g 8; flash at the vision prefill's 2,048
+    # positions) shapes, launches from phases 21-23's kernel-path serving
+    # runs
     for phase, arch in ([("dense", a) for a in DENSE_SERVE]
-                        + [("moe", a) for a in MOE_SERVE]):
+                        + [("moe", a) for a in MOE_SERVE]
+                        + [("front", a) for a in FRONT_SERVE]):
         launched = record[phase]["serve"][arch]["kernel"]["launches"]
         for key in ("flash", "paged"):
             rec = record[phase]["kernels"][arch][key]

@@ -13,8 +13,9 @@ every leaf of theirs stays fp32, their norms' ``bias`` too.  Only numpy
 is needed on the JAX side.
 
 Matrices and biases (``bq``, ``bk``, ``bv``, ``bu``, ``bd``, LayerNorm's
-``bias``; an MoE layer's ``router``, ``wg``, ``wu`` and ``wd``) are stored
-in ``dtype``: serving passes the activation dtype (the
+``bias``; an MoE layer's ``router``, ``wg``, ``wu`` and ``wd``; the vision
+frontend's projector ``frontend.proj``, which rides with the client
+stage) are stored in ``dtype``: serving passes the activation dtype (the
 JAX package keeps fp32 params and casts them on every use, so the values
 the model computes with are the same); training passes
 ``torch.float32``, the JAX package's fp32 master params.  The leaves the

@@ -1,7 +1,8 @@
 """Configuration for the PyTorch port: the model dataclasses, the
-architecture registry, the fault :class:`Scenario`, and the
-training blocks (:class:`WSSLConfig`, :class:`TrainConfig`,
-:class:`AggregationConfig`, and the async and compression blocks).
+architecture registry, the fault :class:`Scenario`, the input shapes
+(:class:`ShapeConfig`), and the training blocks (:class:`WSSLConfig`,
+:class:`TrainConfig`, :class:`AggregationConfig`, and the async and
+compression blocks).
 
 A copy of the parts of ``repro/config.py`` that the serving path and the
 training rounds read, the synchronous and the bounded-staleness async one.
@@ -509,6 +510,22 @@ class TrainConfig:
             raise ValueError(
                 f"fused_adam requires optimizer='adamw' (the kernel fuses "
                 f"the Adam moment update), got optimizer={self.optimizer!r}")
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                         # train | prefill | decode
+
+
+INPUT_SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 # ---------------------------------------------------------------------------

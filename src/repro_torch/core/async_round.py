@@ -217,7 +217,7 @@ def async_wssl_round(state: WSSLState, astate: AsyncState,
     g = rnd._client_grads(state, batch["tokens"], labels, agg_w * part,
                           run_rows, model_cfg=model_cfg, train_cfg=train_cfg,
                           comp_cfg=comp_cfg, comp_p=comp_p, draw=draw,
-                          impl=impl)
+                          impl=impl, embeds=batch.get("embeds"))
     rnd._clip_and_corrupt(state, g, plan, train_cfg, fd, dev)
 
     # ---- optimizer masked to the fresh workers, in place ----------------

@@ -93,10 +93,11 @@ transforms, validation and the byte accounting.
 Every ported layer kind trains: global and local attention, the Mamba-2
 SSD block and the RG-LRU block, the recurrent ones through their plain
 scans (``ssd_chunked``, the doubling scan), as the JAX round trains them
-with ``impl="dense"``.  Not ported yet, and raising
-``NotImplementedError`` naming the ROADMAP item rather than being
-ignored: client-axis sharding (item 13) and frontend embeddings
-(item 11).
+with ``impl="dense"``.  A vision frontend's ``batch["embeds"]`` go
+through each client's stage; the edge and server stages see text
+positions over the spliced length and the loss trims the prefix, as in
+JAX.  Not ported yet, and raising ``NotImplementedError`` naming the
+ROADMAP item rather than being ignored: client-axis sharding (item 13).
 """
 
 from __future__ import annotations
@@ -233,10 +234,6 @@ def _check_ported(batch, shard_ctx, train_cfg: TrainConfig,
     if chunk is not None and wssl_cfg.num_clients % chunk:
         raise ValueError(f"client_chunk={chunk} must divide num_clients="
                          f"{wssl_cfg.num_clients}")
-    if "embeds" in batch:
-        raise NotImplementedError(
-            "frontend embeddings are not ported yet (ROADMAP Queue 1, "
-            "item 11: models/frontend.py)")
     attn.check_train_impl(impl)
     aggregation.get_aggregator(wssl_cfg.resolve_aggregation().rule)
 
@@ -370,7 +367,8 @@ def _client_grads(state: WSSLState, tokens: torch.Tensor,
                   run_rows: List[int], *, model_cfg: ModelConfig,
                   train_cfg: TrainConfig, comp_cfg,
                   comp_p: Optional[compress.CompressionParams],
-                  draw: Uniform, impl: str) -> _Grads:
+                  draw: Uniform, impl: str,
+                  embeds: Optional[torch.Tensor] = None) -> _Grads:
     """Algorithm 2 steps 2-4 for the clients ``run_rows``: each one's split
     forward and chained backward, its loss weighted by ``coef[i]``.  With
     an MoE layer past the client stage every client runs instead, and each
@@ -384,7 +382,11 @@ def _client_grads(state: WSSLState, tokens: torch.Tensor,
     d)`` draw per chunk and hop, ``draw(tag, chunk_index, shape)`` (JAX
     folds the chunk index in after the tag).  Without it the loop is one
     chunk of all N clients, one ``(N * rows, d)`` draw per hop with
-    ``leaf=None``."""
+    ``leaf=None``.
+
+    ``embeds`` (N, b, F, D): each client's patch embeddings, spliced in
+    front of its tokens by its own stage; every hop then carries F + S
+    positions per row."""
     cfg = model_cfg
     n = coef.shape[0]
     num_edges = len(state.edge_stages)
@@ -392,7 +394,9 @@ def _client_grads(state: WSSLState, tokens: torch.Tensor,
     compress_acts = comp_cfg.enabled and comp_cfg.activations
     chunk = train_cfg.client_chunk
     k = n if chunk is None else chunk
-    rows = tokens.shape[1] * tokens.shape[2]        # d-vectors per client
+    # d-vectors per client: the image prefix crosses every hop too
+    rows = tokens.shape[1] * (tokens.shape[2] + (
+        embeds.shape[2] if embeds is not None else 0))
     hop_u: Dict[int, torch.Tensor] = {}
     with_aux = _moe_beyond_client(cfg, state)
     run = set(range(n)) if with_aux else set(run_rows)
@@ -426,8 +430,10 @@ def _client_grads(state: WSSLState, tokens: torch.Tensor,
         Its graph, and with it the bound leaves whose ``.grad`` views keep
         the gradient buffers alive, dies when it returns."""
         client_b = _bind(_row(state.client_stack, i), _row(g_client, i))
-        acts = tf.client_forward(client_b, cfg, tokens[i], impl=impl,
-                                 remat=remat, remat_span=span)
+        acts = tf.client_forward(
+            client_b, cfg, tokens[i],
+            embeds=None if embeds is None else embeds[i], impl=impl,
+            remat=remat, remat_span=span)
         x = hop(acts.detach(), TAG_ACT_UP, i).requires_grad_(True)
         relays = []
         for j, edge_b in enumerate(edges_b):
@@ -659,9 +665,11 @@ def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
                comp_uniform: Optional[Uniform] = None,
                fault_draws: Optional[sim_faults.FaultDraws] = None
                ) -> Tuple[WSSLState, RoundMetrics]:
-    """One communication round, in place.  batch: tokens/labels (N, b, S);
-    val_batch: tokens/labels (bv, S), the server-held validation set (None
-    skips validation and keeps the importance).
+    """One communication round, in place.  batch: tokens/labels (N, b, S),
+    and with a vision frontend optionally ``embeds`` (N, b, F, D), each
+    client's patch embeddings; val_batch: tokens/labels (bv, S), the
+    server-held validation set (None skips validation and keeps the
+    importance).
 
     ``scenario``: a :class:`~repro_torch.sim.faults.ScenarioParams`
     (``sim.scenario_params`` lowers a ``Scenario``): dropped clients and
@@ -710,7 +718,8 @@ def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
         labels = sim_faults.corrupt_labels(plan, labels, model_cfg.vocab_size)
     g = _client_grads(state, batch["tokens"], labels, agg_w * mask, sel_rows,
                       model_cfg=model_cfg, train_cfg=train_cfg,
-                      comp_cfg=comp_cfg, comp_p=comp_p, draw=draw, impl=impl)
+                      comp_cfg=comp_cfg, comp_p=comp_p, draw=draw, impl=impl,
+                      embeds=batch.get("embeds"))
     _clip_and_corrupt(state, g, plan, train_cfg, fd, dev)
 
     # ---- optimizer (masked for unselected clients), in place ------------

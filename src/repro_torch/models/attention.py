@@ -14,7 +14,12 @@ keeps the JAX layout ``(B, S, H, hd)``.  Implementations (``impl``):
 
 Local layers keep a ring of ``min(window, max_len)`` entries, written at
 slot ``pos % size``; global layers a full-length cache that refuses to
-overflow.
+overflow, or, under the long-context decode-window override, a ring of
+the override's size like a local layer's.
+
+Under M-RoPE (``rope_kind="mrope"``) positions carry three streams
+(B, S, 3); the dense path masks by the temporal one, the kernel path by
+index, as the JAX package's two paths do.
 
 KV caches are updated in place (``index_put_``) where the JAX package
 donated its buffers: the functions return the cache they were given.
@@ -70,6 +75,24 @@ def _group(cfg: ModelConfig, q: torch.Tensor) -> torch.Tensor:
     return q.view(b, s, cfg.num_kv_heads, hq // cfg.num_kv_heads, hd)
 
 
+def _mask_positions(positions: torch.Tensor) -> torch.Tensor:
+    """The positions the dense path masks by: M-RoPE's (B, S, 3) mask by
+    their temporal stream (every image patch has t = 0, so the patches see
+    each other both ways), as JAX's dense path masks them; (B, S) as they
+    are."""
+    return positions[..., 0] if positions.dim() == 3 else positions
+
+
+def _one_token_positions(cfg: ModelConfig, pos_b: torch.Tensor
+                         ) -> torch.Tensor:
+    """A decode step's (B, 1) positions, repeated over the three M-RoPE
+    streams (B, 1, 3) under ``mrope`` (a decoded token is text)."""
+    positions = pos_b[:, None]
+    if cfg.rope_kind == "mrope":
+        return positions[..., None].expand(-1, -1, 3)
+    return positions
+
+
 def _scale(cfg: ModelConfig) -> float:
     return cfg.query_scale or 1.0 / math.sqrt(cfg.head_dim)
 
@@ -101,7 +124,10 @@ def _attn_dense(cfg: ModelConfig, q, k, v, q_pos, k_pos,
 
 def _attn_kernel(cfg: ModelConfig, q, k, v,
                  window: Optional[int] = None) -> torch.Tensor:
-    """The flash kernel path (positions are ``arange(S)`` from 0)."""
+    """The flash kernel path, causal by index (positions ``arange(S)``
+    from 0).  It ignores M-RoPE positions, as JAX's ``_attn_pallas`` does:
+    with image patches in front, the dense path's temporal-stream mask
+    lets the patches attend forward, this one does not."""
     return ops.flash_attention(q, k, v, causal=True, window=window,
                                scale=_scale(cfg),
                                logit_softcap=cfg.attn_logit_softcap)
@@ -130,16 +156,17 @@ def multihead_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
                         window: Optional[int] = None,
                         impl: str = "dense") -> torch.Tensor:
     """Full-sequence causal self-attention (train / prefill without a
-    cache), global or within ``window``.  x (B,S,D); positions (B,S),
-    ``arange(S)`` rows for the kernel.  ``dense`` is differentiable by
-    autograd; the kernel has no backward, so it raises while autograd is
-    on."""
+    cache), global or within ``window``.  x (B,S,D); positions (B,S), or
+    (B,S,3) under M-RoPE (the dense path masks by the temporal stream, the
+    kernel by index).  ``dense`` is differentiable by autograd; the kernel
+    has no backward, so it raises while autograd is on."""
     _check_impl(impl)
     if torch.is_grad_enabled():
         check_train_impl(impl)
     q, k, v = _project_qkv(cfg, p, x, positions)
     if impl == "dense":
-        out = _attn_dense(cfg, q, k, v, positions, positions, window)
+        pos1d = _mask_positions(positions)
+        out = _attn_dense(cfg, q, k, v, pos1d, pos1d, window)
     else:
         out = _attn_kernel(cfg, q, k, v, window)
     return _out_proj(p, out)
@@ -210,15 +237,22 @@ def prefill_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
                       window: Optional[int] = None,
                       impl: str = "dense") -> Tuple[torch.Tensor, Params]:
     """Full-sequence causal attention, global or within ``window``, that
-    also fills the KV cache (in place; a local layer's ring keeps the last
-    entries).  Positions start at 0, as every prefill does."""
+    also fills the KV cache (in place) with entries at absolute positions
+    ``arange(S)``.  A ring keeps the last entries: a local layer's, and a
+    global layer's cache shorter than the prompt, which is a ring of the
+    decode-window override (the prompt itself attends in full, as in
+    JAX).  Positions start at 0, as every prefill does; under M-RoPE they
+    are (B,S,3) and mask the dense path as in
+    :func:`multihead_attention`."""
     _check_impl(impl)
     q, k, v = _project_qkv(cfg, p, x, positions)
     if impl == "dense":
-        out = _attn_dense(cfg, q, k, v, positions, positions, window)
+        pos1d = _mask_positions(positions)
+        out = _attn_dense(cfg, q, k, v, pos1d, pos1d, window)
     else:
         out = _attn_kernel(cfg, q, k, v, window)
-    cache = cache_write(cache, k, v, 0, ring=window is not None)
+    ring = window is not None or cache["k"].shape[1] < k.shape[1]
+    cache = cache_write(cache, k, v, 0, ring=ring)
     return _out_proj(p, out), cache
 
 
@@ -250,7 +284,7 @@ def paged_decode_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     (``kernels/ops.py``; the plain version on a CPU tensor)."""
     b = x.shape[0]
     pos_b = pos.to(torch.int32).expand(b)
-    q, k, v = _project_qkv(cfg, p, x, pos_b[:, None])
+    q, k, v = _project_qkv(cfg, p, x, _one_token_positions(cfg, pos_b))
     bs = cache["pk"].shape[1]
     nb = table.shape[1]
     rows = torch.arange(b, device=x.device)
@@ -289,12 +323,13 @@ def decode_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
                      cache: Params, pos: torch.Tensor, *,
                      window: Optional[int] = None
                      ) -> Tuple[torch.Tensor, Params]:
-    """One-token attention against a contiguous cache or a local layer's
-    ring (``window``).  x: (B,1,D); ``pos`` is a ``(B,)`` tensor of per-row
-    absolute positions (or a scalar one)."""
+    """One-token attention against a contiguous cache or a ring: a local
+    layer's, or a global layer's under the decode-window override
+    (``window`` is then the override).  x: (B,1,D); ``pos`` is a ``(B,)``
+    tensor of per-row absolute positions (or a scalar one)."""
     b = x.shape[0]
     pos_b = pos.to(torch.int32).expand(b)
-    q, k, v = _project_qkv(cfg, p, x, pos_b[:, None])
+    q, k, v = _project_qkv(cfg, p, x, _one_token_positions(cfg, pos_b))
     cache = cache_write(cache, k, v, pos_b)
     pc = cache["pos"]
     valid = (pc >= 0) & (pc <= pos_b[:, None])

@@ -1,5 +1,6 @@
-"""Shared building blocks: parameter init, RMSNorm and LayerNorm, RoPE,
-the gated MLP (with optional biases).
+"""Shared building blocks: parameter init, RMSNorm and LayerNorm, RoPE
+(standard, partial and Qwen2-VL's three-stream M-RoPE), the gated or
+plain MLP (with optional biases).
 
 The PyTorch twin of ``repro/models/layers.py``.  Parameters are plain
 dicts of tensors in the JAX package's layout.  Matrices and biases are
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -145,22 +146,36 @@ def rope_freqs(cfg: ModelConfig, device=None) -> torch.Tensor:
     return torch.pow(cfg.rope_theta, exps)     # fp32, like theta ** exps in JAX
 
 
+def _mrope_sections(half: int) -> Tuple[int, int, int]:
+    """Qwen2-VL's split of the frequency dims over the temporal, height and
+    width streams, about 1 : 1.5 : 1.5 ((16, 24, 24) at head dim 128)."""
+    t = half // 4
+    h = (half - t) // 2
+    return t, h, half - t - h
+
+
 def apply_rope(cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
-    """x: (..., S, H, head_dim); positions: (..., S).
+    """x: (..., S, H, head_dim); positions: (..., S), or (..., S, 3) under
+    ``mrope`` (the temporal, height and width streams, each driving its
+    own section of the frequency dims).
 
     A bf16 ``x`` times the fp32 cos/sin promotes to fp32, as in JAX; the
     rotated half is rounded back to ``x.dtype`` once at the end."""
     if cfg.rope_kind == "none":
         return x
-    if cfg.rope_kind != "standard":
-        raise NotImplementedError(
-            f"rope_kind {cfg.rope_kind!r} is not ported yet (ROADMAP "
-            f"Queue 1, item 11: models/frontend.py and M-RoPE)")
+    if cfg.rope_kind not in ("standard", "mrope"):
+        raise ValueError(f"unknown rope_kind {cfg.rope_kind!r}")
     rot = _rope_dims(cfg)
     half = rot // 2
     inv = rope_freqs(cfg, x.device)
-    angles = positions[..., None].float() * inv          # (..., S, half)
+    if cfg.rope_kind == "mrope":
+        sec = torch.cat([positions[..., i:i + 1].expand(
+            positions.shape[:-1] + (n,)) for i, n in
+            enumerate(_mrope_sections(half))], dim=-1)   # (..., S, half)
+        angles = sec.float() * inv
+    else:
+        angles = positions[..., None].float() * inv      # (..., S, half)
     cos = torch.cos(angles)[..., None, :]                # (..., S, 1, half)
     sin = torch.sin(angles)[..., None, :]
     x_rot, x_pass = x[..., :rot], x[..., rot:]
@@ -172,10 +187,15 @@ def apply_rope(cfg: ModelConfig, x: torch.Tensor,
     return out
 
 
-def text_positions(batch: int, seq: int, device=None) -> torch.Tensor:
-    """(batch, seq) int32 absolute positions ``arange(seq)``."""
+def text_positions(batch: int, seq: int, cfg: ModelConfig,
+                   device=None) -> torch.Tensor:
+    """(batch, seq) int32 absolute positions ``arange(seq)``; under
+    ``mrope`` (batch, seq, 3), the three streams equal (text)."""
     pos = torch.arange(seq, dtype=torch.int32, device=device)
-    return pos[None, :].expand(batch, seq)
+    pos = pos[None, :].expand(batch, seq)
+    if cfg.rope_kind == "mrope":
+        return pos[..., None].expand(batch, seq, 3)
+    return pos
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,14 @@ through the flash, SSD-scan and RG-LRU kernels, as the JAX forward's
 ``"pallas"`` does; prefill into a cache runs the recurrent blocks' plain
 scans, which return the final state the kernels do not.
 
+A vision frontend (``models/frontend.py``) puts projected patch
+embeddings (``embeds``) in front of the text in the full-sequence paths
+(forward, prefill, the client stage), at M-RoPE grid positions; the later
+stages and the loss see the spliced sequence at text positions and trim
+the prefix, as in JAX.  Decode takes the long-context
+``decode_window_override``: every global layer's cache is then a ring of
+that window, never paged.
+
 The MoE layers' load-balance aux loss is summed over the layers (fp32) by
 the forward, an edge stage (``stage_forward(with_aux=True)``) and the
 server stage, as in JAX; the client stage (stage 0), prefill and decode
@@ -43,6 +51,7 @@ from repro_torch.config import (ATTN_GLOBAL, ATTN_LOCAL, MIX_RGLRU, MIX_SSM,
                                 MLP_DENSE, MLP_MOE, MLP_NONE, LayerSpec,
                                 ModelConfig)
 from repro_torch.models import attention as attn
+from repro_torch.models import frontend as fe
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
@@ -169,7 +178,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     ``dtype`` — by default ``cfg.dtype``, what serving computes in;
     training passes ``cfg.param_dtype`` (fp32 master weights, cast to
     ``cfg.dtype`` on use as in JAX), the biases (``bq``, ``bk``, ``bv``,
-    ``bu``, ``bd``, LayerNorm's ``bias``; zeros, as in JAX) too — and the
+    ``bu``, ``bd``, LayerNorm's ``bias``; zeros, as in JAX) and the
+    vision projector ``frontend.proj`` too — and the
     leaves the model reads in fp32 in fp32 (norm scales; the SSD block's
     ``A_log``, ``D``, ``dt_bias``, ``norm_scale``; the RG-LRU gates
     ``w_r``, ``w_i``, ``b_r``, ``b_i`` and ``lambda``).  The tree's keys
@@ -193,6 +203,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
         params["head"] = dense_param(gen, (cfg.d_model, cfg.vocab_size),
                                      scale=cfg.d_model ** -0.5, dtype=dtype,
                                      device=device)
+    # drawn last, so a seed keeps giving every config without a vision
+    # frontend the weights it gave it before the frontend came
+    proj = fe.frontend_init(gen, cfg, dtype=dtype, device=device)
+    if proj:
+        params["frontend"] = proj
     return params
 
 
@@ -201,15 +216,33 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
 # ---------------------------------------------------------------------------
 
 
-def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor
-           ) -> torch.Tensor:
+def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+           embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings (B, S, D) in ``cfg.dtype``; with a vision frontend
+    and ``embeds`` (B, F, D), the projected patches put in front of them
+    (B, F + S, D)."""
     dtype = torch_dtype(cfg.dtype)
     x = params["embed"]["tok"].to(dtype)[tokens.long()]
+    if cfg.frontend == "vision" and embeds is not None:
+        x = fe.splice_frontend(cfg, params.get("frontend", {}), x,
+                               embeds.to(dtype))
     if cfg.embed_scale:
         # the scale is rounded to the activation dtype first (45.25 in bf16);
         # rounding it on the host keeps a device copy off every step
         x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=dtype))
     return x
+
+
+def _positions(cfg: ModelConfig, tokens: torch.Tensor,
+               embeds: Optional[torch.Tensor], x: torch.Tensor
+               ) -> torch.Tensor:
+    """The positions of the embedded sequence ``x``: the grid and text
+    positions when patches were spliced in front, else the text's."""
+    b, s, _ = x.shape
+    if cfg.frontend == "vision" and embeds is not None:
+        return fe.build_positions(cfg, b, tokens.shape[1], embeds.shape[1],
+                                  x.device)
+    return text_positions(b, s, cfg, x.device)
 
 
 def _unembed(cfg: ModelConfig, params: Params, x: torch.Tensor
@@ -248,18 +281,30 @@ def _add_aux(total: Optional[torch.Tensor], aux: Optional[torch.Tensor]
 # ---------------------------------------------------------------------------
 
 
+def _decode_window(spec: LayerSpec,
+                   decode_window_override: Optional[int]) -> Optional[int]:
+    """A layer's decode window: a local layer's own, or for a global one
+    the long-context override (None: the full length)."""
+    if spec.mixer == ATTN_GLOBAL and decode_window_override:
+        return decode_window_override
+    return spec.window
+
+
 def _layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
                       max_len: int, dtype, device,
-                      paged: Optional[Tuple[int, int]], layers: int) -> Params:
+                      paged: Optional[Tuple[int, int]], layers: int,
+                      decode_window_override: Optional[int]) -> Params:
     if _is_attn(spec):
-        if paged is not None and spec.window is None:
-            # only global layers page: a local ring is already bounded at
+        window = _decode_window(spec, decode_window_override)
+        if paged is not None and window is None:
+            # only effectively-global layers page: a ring (a local layer's,
+            # or a global one's under the override) is already bounded at
             # `window` entries and gains nothing from a pool
             one = attn.init_paged_kv_cache(cfg, paged[0], paged[1], dtype,
                                            device)
         else:
             one = attn.init_kv_cache(cfg, batch, max_len, dtype, device,
-                                     window=spec.window)
+                                     window=window)
     elif spec.mixer == MIX_SSM:
         one = ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
     else:
@@ -271,22 +316,28 @@ def _layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               decode_window_override: Optional[int] = None,
                paged: Optional[Tuple[int, int]] = None,
                device="cuda") -> Params:
     """Cache tree matching the stack/rem layout: KV for attention layers
     (full length for global ones, a ring for local ones), the state and
-    conv windows for SSD and RG-LRU layers.  ``paged=(num_blocks,
-    block_size)`` pools every global-attention layer's KV into a shared
-    block pool; the decode entry points then need a block ``table``."""
+    conv windows for SSD and RG-LRU layers.  ``decode_window_override``
+    (the long-context decode window) makes every global layer a ring of
+    ``min(override, max_len)`` entries too, which never pages.
+    ``paged=(num_blocks, block_size)`` pools every other global-attention
+    layer's KV into a shared block pool; the decode entry points then need
+    a block ``table``."""
     device = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     period_specs, n_full, n_rem = _superblock_layout(cfg)
     rem_specs = cfg.layer_specs()[n_full * len(period_specs):]
     return {
         "stack": [_layer_cache_init(cfg, spec, batch, max_len, dtype, device,
-                                    paged, n_full) for spec in period_specs],
+                                    paged, n_full, decode_window_override)
+                  for spec in period_specs],
         "rem": [_layer_cache_init(cfg, spec, batch, max_len, dtype, device,
-                                  paged, 0) for spec in rem_specs],
+                                  paged, 0, decode_window_override)
+                for spec in rem_specs],
     }
 
 
@@ -297,15 +348,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def _decode_layer(cfg: ModelConfig, spec: LayerSpec, p: Params,
                   x: torch.Tensor, cache: Params, pos: torch.Tensor,
-                  table: Optional[torch.Tensor],
-                  paged_kernel: bool) -> torch.Tensor:
+                  table: Optional[torch.Tensor], paged_kernel: bool,
+                  decode_window_override: Optional[int]) -> torch.Tensor:
     h = apply_norm(cfg, p["norm1"], x)
     if "pk" in cache:
         mixed, _ = attn.paged_decode_attention(cfg, p["mixer"], h, cache, pos,
                                                table, kernel=paged_kernel)
     elif _is_attn(spec):
-        mixed, _ = attn.decode_attention(cfg, p["mixer"], h, cache, pos,
-                                         window=spec.window)
+        mixed, _ = attn.decode_attention(
+            cfg, p["mixer"], h, cache, pos,
+            window=_decode_window(spec, decode_window_override))
     elif spec.mixer == MIX_SSM:
         mixed, _ = ssm_mod.decode_ssm(cfg, p["mixer"], h, cache)
     else:
@@ -315,18 +367,22 @@ def _decode_layer(cfg: ModelConfig, spec: LayerSpec, p: Params,
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Params, pos: torch.Tensor, *,
+                decode_window_override: Optional[int] = None,
                 table: Optional[torch.Tensor] = None,
                 paged_kernel: bool = False
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step.  tokens: (B, 1); pos: (B,) per-row absolute
     positions -> (logits (B, 1, V) fp32, the cache updated in place).
 
-    ``table`` is the ``(B, nb)`` block table of a paged cache (contiguous
-    caches ignore it); ``paged_kernel`` sends paged layers through the
-    CUDA block-table kernel instead of the gather."""
+    ``decode_window_override`` makes every global layer attend to the last
+    that many positions (its cache a ring from :func:`init_cache` with the
+    same override).  ``table`` is the ``(B, nb)`` block table of a paged
+    cache (contiguous caches ignore it); ``paged_kernel`` sends paged
+    layers through the CUDA block-table kernel instead of the gather."""
     x = _embed(cfg, params, tokens)
     for spec, lp, lc in _layers(params, cache, cfg):
-        x = _decode_layer(cfg, spec, lp, x, lc, pos, table, paged_kernel)
+        x = _decode_layer(cfg, spec, lp, x, lc, pos, table, paged_kernel,
+                          decode_window_override)
     x = apply_norm(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x), cache
 
@@ -376,6 +432,7 @@ def join_cache_stages(stages: Sequence[Params]) -> Params:
 def stage_decode_step(stage_params: Params, cfg: ModelConfig,
                       x: torch.Tensor, cache: Params, pos: torch.Tensor,
                       stage_index: int, num_stages: int, *,
+                      decode_window_override: Optional[int] = None,
                       table: Optional[torch.Tensor] = None,
                       paged_kernel: bool = False
                       ) -> Tuple[torch.Tensor, Params]:
@@ -393,12 +450,13 @@ def stage_decode_step(stage_params: Params, cfg: ModelConfig,
         for j, spec in enumerate(period_specs):
             x = _decode_layer(cfg, spec, _tree_index(stage_params["stack"][j], i),
                               x, _tree_index(cache["stack"][j], i), pos, table,
-                              paged_kernel)
+                              paged_kernel, decode_window_override)
     if stage_index == num_stages - 1:
         rem = stage_params.get("rem", [])
         specs = cfg.layer_specs()[cfg.num_layers - len(rem):]
         for spec, lp, lc in zip(specs, rem, cache["rem"]):
-            x = _decode_layer(cfg, spec, lp, x, lc, pos, table, paged_kernel)
+            x = _decode_layer(cfg, spec, lp, x, lc, pos, table, paged_kernel,
+                              decode_window_override)
         x = _unembed(cfg, stage_params,
                      apply_norm(cfg, stage_params["final_norm"], x))
     return x, cache
@@ -407,6 +465,7 @@ def stage_decode_step(stage_params: Params, cfg: ModelConfig,
 def split_decode_step(stages: Sequence[Params], cfg: ModelConfig,
                       tokens: torch.Tensor, cache_stages: Sequence[Params],
                       pos: torch.Tensor, *,
+                      decode_window_override: Optional[int] = None,
                       table: Optional[torch.Tensor] = None,
                       paged_kernel: bool = False
                       ) -> Tuple[torch.Tensor, Sequence[Params]]:
@@ -417,6 +476,7 @@ def split_decode_step(stages: Sequence[Params], cfg: ModelConfig,
     x = tokens
     for i, (sp, sc) in enumerate(zip(stages, cache_stages)):
         x, _ = stage_decode_step(sp, cfg, x, sc, pos, i, len(stages),
+                                 decode_window_override=decode_window_override,
                                  table=table, paged_kernel=paged_kernel)
     return x, cache_stages
 
@@ -442,23 +502,28 @@ def _prefill_layer(cfg: ModelConfig, spec: LayerSpec, p: Params,
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            embeds: Optional[torch.Tensor] = None,
             cache: Optional[Params] = None, max_len: Optional[int] = None,
             impl: str = "dense", last_only: bool = False
             ) -> Tuple[torch.Tensor, Params]:
     """Full-sequence forward that fills a contiguous cache (in place).
 
     Returns (logits (B, S, V) fp32, or (B, 1, V) with ``last_only``, and
-    the cache).  ``max_len`` sizes a fresh cache when ``cache`` is not
-    given (default: the prompt length).  ``last_only`` unembeds only the
-    final position, which is all the serving path reads.  ``impl`` picks
-    the attention layers' path; the recurrent blocks run their plain
-    scans, which yield the final state."""
+    the cache).  ``embeds`` (B, F, D) puts a vision frontend's patches in
+    front of the text, at their grid positions; the logits and the cache
+    then cover F + S positions.  ``max_len`` sizes a fresh cache when
+    ``cache`` is not given (default: the sequence length); a cache built
+    with a decode-window override keeps the last ``window`` entries of
+    each global layer, the prompt attending in full.  ``last_only``
+    unembeds only the final position, which is all the serving path
+    reads.  ``impl`` picks the attention layers' path; the recurrent
+    blocks run their plain scans, which yield the final state."""
     attn._check_impl(impl)
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, embeds)
     b, s, _ = x.shape
     if cache is None:
         cache = init_cache(cfg, b, max_len or s, device=x.device)
-    positions = text_positions(b, s, x.device)
+    positions = _positions(cfg, tokens, embeds, x)
     for spec, lp, lc in _layers(params, cache, cfg):
         x = _prefill_layer(cfg, spec, lp, x, lc, positions, impl)
     x = apply_norm(cfg, params["final_norm"], x)
@@ -562,19 +627,21 @@ def _rem_forward(rem: List[Params], cfg: ModelConfig, x: torch.Tensor,
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            embeds: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None, impl: str = "dense",
             remat: bool = True, remat_span: int = 1,
             last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward -> (logits (B, S, V) fp32, aux loss).
+    """Full-sequence forward -> (logits (B, S, V) fp32, aux loss); with a
+    vision frontend's ``embeds`` (B, F, D), (B, F + S, V), the patches at
+    their grid positions.
 
     ``impl="kernel"`` (or ``"pallas"``) runs attention, SSD and RG-LRU
     layers through their kernels; with autograd on, attention raises (no
     backward kernel)."""
     attn._check_impl(impl)
-    x = _embed(cfg, params, tokens)
-    b, s, _ = x.shape
+    x = _embed(cfg, params, tokens, embeds)
     if positions is None:
-        positions = text_positions(b, s, x.device)
+        positions = _positions(cfg, tokens, embeds, x)
     x, aux = _stack_forward(params["stack"], cfg, x, positions, impl, remat,
                             remat_span)
     x, rem_aux = _rem_forward(params["rem"], cfg, x, positions, impl)
@@ -622,7 +689,8 @@ def _slice_stack(stack: List[Params], lo: int, hi: Optional[int],
 def partition_params(params: Params, cfg: ModelConfig, cuts: Sequence[int],
                      *, copy: bool = True) -> List[Params]:
     """Partition a param tree at layers ``cuts`` into ``len(cuts) + 1``
-    stages.  Stage 0 (the client) owns the embedding and the first
+    stages.  Stage 0 (the client) owns the embedding (and the vision
+    frontend's projector) and the first
     ``cuts[0] // period`` super-blocks; each edge stage the super-blocks
     between two cuts; the server the rest, the remainder layers, the final
     norm and the head.  With tied embeddings the server holds its own
@@ -636,6 +704,8 @@ def partition_params(params: Params, cfg: ModelConfig, cuts: Sequence[int],
     bounds = [c // cfg.period for c in cuts]
     stages = [{"embed": params["embed"],
                "stack": _slice_stack(params["stack"], 0, bounds[0], copy)}]
+    if "frontend" in params:
+        stages[0]["frontend"] = params["frontend"]
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         stages.append({"stack": _slice_stack(params["stack"], lo, hi, copy)})
     last: Params = {"stack": _slice_stack(params["stack"], bounds[-1], None,
@@ -663,6 +733,8 @@ def join_stages(stages: Sequence[Params], cfg: ModelConfig) -> Params:
              for j in range(len(first["stack"]))]
     joined = {"embed": first["embed"], "stack": stack, "rem": last["rem"],
               "final_norm": last["final_norm"]}
+    if "frontend" in first:
+        joined["frontend"] = first["frontend"]
     if "head" in last:
         joined["head"] = last["head"]
     return joined
@@ -670,36 +742,42 @@ def join_stages(stages: Sequence[Params], cfg: ModelConfig) -> Params:
 
 def client_forward(client_params: Params, cfg: ModelConfig,
                    tokens: torch.Tensor, *,
+                   embeds: Optional[torch.Tensor] = None,
                    positions: Optional[torch.Tensor] = None,
                    impl: str = "dense", remat: bool = True,
                    remat_span: int = 1) -> torch.Tensor:
-    """Client stage: embedding + the client's super-blocks -> the cut
-    activation (B, S, D) in ``cfg.dtype``."""
-    x = _embed(cfg, client_params, tokens)
-    b, s, _ = x.shape
+    """Client stage: embedding (the patches of ``embeds`` in front, at
+    their grid positions) + the client's super-blocks -> the cut
+    activation (B, F + S, D) in ``cfg.dtype``."""
+    x = _embed(cfg, client_params, tokens, embeds)
     if positions is None:
-        positions = text_positions(b, s, x.device)
+        positions = _positions(cfg, tokens, embeds, x)
     return _stack_forward(client_params["stack"], cfg, x, positions, impl,
                           remat, remat_span)[0]
 
 
 def stage_forward(stage_params: Params, cfg: ModelConfig, x: torch.Tensor,
                   stage_index: int, *,
+                  embeds: Optional[torch.Tensor] = None,
                   positions: Optional[torch.Tensor] = None,
                   impl: str = "dense", remat: bool = True,
                   remat_span: int = 1, with_aux: bool = False):
     """Forward one non-final pipeline stage -> the hop activation (and,
     with ``with_aux``, the stage's MoE aux loss: 0 for a dense stack, and
     always 0 for stage 0, whose aux JAX drops too).  Stage 0 reads ``x``
-    as tokens; an edge stage takes the upstream hop activation."""
+    as tokens (and ``embeds``); an edge stage takes the upstream hop
+    activation, at text positions over its whole length unless given
+    ``positions`` — with patches in front, not the grid positions stage 0
+    used, as in JAX (the round passes none)."""
     aux = None
     if stage_index == 0:
-        out = client_forward(stage_params, cfg, x, positions=positions,
-                             impl=impl, remat=remat, remat_span=remat_span)
+        out = client_forward(stage_params, cfg, x, embeds=embeds,
+                             positions=positions, impl=impl, remat=remat,
+                             remat_span=remat_span)
     else:
         b, s, _ = x.shape
         if positions is None:
-            positions = text_positions(b, s, x.device)
+            positions = text_positions(b, s, cfg, x.device)
         out, aux = _stack_forward(stage_params["stack"], cfg, x, positions,
                                   impl, remat, remat_span)
     return (out, _aux_or_zero(aux, out)) if with_aux else out
@@ -711,11 +789,12 @@ def server_hidden(server_params: Params, cfg: ModelConfig,
                   impl: str = "dense", remat: bool = True,
                   remat_span: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """Server stage up to the final norm (before the unembedding) ->
-    (x, aux)."""
+    (x, aux).  Without ``positions``, text positions over the whole
+    activation, as in JAX (with patches in front: not their grid)."""
     x = activation
     b, s, _ = x.shape
     if positions is None:
-        positions = text_positions(b, s, x.device)
+        positions = text_positions(b, s, cfg, x.device)
     x, aux = _stack_forward(server_params["stack"], cfg, x, positions, impl,
                             remat, remat_span)
     x, rem_aux = _rem_forward(server_params["rem"], cfg, x, positions, impl)
@@ -751,7 +830,9 @@ def chunked_xent(params: Params, cfg: ModelConfig, x: torch.Tensor,
                  labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
     """Mean token cross-entropy without the (B, S, V) logits: one (B, c, V)
     tile per sequence chunk, each recomputed in the backward instead of
-    stored, so the logits' peak is O(c * V) rather than O(S * V)."""
+    stored, so the logits' peak is O(c * V) rather than O(S * V).  An
+    activation longer than ``labels`` (an image prefix in front) is
+    trimmed to its last ``labels.shape[1]`` positions."""
     b, s, _ = x.shape
     if labels.shape[1] != s:
         x = x[:, -labels.shape[1]:]
@@ -787,8 +868,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             *, impl: str = "dense", remat: bool = True) -> torch.Tensor:
-    logits, aux = forward(params, cfg, batch["tokens"], impl=impl,
-                          remat=remat)
+    """Mean token cross-entropy of the forward plus the MoE aux; with
+    ``batch["embeds"]`` the image prefix's logits are trimmed off."""
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          embeds=batch.get("embeds"), impl=impl, remat=remat)
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:
         logits = logits[:, -labels.shape[1]:]

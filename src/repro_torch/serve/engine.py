@@ -21,8 +21,15 @@ Split mode (``cuts``) decodes through the client -> edge -> server stages
 ``len(cuts)`` activation hops, which the router accounts.  Speculative
 decode (``spec_chunk``) drafts with the client stage at ``spec_cut`` read
 out through the early-exit head, verifies the drafts in one teacher-forced
-pass of the whole model and rolls every cache family back exactly.  The
-decode-window override is not ported yet and raises.
+pass of the whole model and rolls every cache family back exactly.
+
+``decode_window_override`` (the long-context decode window) makes every
+global layer a ring of that window in every cache the engine builds, in
+admission, the decode chunk, draft, verify and split mode alike: such a
+ring never pages (the paged kernel then has no layer to run), the prompt
+still attends in full at admission and keeps its last ``window`` entries,
+and speculative rollback restores the ring's overwritten lines as it does
+a local layer's.
 """
 
 from __future__ import annotations
@@ -91,8 +98,9 @@ def _is_recurrent(d: Params) -> bool:
 
 
 def _is_ring(d: Params, max_len: int) -> bool:
-    """A local layer's ring: contiguous KV shorter than ``max_len``, whose
-    decode writes wrap onto entries that may still be visible."""
+    """A ring (a local layer's, or a global one's under the decode-window
+    override): contiguous KV shorter than ``max_len``, whose decode writes
+    wrap onto entries that may still be visible."""
     return "pos" in d and d["pos"].shape[-1] < max_len
 
 
@@ -158,8 +166,9 @@ class DecodeEngine:
     CUDA block-table kernel instead of the gather.  ``cuts`` serves through
     the pipeline stages at those WSSL cuts instead of the merged model.
     ``spec_cut`` is the draft model's cut (default: ``cuts[0]`` in split
-    mode, else the WSSL default cut).  ``device`` defaults to the card and
-    raises when there is none."""
+    mode, else the WSSL default cut).  ``decode_window_override`` decodes
+    every global layer within that many positions (a ring cache).
+    ``device`` defaults to the card and raises when there is none."""
 
     def __init__(self, cfg: ModelConfig, *, impl: str = "dense",
                  cuts: Optional[Sequence[int]] = None,
@@ -167,14 +176,11 @@ class DecodeEngine:
                  spec_cut: Optional[int] = None,
                  paged_kernel: bool = False, device="cuda"):
         attn._check_impl(impl)
-        if decode_window_override:
-            raise NotImplementedError(
-                "decode_window_override (the long-context decode window) is "
-                "not ported yet (ROADMAP Queue 1, item 11f)")
         tf._superblock_layout(cfg)        # raises on an unported layer kind
         self.cfg = cfg
         self.impl = impl
         self.cuts = tf._check_cuts(cfg, cuts) if cuts else None
+        self.decode_window_override = decode_window_override
         if spec_cut is None:
             # the draft model is the client stage: in split mode that stage
             # exists at cuts[0]; merged mode drafts at the WSSL default cut
@@ -239,7 +245,8 @@ class DecodeEngine:
         the merged model, or of the pipeline stages in split mode (params
         and cache partitioned once, as views), updating ``cache`` in
         place."""
-        kw = dict(table=table, paged_kernel=self.paged_kernel)
+        kw = dict(decode_window_override=self.decode_window_override,
+                  table=table, paged_kernel=self.paged_kernel)
         if self.cuts is None:
             def step(tok, pos):
                 return tf.decode_step(params, self.cfg, tok, cache, pos,
@@ -257,8 +264,10 @@ class DecodeEngine:
 
     def init_cache(self, batch: int, max_len: int,
                    paged: Optional[Tuple[int, int]] = None) -> Params:
-        return tf.init_cache(self.cfg, batch, max_len, paged=paged,
-                             device=self.device)
+        return tf.init_cache(
+            self.cfg, batch, max_len,
+            decode_window_override=self.decode_window_override, paged=paged,
+            device=self.device)
 
     def new_batch_state(self, slots: int, max_len: int, *,
                         block_size: int = 0,
@@ -379,9 +388,10 @@ class DecodeEngine:
         tok, pos = state.tok, state.pos
         drafts = []
         for _ in range(k):
-            x, _ = tf.stage_decode_step(client, self.cfg, tok, ccache, pos, 0,
-                                        2, table=table,
-                                        paged_kernel=self.paged_kernel)
+            x, _ = tf.stage_decode_step(
+                client, self.cfg, tok, ccache, pos, 0, 2,
+                decode_window_override=self.decode_window_override,
+                table=table, paged_kernel=self.paged_kernel)
             nxt = torch.argmax(tf.early_exit_logits(params, self.cfg, x)[:, 0],
                                dim=-1).to(torch.int32)
             drafts.append(nxt)

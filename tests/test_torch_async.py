@@ -47,6 +47,7 @@ import torch
 from torch.utils._pytree import tree_leaves
 from _hypothesis_fallback import given, settings, st
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro import sim as jsim
 from repro.config import AsyncRoundsConfig as JAsyncRoundsConfig
 from repro.config import CompressionConfig as JCompressionConfig

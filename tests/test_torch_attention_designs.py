@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref
 from repro_torch.kernels.paged_attention import split_plan

@@ -4,6 +4,7 @@ source and its headers would build)."""
 
 import pytest
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa

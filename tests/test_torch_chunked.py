@@ -29,6 +29,7 @@ import pytest
 import torch
 from torch.utils._pytree import tree_leaves
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro import sim as jsim
 from repro.config import AsyncRoundsConfig as JAsyncRoundsConfig
 from repro.config import CompressionConfig as JCompressionConfig

@@ -27,6 +27,7 @@ The compressed rounds against the live JAX round are in
 ``tests/test_torch_round.py``.
 """
 
+import functools
 from unittest import mock
 
 import jax
@@ -35,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro import compress as jC
 from repro.config import CompressionConfig as JCompressionConfig
 from repro.core import protocol as jprotocol
@@ -429,6 +431,14 @@ def _run(comp, rounds=3, validate=True):
     return state, out
 
 
+@functools.lru_cache(maxsize=None)
+def _uncompressed(validate):
+    """The uncompressed run every scheme's case compares with, run once
+    per module (``_run`` is deterministic: see
+    ``test_default_draws_are_reproducible_and_differ_by_round``)."""
+    return _run(CompressionConfig(), validate=validate)
+
+
 @pytest.mark.parametrize("scheme", SCHEMES)
 def test_compression_leaves_the_selection_stream_untouched(scheme):
     """The selection generator moves exactly as without compression.  With
@@ -437,7 +447,7 @@ def test_compression_leaves_the_selection_stream_untouched(scheme):
     mask must be the uncompressed run's."""
     comp_cfg = CompressionConfig(scheme=scheme, activations=True)
     for validate in (False, True):
-        _, base = _run(CompressionConfig(), validate=validate)
+        _, base = _uncompressed(validate)
         state, comp = _run(comp_cfg, validate=validate)
         for (mb, gb, _), (mc, gc, _) in zip(base, comp):
             assert torch.equal(gb, gc)

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.config import TrainConfig as JTrainConfig
 from repro.config import WSSLConfig as JWSSLConfig
 from repro.config import get_arch as jax_get_arch
@@ -96,7 +97,8 @@ def perturb(tree, seed, scale=0.5):
 @functools.lru_cache(maxsize=None)
 def _setup(name, dtype="float32"):
     cfg, jcfg = _cfgs(name, dtype)
-    jp, _ = jtf.init_params(jax.random.PRNGKey(1), jcfg)
+    jp = jax.jit(lambda key: jtf.init_params(key, jcfg)[0])(
+        jax.random.PRNGKey(1))
     jp = perturb(jp, seed=len(name))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
     return cfg, jcfg, tp, jp
@@ -282,8 +284,8 @@ def test_project_qkv_biases_match_jax():
 def test_forward_logits_match_jax(name):
     cfg, jcfg, tp, jp = _setup(name)
     toks = _tokens(cfg, 2, 40, seed=2)
-    want, _ = jtf.forward(jp, jcfg, jnp.asarray(toks), impl="dense",
-                          remat=False)
+    want, _ = jax.jit(lambda p, t: jtf.forward(p, jcfg, t, impl="dense",
+                                               remat=False))(jp, toks)
     for impl in ("dense", "kernel"):
         with torch.no_grad():      # the kernel path has no backward
             got, _ = tf.forward(tp, cfg, torch.as_tensor(toks), impl=impl,
@@ -301,8 +303,9 @@ def test_prefill_and_paged_decode_match_jax(name):
     cfg, jcfg, tp, jp = _setup(name)
     toks = _tokens(cfg, 2, 37, seed=3)
     max_len = 48
-    jl, jc = jtf.prefill(jp, jcfg, jnp.asarray(toks), max_len=max_len,
-                         impl="dense")
+    jl, jc = jax.jit(lambda p, t: jtf.prefill(p, jcfg, t, max_len=max_len,
+                                              impl="dense"))(jp, toks)
+    step = jax.jit(lambda p, t, c, pos: jtf.decode_step(p, jcfg, t, c, pos))
     tl, _ = tf.prefill(tp, cfg, torch.as_tensor(toks), impl="kernel",
                        last_only=False)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **FP32)
@@ -317,8 +320,7 @@ def test_prefill_and_paged_decode_match_jax(name):
     tok = np.argmax(np.asarray(jl)[:, -1], -1).astype(np.int32)[:, None]
     for t in range(3):
         pos = np.full((2,), 37 + t, np.int32)
-        jlg, jc = jtf.decode_step(jp, jcfg, jnp.asarray(tok), jc,
-                                  jnp.asarray(pos))
+        jlg, jc = step(jp, tok, jc, pos)
         tlg, _ = tf.decode_step(tp, cfg, torch.as_tensor(tok), cache,
                                 torch.as_tensor(pos), table=table,
                                 paged_kernel=True)
@@ -341,7 +343,8 @@ def test_bf16_prefill_logits_within_the_band(name):
     cfg, jcfg, tp, jp = _setup(name, "bfloat16")
     assert tp["final_norm"]["scale"].dtype == torch.float32
     toks = _tokens(cfg, 1, 40, seed=6)
-    want, _ = jtf.prefill(jp, jcfg, jnp.asarray(toks), impl="dense")
+    want, _ = jax.jit(lambda p, t: jtf.prefill(p, jcfg, t, impl="dense"))(
+        jp, toks)
     got, _ = tf.prefill(tp, cfg, torch.as_tensor(toks), impl="kernel")
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), **BF16)
@@ -366,8 +369,9 @@ def _rounds(name):
     round on the bridged state with JAX's Gumbel draw injected."""
     cfg, jcfg = _cfgs(name)
     w = dict(num_clients=4, participation_fraction=0.5, split_layer=1)
-    js, _ = jax_init_state(jax.random.PRNGKey(0), jcfg, JWSSLConfig(**w),
-                           JTrainConfig(**TRAIN_KW))
+    js = jax.jit(lambda key: jax_init_state(
+        key, jcfg, JWSSLConfig(**w), JTrainConfig(**TRAIN_KW))[0])(
+            jax.random.PRNGKey(0))
     js = js._replace(client_stack=perturb(js.client_stack, 7),
                      server_params=perturb(js.server_params, 8))
     init = jax.tree.map(np.asarray, js)

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.config import get_arch as jax_get_arch
 from repro.config import reduced as jax_reduced
 from repro.kernels import ops as jops

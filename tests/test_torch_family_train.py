@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.config import TrainConfig as JTrainConfig
 from repro.config import WSSLConfig as JWSSLConfig
 from repro.config import get_arch as jax_get_arch
@@ -64,7 +65,9 @@ def _jax_rounds(name):
     jm = jax_reduced(jax_get_arch(arch)).replace(num_layers=layers)
     w = JWSSLConfig(num_clients=4, participation_fraction=0.5, **cut)
     t = JTrainConfig(**TRAIN_KW)
-    state, _ = jax_init_state(jax.random.PRNGKey(0), jm, w, t)
+    # one jitted init: run eagerly, every op would compile on its own
+    state = jax.jit(lambda key: jax_init_state(key, jm, w, t)[0])(
+        jax.random.PRNGKey(0))
     init = jax.tree.map(np.asarray, state)
     rf = jax_make_round_fn(jm, w, t, impl="dense", donate=True)
     val = {k: jnp.asarray(v) for k, v in

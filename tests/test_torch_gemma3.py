@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.config import get_arch as jax_get_arch
 from repro.config import reduced as jax_reduced
 from repro.models import transformer as jtf
@@ -34,9 +35,18 @@ BF16 = dict(atol=5e-2, rtol=5e-2)
 def _setup(dtype="float32"):
     jcfg = jax_reduced(jax_get_arch("gemma3-12b")).replace(dtype=dtype)
     cfg = reduced(get_arch("gemma3-12b")).replace(dtype=dtype)
-    jp, _ = jtf.init_params(jax.random.PRNGKey(1), jcfg)
+    jp = jax.jit(lambda key: jtf.init_params(key, jcfg)[0])(
+        jax.random.PRNGKey(1))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
     return cfg, jcfg, tp, jp
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_forward(jcfg):
+    """JAX's dense forward -> logits, jitted: one compile, where run
+    eagerly each op would compile on its own first use."""
+    return jax.jit(lambda p, t: jtf.forward(p, jcfg, t, impl="dense",
+                                            remat=False)[0])
 
 
 def _tokens(cfg, b, s, seed):
@@ -62,8 +72,7 @@ def test_config_equals_jax():
 def test_forward_logits_match_jax(impl):
     cfg, jcfg, tp, jp = _setup()
     toks = _tokens(cfg, 2, 90, seed=2)
-    want, _ = jtf.forward(jp, jcfg, jnp.asarray(toks), impl="dense",
-                          remat=False)
+    want = _jax_forward(jcfg)(jp, toks)
     with torch.no_grad():      # the kernel path has no backward
         got, _ = tf.forward(tp, cfg, torch.as_tensor(toks), impl=impl,
                             remat=False)
@@ -77,8 +86,10 @@ def test_prefill_and_decode_logits_match_jax(paged):
     cfg, jcfg, tp, jp = _setup()
     toks = _tokens(cfg, 2, 90, seed=3)
     max_len = 96
-    jl, jc = jtf.prefill(jp, jcfg, jnp.asarray(toks), max_len=max_len,
-                         impl="dense")
+    jl, jc = jax.jit(lambda p, t: jtf.prefill(p, jcfg, t, max_len=max_len,
+                                              impl="dense"))(jp, toks)
+    jstep = jax.jit(lambda p, t, c, pos, tab: jtf.decode_step(
+        p, jcfg, t, c, pos, table=tab))
     cache = tf.init_cache(cfg, 2, max_len, device="cpu")
     tl, _ = tf.prefill(tp, cfg, torch.as_tensor(toks), cache=cache,
                        impl="kernel")
@@ -99,9 +110,7 @@ def test_prefill_and_decode_logits_match_jax(paged):
     tok = np.argmax(np.asarray(jl)[:, -1], -1).astype(np.int32)[:, None]
     for t in range(4):
         pos = np.full((2,), 90 + t, np.int32)
-        jlg, jc = jtf.decode_step(jp, jcfg, jnp.asarray(tok), jc,
-                                  jnp.asarray(pos),
-                                  table=jtable)
+        jlg, jc = jstep(jp, tok, jc, pos, jtable)
         tlg, _ = tf.decode_step(tp, cfg, torch.as_tensor(tok), cache,
                                 torch.as_tensor(pos), table=table,
                                 paged_kernel=paged)
@@ -121,7 +130,8 @@ def test_greedy_tokens_match_jax_engine():
 def test_bf16_prefill_logits_within_the_band():
     cfg, jcfg, tp, jp = _setup("bfloat16")
     toks = _tokens(cfg, 1, 80, seed=6)
-    want, _ = jtf.prefill(jp, jcfg, jnp.asarray(toks), impl="dense")
+    want, _ = jax.jit(lambda p, t: jtf.prefill(p, jcfg, t, impl="dense"))(
+        jp, toks)
     got, _ = tf.prefill(tp, cfg, torch.as_tensor(toks), impl="kernel")
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), **BF16)

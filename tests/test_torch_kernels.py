@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from _hypothesis_fallback import given, settings, st
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro import sim as jsim
 from repro.config import AsyncRoundsConfig as JAsyncRoundsConfig
 from repro.config import ModelConfig as JModelConfig

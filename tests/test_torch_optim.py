@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.kernels import ref as jref
 from repro.optim import optimizers as jopt
 from repro.optim.schedule import make_schedule as jax_schedule

@@ -5,7 +5,8 @@
 * Entry points default to the card and raise when there is none; the port
   never goes on on the CPU unless the caller passes ``device="cpu"``.
 * Layer kinds and options that are not ported yet raise
-  ``NotImplementedError``.
+  ``NotImplementedError``; the ported ones (local attention, the
+  decode-window override) build.
 """
 
 import ast
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch._bridge import params_from_jax
 from repro_torch.config import ATTN_LOCAL, get_arch, reduced
 from repro_torch.launch import serve as launch_serve
@@ -73,8 +75,13 @@ def test_entry_points_raise_without_a_card():
 
 def test_unported_layer_kinds_raise():
     cfg = reduced(get_arch("gemma-2b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeEngine(cfg, decode_window_override=16, device="cpu")
+    # the decode-window override is ported: the engine builds ring-sized
+    # caches of the window for the global layers, paged or not
+    eng = DecodeEngine(cfg, decode_window_override=16, device="cpu")
+    for block_size in (0, 8):
+        st = eng.new_batch_state(2, 64, block_size=block_size)
+        for d in st.cache["stack"] + st.cache["rem"]:
+            assert "pk" not in d and d["k"].shape[-3] == 16
     # local attention is ported: it builds and serves
     DecodeEngine(cfg.replace(pattern=(ATTN_LOCAL,), window=16), device="cpu")
 

@@ -39,6 +39,7 @@ import pytest
 import torch
 from torch.utils._pytree import tree_leaves
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.config import WSSLConfig as JWSSLConfig
 from repro.configs import wssl_paper as jcfgs
 from repro.core import paper_loop as jpl
@@ -142,12 +143,20 @@ def test_paper_configs_equal_jax():
 # ---------------------------------------------------------------------------
 
 
-def _jax_split(kind, cfg_name, key=1):
+def _jax_init(kind, cfg_name):
+    """(JAX config, its split init ``key -> (client, server)``)."""
     jc = getattr(jcfgs, cfg_name)()
     if kind == "gait":
-        return jc, jpm.gait_split_params(jc, jpm.gait_init(
-            jax.random.PRNGKey(key), jc))
-    return jc, jpm.resnet_init_split(jax.random.PRNGKey(key), jc)
+        return jc, lambda k: jpm.gait_split_params(jc, jpm.gait_init(k, jc))
+    return jc, lambda k: jpm.resnet_init_split(k, jc)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_split(kind, cfg_name, key=1):
+    """JAX's split initial params, drawn by one jitted init (run eagerly,
+    every op of a ResNet-18 init would compile on its own)."""
+    jc, init = _jax_init(kind, cfg_name)
+    return jc, jax.jit(init)(jax.random.PRNGKey(key))
 
 
 @pytest.mark.parametrize("kind,cfg_name,leaves", [
@@ -157,8 +166,10 @@ def _jax_split(kind, cfg_name, key=1):
 ])
 def test_param_trees_match_jax_layout(kind, cfg_name, leaves):
     """The port's own init: JAX's nesting, leaf order, shapes and bytes,
-    every leaf fp32 and contiguous (AdamW views each as one row)."""
-    jc, jstages = _jax_split(kind, cfg_name)
+    every leaf fp32 and contiguous (AdamW views each as one row).  JAX's
+    layout is read off its init's abstract evaluation: no value is drawn."""
+    jstages = jax.eval_shape(_jax_init(kind, cfg_name)[1],
+                             jax.random.PRNGKey(1))
     cfg = getattr(cfgs, cfg_name)()
     ad = pl.gait_adapter(cfg) if kind == "gait" else pl.resnet_adapter(cfg)
     stages = ad.init_split(torch.Generator().manual_seed(0))
@@ -170,7 +181,8 @@ def test_param_trees_match_jax_layout(kind, cfg_name, leaves):
         assert len(tree_leaves(st)) == count
         assert all(t.dtype == torch.float32 and t.is_contiguous()
                    for t in tree_leaves(st))
-        assert tree_bytes(st) == sum(t.nbytes for t in jax.tree.leaves(jst))
+        assert tree_bytes(st) == sum(t.size * t.dtype.itemsize
+                                     for t in jax.tree.leaves(jst))
 
 
 @pytest.mark.parametrize("size,k,stride", [
@@ -211,7 +223,7 @@ def test_forward_and_split_grads_match_jax(kind, cfg_name):
     else:
         x = rng.normal(size=(4, 32, 32, 3)).astype(np.float32)
         y = rng.integers(0, 10, 4).astype(np.int32)
-    ja = jad.client_apply(jstages[0], jnp.asarray(x))
+    ja = jax.jit(jad.client_apply)(jstages[0], jnp.asarray(x))
     ta = ad.client_apply(stages[0], torch.as_tensor(x))
     if kind == "resnet":
         assert ta.shape == (4, cfg.widths[0], 32, 32)
@@ -219,7 +231,7 @@ def test_forward_and_split_grads_match_jax(kind, cfg_name):
     else:
         ta_nhwc = ta
     assert _rel(ta_nhwc.detach().numpy(), np.asarray(ja)) <= 1e-5
-    jl = jad.server_apply(jstages[1], ja)
+    jl = jax.jit(jad.server_apply)(jstages[1], ja)
     tl = ad.server_apply(stages[1], ta)
     assert _rel(tl.detach().numpy(), np.asarray(jl)) <= 1e-5
 
@@ -227,7 +239,7 @@ def test_forward_and_split_grads_match_jax(kind, cfg_name):
         return jad.loss(jad.server_apply(sp, jad.client_apply(
             cp, jnp.asarray(x))), jnp.asarray(y))
 
-    jval, jg = jax.value_and_grad(jloss, argnums=(0, 1))(*jstages)
+    jval, jg = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1)))(*jstages)
     res = split_grads(lambda p: ad.client_apply(p, torch.as_tensor(x)),
                       lambda p, a: ad.loss(ad.server_apply(p, a),
                                            torch.as_tensor(y)),

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.config import get_arch as jax_get_arch
 from repro.config import reduced as jax_reduced
 from repro.kernels import ref as jref
@@ -81,8 +82,10 @@ def test_doubling_scan_matches_associative_scan(s):
     def combine(lhs, rhs):
         return lhs[0] * rhs[0], rhs[0] * lhs[1] + rhs[1]
 
-    _, want = jax.lax.associative_scan(combine, (jnp.asarray(a),
-                                                 jnp.asarray(bb)), axis=1)
+    # jitted: one compile, where run eagerly each level's ops would
+    # compile on their own first use
+    _, want = jax.jit(lambda a, b: jax.lax.associative_scan(
+        combine, (a, b), axis=1))(a, bb)
     got = rglru.linear_scan(torch.as_tensor(a), torch.as_tensor(bb))
     np.testing.assert_allclose(got.numpy(), _np(want), **SCAN)
     np.testing.assert_allclose(got.numpy(), ref.rg_lru_scan(
@@ -102,6 +105,15 @@ def _acts(cfg, b, s, seed):
     return rng.normal(size=(b, s, cfg.d_model)).astype(np.float32)
 
 
+def _jax_apply(jcfg, jp, x):
+    """JAX's plain block: jitted in fp32 (one compile where eager ops
+    compile one by one); eager in bf16, where XLA's jit on the CPU may
+    keep intermediates wider than the activation dtype."""
+    if jcfg.dtype == "float32":
+        return jax.jit(lambda p, x: jrglru.apply_rglru(jcfg, p, x))(jp, x)
+    return jrglru.apply_rglru(jcfg, jp, x)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("use_kernel", [False, True])
 def test_apply_rglru_matches_jax(dtype, use_kernel, monkeypatch):
@@ -115,7 +127,7 @@ def test_apply_rglru_matches_jax(dtype, use_kernel, monkeypatch):
     band = FP32 if dtype == "float32" else BF16
     got = rglru.apply_rglru(cfg, tp, torch.as_tensor(x).to(td),
                             use_kernel=use_kernel)
-    want = jrglru.apply_rglru(jcfg, jp, jnp.asarray(x, jd))
+    want = _jax_apply(jcfg, jp, jnp.asarray(x, jd))
     np.testing.assert_allclose(got.float().numpy(), _np(want), **band)
     if use_kernel:
         monkeypatch.setattr(jops, "rg_lru_scan",

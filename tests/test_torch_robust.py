@@ -35,6 +35,7 @@ import torch
 from unittest import mock
 
 import test_torch_sim as ts
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.config import AggregationConfig as JAggregationConfig
 from repro.config import CompressionConfig as JCompressionConfig
 from repro.config import WSSLConfig as JWSSLConfig

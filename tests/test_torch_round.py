@@ -18,7 +18,9 @@ against the JAX package on the same inputs.
 * The same two rounds compressed (top-k at rate 0.05, int8, int4; update
   path alone and with the split-hop activations), the JAX compression
   draws injected too and the JAX ops patched to their oracles for the
-  test.  Masks and every byte count are exact.  Rounding differences
+  test; int8 and int4 run one JAX executable, as the JAX package builds
+  them, each with its own levels and bits (``comp_p``).  Masks and every
+  byte count are exact.  Rounding differences
   between the client loop and ``vmap`` can flip a code by one step or a
   top-k membership at the threshold, and one flipped activation element
   moves every gradient behind it a little.  Bands: losses, val losses and
@@ -41,6 +43,8 @@ import pytest
 import torch
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
+from _torch_threads import one_torch_thread  # noqa: F401
+from repro.compress import compression_params as jax_compression_params
 from repro.config import CompressionConfig as JCompressionConfig
 from repro.config import ModelConfig as JModelConfig
 from repro.config import TrainConfig as JTrainConfig
@@ -388,18 +392,35 @@ def test_two_rounds_match_live_jax_round(name, fused_adam):
                                rtol=1e-5)
 
 
+def _jax_wssl_config(name, scheme, acts):
+    return JWSSLConfig(num_clients=4, participation_fraction=0.5,
+                       compression=JCompressionConfig(scheme=scheme,
+                                                      activations=acts),
+                       **CONFIGS[name][1])
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_compressed_round_fn(name, kind, acts):
+    """The JAX round of one compression *kind*, built once: int8 and int4
+    are one executable in the JAX package (``CompressionConfig.kind`` is
+    the only static branch; the levels and bits reach the round as the
+    traced ``comp_p``), so both cases run it with their own ``comp_p``."""
+    w = _jax_wssl_config(name, {"topk": "topk", "quant": "int8"}[kind], acts)
+    return jax_make_round_fn(JModelConfig(**CONFIGS[name][0]), w,
+                             JTrainConfig(**TRAIN_KW), impl="dense",
+                             donate=True)
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_compressed_rounds(name, scheme, acts):
     """``_jax_two_rounds`` with compression on: also each round's
     selection key, from which the test rebuilds the JAX compression
     draws.  The JAX ops run their oracles (the Pallas kernels cannot run
     here)."""
-    mkw, wkw = CONFIGS[name]
-    jm = JModelConfig(**mkw)
-    w = JWSSLConfig(num_clients=4, participation_fraction=0.5,
-                    compression=JCompressionConfig(scheme=scheme,
-                                                   activations=acts), **wkw)
+    jm = JModelConfig(**CONFIGS[name][0])
+    w = _jax_wssl_config(name, scheme, acts)
     t = JTrainConfig(**TRAIN_KW)
+    comp_p = jax_compression_params(w.compression)
     state, _ = jax_init_state(jax.random.PRNGKey(0), jm, w, t)
     init = jax.tree.map(np.asarray, state)
     val = {k: jnp.asarray(v) for k, v in
@@ -409,14 +430,14 @@ def _jax_compressed_rounds(name, scheme, acts):
                              quantize_stochastic=jax_ref.quantize_stochastic_2d,
                              dequantize=jax_ref.dequantize_2d,
                              topk_mask=jax_ref.topk_mask_2d):
-        rf = jax_make_round_fn(jm, w, t, impl="dense", donate=True)
+        rf = _jax_compressed_round_fn(name, w.compression.kind, acts)
         for r in range(2):
             _, rng_sel = jax.random.split(state.rng)
             keys.append(rng_sel)
             gumbels.append(np.asarray(jax.random.gumbel(rng_sel, (4,))))
             d = jax_lm_batch(8, 16, jm.vocab_size, seed=r)
             batch = {k: jnp.asarray(v).reshape(4, 2, 16) for k, v in d.items()}
-            state, m = rf(state, batch, val)
+            state, m = rf(state, batch, val, None, None, comp_p)
             metrics.append(jax.tree.map(np.asarray, m._asdict()))
     return init, keys, gumbels, metrics, jax.tree.map(np.asarray, state)
 

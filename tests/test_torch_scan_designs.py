@@ -45,6 +45,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.config import get_arch as jax_get_arch
 from repro.config import reduced as jax_reduced
 from repro.models import transformer as jtf
@@ -98,8 +99,6 @@ def test_router_contiguous_matches_jax_router(model):
 
 def test_unported_engine_modes_raise(model):
     cfg, _, tp, _ = model
-    with pytest.raises(NotImplementedError, match="decode_window_override"):
-        DecodeEngine(cfg, decode_window_override=16, device="cpu")
     with pytest.raises(ValueError, match="unknown attn impl"):
         DecodeEngine(cfg, impl="chunked", device="cpu")
 

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 import repro.serve as jserve
 import repro_torch.serve as torch_serve
 from repro.config import get_arch as jax_get_arch
@@ -136,7 +137,9 @@ def test_sim_trace_equals_jax():
 def _model(arch):
     jcfg = jax_reduced(jax_get_arch(arch))
     cfg = reduced(get_arch(arch))
-    jp, _ = jtf.init_params(jax.random.PRNGKey(0), jcfg)
+    # one jitted init: run eagerly, every op would compile on its own
+    jp = jax.jit(lambda key: jtf.init_params(key, jcfg)[0])(
+        jax.random.PRNGKey(0))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
     return cfg, jcfg, tp, jp
 

@@ -38,6 +38,7 @@ import pytest
 import torch
 from torch.utils._pytree import tree_leaves
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro import sim as jsim
 from repro.config import ModelConfig as JModelConfig
 from repro.config import Scenario as JScenario

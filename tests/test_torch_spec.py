@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from _torch_threads import one_torch_thread  # noqa: F401
 import repro.serve as jserve
 from repro.config import get_arch as jax_get_arch
 from repro.config import reduced as jax_reduced

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 import repro.serve as jserve
 from repro.config import get_arch as jax_get_arch
 from repro.config import reduced as jax_reduced
@@ -85,8 +86,10 @@ def test_split_decode_step_logits_match_jax(arch, cuts):
     s = 32 if arch == "mamba2-370m" else 70
     toks = rng.integers(0, cfg.vocab_size, size=(2, s)).astype(np.int32)
     max_len = s + 4
-    jl, jc = jtf.prefill(jp, jcfg, jnp.asarray(toks), max_len=max_len,
-                         impl="dense")
+    # the JAX side jitted: one compile each, where run eagerly every op
+    # would compile on its own first use
+    jl, jc = jax.jit(lambda p, t: jtf.prefill(p, jcfg, t, max_len=max_len,
+                                              impl="dense"))(jp, toks)
     cache = tf.init_cache(cfg, 2, max_len, device="cpu")
     tl, _ = tf.prefill(tp, cfg, torch.as_tensor(toks), cache=cache)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **FP32)
@@ -95,10 +98,11 @@ def test_split_decode_step_logits_match_jax(arch, cuts):
     tstages = tf.partition_params(tp, cfg, cuts, copy=False)
     tcs = tf.partition_cache(cache, cfg, cuts)
     tok = np.argmax(np.asarray(jl)[:, -1], -1).astype(np.int32)[:, None]
+    jstep = jax.jit(lambda st, t, c, pos: jtf.split_decode_step(
+        st, jcfg, t, c, pos))
     for t in range(3):
         pos = np.full((2,), s + t, np.int32)
-        jlg, jcs = jtf.split_decode_step(jstages, jcfg, jnp.asarray(tok), jcs,
-                                         jnp.asarray(pos))
+        jlg, jcs = jstep(jstages, tok, jcs, pos)
         tlg, _ = tf.split_decode_step(tstages, cfg, torch.as_tensor(tok), tcs,
                                       torch.as_tensor(pos))
         np.testing.assert_allclose(tlg.numpy(), np.asarray(jlg), **FP32)

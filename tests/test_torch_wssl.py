@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.config import AggregationConfig as JAggregationConfig
 from repro.config import WSSLConfig as JWSSLConfig
 from repro.config import get_arch as jax_get_arch
