@@ -149,7 +149,8 @@ Phases, each printing its lines before the last:
              ``cudnn.flags(deterministic=True, allow_tf32=False)``:
              selections, losses, accuracies and final params bit-exact.
 
-16. the round under faults — full Mamba-2-370M (48 layers, 8 clients,
+16. the round under faults — Mamba-2-370M (full width at 16 of its 48
+             layers since PR 24, 8 clients,
              cut 8, seq 256, batch 2, participation 1.0; fp32 params, bf16
              activations, fused AdamW, the plain scans), every client on a
              token stream of its own: no scenario against ``clean``, 2
@@ -281,8 +282,27 @@ Phases, each printing its lines before the last:
              under the decode window 4096: 4 requests of 4608-6144 tokens,
              64 new each, on 1 x 4 slots (every ring wraps), as 21b: flash
              48 launches an admission, paged none.
+24. the chunked / flash training path — 24a: full Gemma-2B (fp32
+             params, bf16 activations), 2 clients at cut 4, one sequence
+             a client, one WSSL round through ``launch/train.py`` at S
+             4096 with ``impl="chunked"`` (the flash path: an online
+             softmax over 256-key blocks whose backward recomputes the
+             probability tiles) and one with ``impl="dense"``, the same
+             seed and Gumbel draw: fused AdamW launches = leaves and
+             nothing else launched, the training and validation losses
+             within 1e-2 relative; then one chunked round at S 8192; each
+             round's time and peak.  24b: the flash attention Function
+             alone against the dense path's autograd at Gemma-2B's layer
+             (8 over 1 heads) and Gemma-3-12B's local one (16 over 8,
+             window 1024), S 4096: out, dq, dk, dv within 1e-4 of
+             max|dense| in fp32; forward + backward timed in bf16 beside
+             the dense autograd and SDPA's, each path's peak.  24c:
+             Gemma-3-12B at 6 of its 48 layers (one super-block: 5 local,
+             1 global), ``tf.loss_fn`` and its gradients at S 4096 with
+             nested remat (the span's checkpoint and one a layer inside
+             it, counted) and without: every element equal, each peak.
 
-Each of phases 12-23 prints its wall time.  Then one JSON line with every
+Each of phases 12-24 prints its wall time.  Then one JSON line with every
 kernel's numbers (the nine kernels, then flash and paged decode at
 Gemma-3-12B's, StableLM-2-12B's, Qwen2.5-32B's, OLMoE-1B-7B's,
 Phi-3.5-MoE's, MusicGen-medium's and Qwen2-VL-72B's shapes), and as the
@@ -931,7 +951,7 @@ def profile_train(torch, state, cfg, wssl_cfg, train_cfg):
     batch = round_batch(cfg, 2, TRAIN_RUN["batch_per_client"], s, 3, dev)
     val = {k: torch.as_tensor(v, device=dev) for k, v in lm_batch(
         TRAIN_RUN["val_batch"], s, cfg.vocab_size, seed=10_000).items()}
-    round_fn = make_round_fn(cfg, wssl_cfg, train_cfg)
+    round_fn = make_round_fn(cfg, wssl_cfg, train_cfg, impl="dense")
     out["profile"] = _device_profile(torch, lambda: round_fn(state, batch,
                                                              val))
     return out
@@ -1091,7 +1111,7 @@ def _drive_rounds(torch, cfg, wssl_cfg, train_cfg, before_round=None):
                COMP_RUN["seq_len"])
     gen = torch.Generator(device=dev).manual_seed(COMP_RUN["seed"])
     state = init_state(gen, cfg, wssl_cfg, train_cfg, device=dev)
-    round_fn = make_round_fn(cfg, wssl_cfg, train_cfg)
+    round_fn = make_round_fn(cfg, wssl_cfg, train_cfg, impl="dense")
     val = {k: torch.as_tensor(v, device=dev) for k, v in lm_batch(
         COMP_RUN["val_batch"], s, cfg.vocab_size, seed=10_000).items()}
     recs = []
@@ -1993,7 +2013,7 @@ def _profile_family_round(torch, state, cfg, wssl_cfg, train_cfg, run):
     val = {k: torch.as_tensor(v, device=dev) for k, v in lm_batch(
         FAMILY_TRAIN_RUN["val_batch"], run["seq"], cfg.vocab_size,
         seed=10_000).items()}
-    round_fn = make_round_fn(cfg, wssl_cfg, train_cfg)
+    round_fn = make_round_fn(cfg, wssl_cfg, train_cfg, impl="dense")
     return _device_profile(torch, lambda: round_fn(state, batch, val))
 
 
@@ -2362,11 +2382,14 @@ def run_paper_parity(torch, ops):
 # Faults and robust aggregation (phases 16-18)
 # ---------------------------------------------------------------------------
 
-# phases 16-17: the round under fault scenarios.  Full Mamba-2-370M at 8
-# clients: p, m, v and g in fp32 are 16 B x ~1.14e9 elements, ~18.3 GB
+# phases 16-17: the round under fault scenarios.  Mamba-2-370M at full
+# width and 16 of its 48 layers (phase 16; cut in depth to make room for
+# phase 24, as phases 12 and 20a were for phase 23) at 8 clients: p, m, v
+# and g in fp32 are 16 B x ~1.14e9 elements at 48 layers, ~18.3 GB
 # (reckoned); the pre-step rows and Krum's (8, D) matrix ~3.3 GB each
 FAULT_RUN = dict(device="cuda", reduced=False, arch="mamba2-370m",
-                 clients=8, cut=8, seq=256, batch=2, val_batch=2, seed=0,
+                 layers=16, clients=8, cut=8, seq=256, batch=2, val_batch=2,
+                 seed=0,
                  clean_rounds=2, rounds=2, byzantine_f=2,
                  parity_layers=4, parity_cuts=(1, 3), parity_rounds=2,
                  parity_participation=0.5, parity_seq=128)
@@ -2442,7 +2465,7 @@ def _drive_fault_rounds(torch, cfg, wssl_cfg, train_cfg, scenario, rounds,
     sp = None if scenario is None else scenario_params(scenario)
     gen = torch.Generator(device=dev).manual_seed(FAULT_RUN["seed"])
     state = init_state(gen, cfg, wssl_cfg, train_cfg, device=dev)
-    round_fn = make_round_fn(cfg, wssl_cfg, train_cfg)
+    round_fn = make_round_fn(cfg, wssl_cfg, train_cfg, impl="dense")
     val = {k: torch.as_tensor(v, device=dev) for k, v in lm_batch(
         FAULT_RUN["val_batch"], s, cfg.vocab_size, seed=10_000).items()}
     picked = []
@@ -2492,7 +2515,8 @@ def _fault_launches(state, recs):
 
 
 def run_fault_train(torch, ops):
-    """Phase 16: full Mamba-2-370M at 8 clients under faults — no scenario
+    """Phase 16: Mamba-2-370M (full width, ``FAULT_RUN["layers"]`` of its
+    48 layers) at 8 clients under faults — no scenario
     against ``clean`` (2 rounds each, state bit-exact), then
     ``scaled-grad-adversary`` (clients 0-1 at x32) under the importance
     mean and under Krum (f = 2), 2 rounds each."""
@@ -2502,8 +2526,8 @@ def run_fault_train(torch, ops):
     out = {}
     sides = {}
     for name, sc in (("none", None), ("clean", get_scenario("clean"))):
-        cfg, wssl_cfg, train_cfg = _fault_setup(None, (FAULT_RUN["cut"],),
-                                                1.0)
+        cfg, wssl_cfg, train_cfg = _fault_setup(
+            FAULT_RUN["layers"], (FAULT_RUN["cut"],), 1.0)
         _free(torch)
         ops.reset_launch_counts()
         state, recs, _ = _drive_fault_rounds(
@@ -2545,8 +2569,8 @@ def run_fault_train(torch, ops):
     sc = get_scenario("scaled-grad-adversary")
     bad = sc.adversary_ids(FAULT_RUN["clients"])
     for rule in ("importance", "krum"):
-        cfg, wssl_cfg, train_cfg = _fault_setup(None, (FAULT_RUN["cut"],),
-                                                1.0, rule)
+        cfg, wssl_cfg, train_cfg = _fault_setup(
+            FAULT_RUN["layers"], (FAULT_RUN["cut"],), 1.0, rule)
         _free(torch)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -3321,7 +3345,7 @@ def _drive_async_rounds(torch, cfg, wssl_cfg, train_cfg, scenario, rounds, *,
     state = init_state(gen, cfg, wssl_cfg, train_cfg, device=dev)
     astate = None if sync else init_async_state(state)
     round_fn = (make_round_fn if sync else make_async_round_fn)(
-        cfg, wssl_cfg, train_cfg)
+        cfg, wssl_cfg, train_cfg, impl="dense")
     val = {k: torch.as_tensor(v, device=dev) for k, v in lm_batch(
         FAULT_RUN["val_batch"], s, cfg.vocab_size, seed=10_000).items()}
     host = lambda v: (v.cpu().tolist() if torch.is_tensor(v) and v.dim()
@@ -3404,7 +3428,7 @@ def _profile_async_round(torch, state, astate, cfg, wssl_cfg, train_cfg, sc,
     val = {k: torch.as_tensor(v, device=dev) for k, v in lm_batch(
         FAULT_RUN["val_batch"], FAULT_RUN["seq"], cfg.vocab_size,
         seed=10_000).items()}
-    round_fn = make_async_round_fn(cfg, wssl_cfg, train_cfg)
+    round_fn = make_async_round_fn(cfg, wssl_cfg, train_cfg, impl="dense")
     return _device_profile(torch, lambda: round_fn(
         state, astate, batch, val, scenario_params(sc)), cpu=False)
 
@@ -4570,7 +4594,8 @@ def run_front_image_round(torch, ops):
                                else ops.fused_adamw_plain):
             for r, chunk in enumerate((None, run["chunk"])):
                 rf = make_round_fn(cfg, w, TrainConfig(
-                    learning_rate=1e-3, client_chunk=chunk, fused_adam=True))
+                    learning_rate=1e-3, client_chunk=chunk, fused_adam=True),
+                    impl="dense")
                 _, m = rf(state, batches[r], val, gumbel=gumbels[r])
                 hist.append({"loss": float(m.loss),
                              "mask": m.mask.cpu().tolist(),
@@ -4652,6 +4677,284 @@ def run_front(torch, ops):
         ("train", "23d. train", run_front_train),
         ("image", "23e. image round", run_front_image_round),
         ("window", "23f. decode window", run_front_window)))
+
+
+# ---------------------------------------------------------------------------
+# The chunked / flash training path (phase 24)
+# ---------------------------------------------------------------------------
+
+# module values, so a CPU rehearsal can shrink them.  24a: full Gemma-2B
+# (arXiv:2403.08295: 18 layers, d 2048, 8 query heads over 1 kv head at
+# hd 256, vocab 256,000), fp32 params, bf16 activations, 2 clients at cut
+# 4, one sequence a client; 24b: the attention Function alone at
+# Gemma-2B's global layer and Gemma-3-12B's local one (16 over 8 heads,
+# window 1024); 24c: Gemma-3-12B at 6 of its 48 layers, one super-block
+# of 5 local layers and a global one.
+FLASH_RUN = dict(device="cuda", reduced=False, seed=0, gumbel_seed=24,
+                 seqs=(4096, 8192), val_batch=1, loss_rtol=1e-2,
+                 fn_seq=4096, fn_band=1e-4, fn_cases=(("gemma-2b", None),
+                                                      ("gemma3-12b", 1024)),
+                 remat_layers=6, remat_seq=4096)
+
+
+def _peak_reset(torch, dev):
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+        return torch.cuda.memory_allocated(dev)
+    return 0
+
+
+def _peak(torch, dev, base=0):
+    """Bytes allocated at the peak since ``_peak_reset`` above ``base`` (0
+    off the card)."""
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        return torch.cuda.max_memory_allocated(dev) - base
+    return 0
+
+
+def run_flash_rounds(torch, ops):
+    """24a: one WSSL round of full Gemma-2B at S 4096 through
+    ``launch/train.py`` with ``impl="chunked"`` (the flash path) and one
+    with ``impl="dense"``, from the same seed and Gumbel draw, then one
+    ``chunked`` round at S 8192 (dense is not run there: one layer's
+    (1, 1, 8, 8192, 8192) fp32 scores alone are 2 GiB, on top of the
+    state's ~64 GB).  Checks: the fused AdamW launched leaves x 1 times
+    and nothing else launched, finite losses, the round's training loss
+    and mean validation loss within ``loss_rtol`` of dense's.  Reports
+    each round's time and peak memory."""
+    import numpy as np
+    from repro_torch.config import TrainConfig, WSSLConfig, get_arch, reduced
+    from repro_torch.launch.train import train
+    dev = torch.device(FLASH_RUN["device"])
+    cfg = get_arch("gemma-2b")
+    if FLASH_RUN["reduced"]:
+        cfg = reduced(cfg)
+    wssl_cfg = WSSLConfig(num_clients=2, participation_fraction=0.5)
+    train_cfg = TrainConfig(rounds=1, learning_rate=1e-3, remat=True)
+    rng = np.random.default_rng(FLASH_RUN["gumbel_seed"])
+    gumbels = [torch.as_tensor(rng.gumbel(size=2).astype(np.float32))]
+    s0, s1 = FLASH_RUN["seqs"]
+    out = {"arch": cfg.name, "cut": wssl_cfg.resolve_cuts(cfg)[0],
+           "clients": 2, "runs": {}}
+    for impl, s in (("chunked", s0), ("dense", s0), ("chunked", s1)):
+        _free(torch)
+        base = _peak_reset(torch, dev)
+        ops.reset_launch_counts()
+        state, hist = train(cfg, wssl_cfg, train_cfg, rounds=1,
+                            batch_per_client=1, seq_len=s,
+                            val_batch=FLASH_RUN["val_batch"],
+                            seed=FLASH_RUN["seed"], device=dev, impl=impl,
+                            gumbels=gumbels, log=lambda line: print(
+                                f"  24a {impl} S {s} " + line, flush=True))
+        peak = _peak(torch, dev, base)
+        counts = ops.launch_counts()
+        leaves = len(_leaves((state.client_stack, state.server_params)))
+        del state
+        want = {**{k: 0 for k in counts}, "fused_adamw": leaves}
+        h = hist[0]
+        if counts != want:
+            raise AssertionError(f"24a {impl} S {s}: launches {counts}, "
+                                 f"expected {want}")
+        if not (math.isfinite(h["loss"]) and math.isfinite(
+                h["mean_val_loss"])) or h["selected"] != 2:
+            raise AssertionError(f"24a {impl} S {s}: {h}")
+        out["runs"][f"{impl}/{s}"] = {
+            "impl": impl, "seq": s, "round_s": h["dt_s"], "loss": h["loss"],
+            "mean_val_loss": h["mean_val_loss"], "val_loss": h["val_loss"],
+            "peak_bytes": peak, "launches": counts, "leaves": leaves}
+    ch, de = out["runs"][f"chunked/{s0}"], out["runs"][f"dense/{s0}"]
+    out["rel_diff"] = {k: abs(ch[k] - de[k]) / abs(de[k])
+                       for k in ("loss", "mean_val_loss")}
+    for key, r in out["runs"].items():
+        print(f"24a: {cfg.name} {key}: round {r['round_s']:.3f} s, loss "
+              f"{r['loss']:.6f}, val {r['mean_val_loss']:.6f}, peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB, AdamW launches "
+              f"{r['launches']['fused_adamw']} (leaves {r['leaves']})",
+              flush=True)
+    rel = out["rel_diff"]
+    print(f"24a: chunked vs dense at S {s0}: loss rel diff "
+          f"{rel['loss']:.3g}, val {rel['mean_val_loss']:.3g} (band "
+          f"{FLASH_RUN['loss_rtol']:g})", flush=True)
+    if not all(v <= FLASH_RUN["loss_rtol"] for v in out["rel_diff"].values()):
+        raise AssertionError(f"24a: chunked vs dense outside the band: {out}")
+    return out
+
+
+def _fwd_bwd(torch, fn, cfg, q, k, v, do, pos, window):
+    """``fn``'s output and the gradients of q, k and v for cotangent
+    ``do``."""
+    qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = fn(cfg, qq, kk, vv, pos, pos, window)
+    return (o.detach(),) + torch.autograd.grad(o, (qq, kk, vv), do)
+
+
+def run_flash_function(torch, ops):
+    """24b: the flash attention Function (``_attn_flash``: the forward
+    scan, the recomputing backward) alone against the dense path's
+    autograd, forward and backward, at Gemma-2B's global layer and
+    Gemma-3-12B's local one, B 1.  Held in fp32: out, dq, dk, dv within
+    ``fn_band`` of max|dense|.  On the card, timed in bf16 (CUDA events,
+    one forward + backward a call) beside the dense autograd and SDPA's
+    forward + backward (a band mask for the window: the yardstick of a
+    CUDA flash backward), and each path's peak above its inputs."""
+    from repro_torch.config import get_arch, reduced
+    from repro_torch.models import attention as attn
+    import torch.nn.functional as F
+    dev = torch.device(FLASH_RUN["device"])
+    s = FLASH_RUN["fn_seq"]
+    out = {}
+    for arch, window in FLASH_RUN["fn_cases"]:
+        cfg = get_arch(arch)
+        if FLASH_RUN["reduced"]:
+            cfg = reduced(cfg)
+        hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        gen = torch.Generator(device=dev).manual_seed(24)
+        q, do = (torch.randn(1, s, hq, hd, generator=gen, device=dev)
+                 for _ in range(2))
+        k, v = (torch.randn(1, s, hkv, hd, generator=gen, device=dev)
+                for _ in range(2))
+        pos = torch.arange(s, device=dev)[None]
+        flash = _fwd_bwd(torch, attn._attn_flash, cfg, q, k, v, do, pos,
+                         window)
+        dense = _fwd_bwd(torch, attn._attn_dense, cfg, q, k, v, do, pos,
+                         window)
+        errs = {n: ((a - b).abs().max() / b.abs().max()).item()
+                for n, a, b in zip(("out", "dq", "dk", "dv"), flash, dense)}
+        del flash, dense
+        rec = {"arch": arch, "S": s, "Hq": hq, "Hkv": hkv, "hd": hd,
+               "window": window, "rel_err_fp32": errs,
+               "band": FLASH_RUN["fn_band"]}
+        if dev.type == "cuda":
+            qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+            mask = None
+            if window is not None:
+                i = torch.arange(s, device=dev)
+                mask = (i[None, :] <= i[:, None]) & (
+                    i[:, None] - i[None, :] < window)
+
+            def sdpa():
+                qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True)
+                              for t in (qb, kb, vb))
+                o = F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask, is_causal=mask is None,
+                    scale=attn._scale(cfg), enable_gqa=True)
+                return torch.autograd.grad(o, (qs, ks, vs),
+                                           dob.transpose(1, 2))
+
+            paths = {"flash": lambda: _fwd_bwd(torch, attn._attn_flash, cfg,
+                                               qb, kb, vb, dob, pos, window),
+                     "dense": lambda: _fwd_bwd(torch, attn._attn_dense, cfg,
+                                               qb, kb, vb, dob, pos, window),
+                     "sdpa": sdpa}
+            for name, fn in paths.items():
+                base = _peak_reset(torch, dev)
+                fn()
+                rec[f"{name}_peak_bytes"] = _peak(torch, dev, base)
+                rec[f"{name}_ms"] = _time_ms(torch, fn, reps=5, warmup=1)
+            del qb, kb, vb, dob, mask
+        out[arch] = rec
+        del q, k, v, do
+        _free(torch)
+        line = (f"24b: {arch} S {s} {hq} over {hkv} hd {hd} window {window}:"
+                f" fp32 max|diff| / max|dense| " + ", ".join(
+                    f"{n} {e:.3g}" for n, e in errs.items())
+                + f" (band {FLASH_RUN['fn_band']:g})")
+        if "flash_ms" in rec:
+            line += (f"; bf16 forward + backward: flash {rec['flash_ms']:.3f}"
+                     f" ms, dense {rec['dense_ms']:.3f} ms, SDPA "
+                     f"{rec['sdpa_ms']:.3f} ms; peak above the inputs: flash "
+                     f"{rec['flash_peak_bytes'] / 2**20:.1f} MiB, dense "
+                     f"{rec['dense_peak_bytes'] / 2**20:.1f} MiB, SDPA "
+                     f"{rec['sdpa_peak_bytes'] / 2**20:.1f} MiB")
+        print(line, flush=True)
+        if not all(e <= FLASH_RUN["fn_band"] for e in errs.values()):
+            raise AssertionError(f"24b: the flash Function outside its band "
+                                 f"against dense: {rec}")
+    return out
+
+
+def run_flash_remat(torch, ops):
+    """24c: nested remat at full width.  Gemma-3-12B at 6 of its 48
+    layers (one super-block: 5 local layers at window 1024 and a global
+    one), fp32 params, bf16 activations, B 1 x S 4096: ``tf.loss_fn`` and
+    its gradients with ``impl="chunked"``, ``remat=True`` (the span's
+    checkpoint and one a layer inside it, counted) and ``remat=False``.
+    Held: the loss and every gradient equal bit for bit.  Reports each
+    one's time and peak."""
+    from unittest import mock
+    import numpy as np
+    from repro_torch.config import get_arch, reduced
+    from repro_torch.models import transformer as tf
+    dev = torch.device(FLASH_RUN["device"])
+    cfg = get_arch("gemma3-12b")
+    if FLASH_RUN["reduced"]:
+        cfg = reduced(cfg)
+    cfg = cfg.replace(num_layers=FLASH_RUN["remat_layers"])
+    gen = torch.Generator(device=dev).manual_seed(FLASH_RUN["seed"])
+    params = tf.init_params(cfg, gen, device=dev, dtype=torch.float32)
+    leaves = _leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    rng = np.random.default_rng(24)
+    s = FLASH_RUN["remat_seq"]
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, s)),
+                                dtype=torch.int32, device=dev)
+             for k in ("tokens", "labels")}
+    calls = []
+    real = tf.checkpoint
+
+    def counted(fn, *a, **kw):
+        calls.append(fn.__name__)
+        return real(fn, *a, **kw)
+
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "S": s,
+           "period": cfg.period}
+    grads = {}
+    for remat in (True, False):
+        calls.clear()
+        base = _peak_reset(torch, dev)
+        t0 = time.perf_counter()
+        with mock.patch.object(tf, "checkpoint", counted):
+            loss = tf.loss_fn(params, cfg, batch, impl="chunked", remat=remat)
+            grads[remat] = (loss.detach(),) + torch.autograd.grad(loss, leaves)
+        _sync(torch, dev)
+        out[f"remat_{remat}"] = {
+            "s": time.perf_counter() - t0, "loss": loss.item(),
+            "peak_bytes": _peak(torch, dev, base),
+            "checkpoints": len(calls),
+            "nested": calls.count("_apply_layer")}
+        del loss
+    blocks = cfg.num_layers // cfg.period
+    if out["remat_True"]["nested"] != 2 * cfg.num_layers or out[
+            "remat_True"]["checkpoints"] != blocks + 2 * cfg.num_layers or \
+            out["remat_False"]["checkpoints"]:
+        raise AssertionError(f"24c: checkpoint regions {out}")
+    differ = sum(int((a != b).sum()) for a, b in zip(grads[True],
+                                                     grads[False]))
+    out["elements"] = sum(t.numel() for t in grads[True])
+    out["differ"] = differ
+    del grads, params, leaves
+    r, p = out["remat_True"], out["remat_False"]
+    print(f"24c: {cfg.name} at {cfg.num_layers} layers (period "
+          f"{cfg.period}), S {s}, chunked: nested remat {r['s']:.3f} s, "
+          f"peak {r['peak_bytes'] / 2**30:.2f} GiB, {r['checkpoints']} "
+          f"checkpoint regions ({r['nested']} a layer); no remat "
+          f"{p['s']:.3f} s, peak {p['peak_bytes'] / 2**30:.2f} GiB; "
+          f"{differ} of {out['elements']} loss and gradient elements "
+          f"differ", flush=True)
+    if differ:
+        raise AssertionError(f"24c: nested remat changed {differ} elements")
+    return out
+
+
+def run_flash(torch, ops):
+    """Phase 24: 24a, 24b and 24c, each timed."""
+    return _run_parts(torch, ops, FLASH_RUN["device"], (
+        ("rounds", "24a. Gemma-2B rounds", run_flash_rounds),
+        ("function", "24b. the flash Function", run_flash_function),
+        ("remat", "24c. nested remat", run_flash_remat)))
 
 
 def _check_bodies(ops, where, bf16=True):
@@ -4945,7 +5248,8 @@ def main(argv=None) -> int:
             ("async", "20. the async round", run_async),
             ("dense", "21. StableLM-2-12B and Qwen2.5-32B", run_dense),
             ("moe", "22. OLMoE-1B-7B and Phi-3.5-MoE", run_moe),
-            ("front", "23. MusicGen-medium and Qwen2-VL-72B", run_front)):
+            ("front", "23. MusicGen-medium and Qwen2-VL-72B", run_front),
+            ("flash", "24. the flash training path", run_flash)):
         t0 = time.perf_counter()
         record[key] = fn(torch, ops)
         record[f"{key}_s"] = time.perf_counter() - t0

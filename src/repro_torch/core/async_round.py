@@ -149,7 +149,7 @@ def async_wssl_round(state: WSSLState, astate: AsyncState,
                      agg_p=None,
                      comp_p: Optional[compress.CompressionParams] = None, *,
                      model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
-                     train_cfg: TrainConfig, schedule, impl: str = "dense",
+                     train_cfg: TrainConfig, schedule, impl: str = "chunked",
                      shard_ctx=None, gumbel: Optional[torch.Tensor] = None,
                      comp_uniform: Optional[Uniform] = None,
                      fault_draws: Optional[sim_faults.FaultDraws] = None
@@ -317,7 +317,7 @@ def async_wssl_round(state: WSSLState, astate: AsyncState,
 
 
 def make_async_round_fn(model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
-                        train_cfg: TrainConfig, impl: str = "dense"):
+                        train_cfg: TrainConfig, impl: str = "chunked"):
     """The async round with its configs and learning-rate schedule closed
     over: ``round_fn(state, astate, batch, val_batch=None, scenario=None,
     async_p=None, agg_p=None, comp_p=None, *, gumbel=None,
@@ -332,7 +332,7 @@ def make_async_round_fn(model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
 
 def make_sharded_async_round_fn(model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
                                 train_cfg: TrainConfig, mesh=None, *,
-                                impl: str = "dense", donate: bool = True):
+                                impl: str = "chunked", donate: bool = True):
     """The client-axis scale-out of :func:`async_wssl_round`: not ported
     yet."""
     raise NotImplementedError(

@@ -90,14 +90,17 @@ forward/backward (:func:`_client_grads`), the clip and the gradient
 corruption, the masked step on kept pre-step rows, the update
 transforms, validation and the byte accounting.
 
-Every ported layer kind trains: global and local attention, the Mamba-2
-SSD block and the RG-LRU block, the recurrent ones through their plain
-scans (``ssd_chunked``, the doubling scan), as the JAX round trains them
-with ``impl="dense"``.  A vision frontend's ``batch["embeds"]`` go
-through each client's stage; the edge and server stages see text
-positions over the spliced length and the loss trims the prefix, as in
-JAX.  Not ported yet, and raising ``NotImplementedError`` naming the
-ROADMAP item rather than being ignored: client-axis sharding (item 13).
+Every ported layer kind trains: global and local attention through any
+impl of ``models/attention.py::TRAIN_IMPLS`` (the round defaults to
+``chunked``, as JAX's does: the flash path, whose backward recomputes the
+probability tiles instead of holding an (S, S) matrix a layer), the
+Mamba-2 SSD block and the RG-LRU block through their plain scans
+(``ssd_chunked``, the doubling scan), as the JAX round trains them.  A
+vision frontend's ``batch["embeds"]`` go through each client's stage;
+the edge and server stages see text positions over the spliced length
+and the loss trims the prefix, as in JAX.  Not ported yet, and raising
+``NotImplementedError`` naming the ROADMAP item rather than being
+ignored: client-axis sharding (item 13).
 """
 
 from __future__ import annotations
@@ -225,7 +228,8 @@ def _check_ported(batch, shard_ctx, train_cfg: TrainConfig,
                   wssl_cfg: WSSLConfig, impl: str) -> None:
     """Refuse, before any state moves, what the port does not run yet, and
     a client chunk that does not divide the clients (``ValueError``, as
-    the JAX round raises at trace time)."""
+    the JAX round raises at trace time), and an attention impl without a
+    backward (``kernel`` / ``pallas``)."""
     if shard_ctx is not None:
         raise NotImplementedError(
             "client-axis sharding is not ported yet (ROADMAP Queue 1, "
@@ -660,7 +664,7 @@ def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
                scenario=None, agg_p=None,
                comp_p: Optional[compress.CompressionParams] = None, *,
                model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
-               train_cfg: TrainConfig, schedule, impl: str = "dense",
+               train_cfg: TrainConfig, schedule, impl: str = "chunked",
                shard_ctx=None, gumbel: Optional[torch.Tensor] = None,
                comp_uniform: Optional[Uniform] = None,
                fault_draws: Optional[sim_faults.FaultDraws] = None
@@ -764,7 +768,7 @@ def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
 
 
 def make_round_fn(model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
-                  train_cfg: TrainConfig, impl: str = "dense"):
+                  train_cfg: TrainConfig, impl: str = "chunked"):
     """The round with its configs and learning-rate schedule closed over:
     ``round_fn(state, batch, val_batch=None, scenario=None, agg_p=None,
     comp_p=None, *, gumbel=None, comp_uniform=None, fault_draws=None)``.

@@ -1,6 +1,10 @@
 """The step functions the launchers drive — the twin of
 ``repro/launch/steps.py``.
 
+* ``train_4k`` → :func:`make_train_step`: one WSSL round without
+  validation, and :func:`make_val_step`: every client's validation loss
+  and the new importance (Algorithm 1 line 6), at a lower cadence.  Both
+  default to ``impl="chunked"``, the flash training path, as in JAX.
 * ``prefill_32k`` → :func:`make_prefill_step`: a full-sequence forward
   that returns the last position's logits, a vision frontend's patch
   embeddings (``batch["embeds"]``) in front of the text when given.  With
@@ -10,18 +14,56 @@
   step against a cache; ``long_500k`` decodes every global layer within
   the config's ``long_context_window``.
 
-The train and validation steps are the rounds' own
-(``core/round.py::make_round_fn``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.config import ModelConfig, ShapeConfig
+from repro_torch.config import (ModelConfig, ShapeConfig, TrainConfig,
+                                WSSLConfig)
+from repro_torch.core import round as rnd
 from repro_torch.models import transformer as tf
+
+
+def make_train_step(model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
+                    train_cfg: TrainConfig, impl: str = "chunked"
+                    ) -> Callable[..., Tuple[rnd.WSSLState,
+                                             rnd.RoundMetrics]]:
+    """``train_step(state, batch, gumbel=None) -> (state, metrics)``: one
+    round of ``make_round_fn`` without a validation set (the importance
+    carries over), the state updated in place; ``gumbel`` replaces the
+    selection draw."""
+    round_fn = rnd.make_round_fn(model_cfg, wssl_cfg, train_cfg, impl=impl)
+
+    def train_step(state: rnd.WSSLState, batch: Dict[str, torch.Tensor],
+                   gumbel: Optional[torch.Tensor] = None):
+        return round_fn(state, batch, None, gumbel=gumbel)
+
+    return train_step
+
+
+def make_val_step(model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
+                  train_cfg: TrainConfig, impl: str = "chunked"
+                  ) -> Callable[..., Tuple[rnd.WSSLState, torch.Tensor]]:
+    """``val_step(state, val_batch) -> (state, val_losses (N,))``: every
+    client's stage, selected or not, through the shared stages on
+    ``val_batch`` (tokens / labels (bv, S)), then the importance EMA,
+    written into ``state.importance`` in place.  The losses are the
+    round's own validation (``core/round.py::_validate``); JAX's step
+    vmaps the client stage straight into the server stage, which is the
+    same computation wherever there is one cut."""
+
+    def val_step(state: rnd.WSSLState, val_batch: Dict[str, torch.Tensor]):
+        val_losses, importance = rnd._validate(
+            state, val_batch, model_cfg=model_cfg, wssl_cfg=wssl_cfg,
+            impl=impl)
+        state.importance.copy_(importance)
+        return state, val_losses
+
+    return val_step
 
 
 def make_prefill_step(model_cfg: ModelConfig, impl: str = "kernel"

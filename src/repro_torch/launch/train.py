@@ -9,15 +9,20 @@ with random weights from a seed:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
       --clients 2 --rounds 3 --seq-len 128 --batch-per-client 2
 
-The recurrent families train through their plain scans (``impl="dense"``),
-as the JAX package trains them.  The MoE models add their routers'
-load-balance aux loss past the client stage, for every client (selected
-or not), as the JAX round does.  A Mamba-2 sequence is at most one SSD
-chunk or a whole number of chunks; any other length raises ``ValueError``
-(``models/ssm.py::ssd_chunked``) where JAX asserts.
+Attention trains through ``--impl`` (default ``dense``, as the JAX
+launcher's; ``chunked`` / ``flash`` take the flash path, whose backward
+recomputes the probability tiles, ``triangular`` and ``banded`` the
+blocked paths of ``models/attention.py``); the recurrent families through
+their plain scans, as the JAX package trains them.  The MoE models add
+their routers' load-balance aux loss past the client stage, for every
+client (selected or not), as the JAX round does.  A Mamba-2 sequence is
+at most one SSD chunk or a whole number of chunks; any other length
+raises ``ValueError`` (``models/ssm.py::ssd_chunked``) where JAX asserts.
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch path instead
-(with ``--reduced`` for a size the CPU can take).
+(with ``--reduced`` for a size the CPU can take).  ``--checkpoint PATH``
+saves the trained stages ``{"client_stack", "server"}`` in the JAX
+launcher's format (``checkpoint/io.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.config import (ModelConfig, TrainConfig, WSSLConfig,
                                 get_arch, reduced)
 from repro_torch.core.round import WSSLState, init_state, make_round_fn
@@ -52,7 +58,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--participation", type=float, default=0.5)
     ap.add_argument("--impl", default="dense",
-                    help="attention implementation; training runs 'dense'")
+                    help="attention implementation: dense | chunked | flash "
+                         "| triangular | banded")
     ap.add_argument("--client-chunk", type=int, default=None,
                     help="per-client forward/backward in chunks of this many "
                          "clients (must divide --clients)")
@@ -62,7 +69,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "card")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint", default=None,
-                    help="save the trained stages (not ported yet)")
+                    help="save the trained stages to this .npz path")
     ap.add_argument("--log", default=None, help="write the history as JSON")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain PyTorch path")
@@ -71,10 +78,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def make_configs(args: argparse.Namespace
                  ) -> Tuple[ModelConfig, WSSLConfig, TrainConfig]:
-    if args.checkpoint is not None:
-        raise NotImplementedError(
-            "--checkpoint is not ported yet (ROADMAP Queue 1, item 14: "
-            "checkpoint/io.py)")
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -146,10 +149,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     cfg, wssl_cfg, train_cfg = make_configs(args)
     device = resolve_device(args.device)
     print(f"device={device.type} arch={cfg.name} clients={args.clients}")
-    _, history = train(cfg, wssl_cfg, train_cfg, rounds=args.rounds,
-                       batch_per_client=args.batch_per_client,
-                       seq_len=args.seq_len, val_batch=args.val_batch,
-                       seed=args.seed, device=device, impl=args.impl)
+    state, history = train(cfg, wssl_cfg, train_cfg, rounds=args.rounds,
+                           batch_per_client=args.batch_per_client,
+                           seq_len=args.seq_len, val_batch=args.val_batch,
+                           seed=args.seed, device=device, impl=args.impl)
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint,
+                        {"client_stack": state.client_stack,
+                         "server": state.server_params},
+                        metadata={"arch": args.arch, "rounds": args.rounds})
+        print("checkpoint ->", args.checkpoint)
     if args.log:
         with open(args.log, "w") as f:
             json.dump(history, f, indent=2)

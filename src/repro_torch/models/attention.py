@@ -3,14 +3,26 @@ into a KV cache, and one-token decode against a contiguous, ring or paged
 cache.
 
 The PyTorch twin of ``repro/models/attention.py``.  Every public function
-keeps the JAX layout ``(B, S, H, hd)``.  Implementations (``impl``):
+keeps the JAX layout ``(B, S, H, hd)``.  Implementations (``impl``), as in
+JAX:
 
-* ``dense``  — materialize the (Sq, Sk) scores; the plain model path.
-* ``kernel`` — the hand-written CUDA flash kernel (``kernels/ops.py``),
+* ``dense``      — materialize the (Sq, Sk) scores; the plain model path.
+* ``chunked`` / ``flash`` — for full-sequence attention (training), the
+  flash path: an online softmax over KV blocks whose backward
+  (:class:`_FlashAttention`) saves only ``(q, k, v, positions, out, m,
+  l)`` and recomputes the probability tiles block by block, so a
+  long-sequence train step never holds an (Sq, Sk) matrix; prefill takes
+  the plain online-softmax scan (:func:`_attn_chunked`).
+* ``triangular`` — the online softmax over the lower-triangular (q-block,
+  kv-block) pairs: exact causal FLOPs, differentiated by autograd.
+* ``banded``     — a local layer on a 2w band: exact O(S·2w) FLOPs.
+* ``kernel``     — the hand-written CUDA flash kernel (``kernels/ops.py``),
   which takes any S >= 1 and a window.  ``pallas``, the JAX package's name
-  for its kernel path, is accepted as an alias.  It has no backward yet,
-  so :func:`multihead_attention` takes it only with autograd off (the
-  prefill step), and training runs ``dense`` only.
+  for its kernel path, is accepted as an alias.  It has no backward (nor
+  has JAX's Pallas flash), so :func:`multihead_attention` takes it only
+  with autograd off (the prefill step).
+
+Training runs every impl but ``kernel`` / ``pallas`` (:data:`TRAIN_IMPLS`).
 
 Local layers keep a ring of ``min(window, max_len)`` entries, written at
 slot ``pos % size``; global layers a full-length cache that refuses to
@@ -18,8 +30,8 @@ overflow, or, under the long-context decode-window override, a ring of
 the override's size like a local layer's.
 
 Under M-RoPE (``rope_kind="mrope"``) positions carry three streams
-(B, S, 3); the dense path masks by the temporal one, the kernel path by
-index, as the JAX package's two paths do.
+(B, S, 3); every path but the kernel masks by the temporal one, the kernel
+by index, as the JAX package's paths do.
 
 KV caches are updated in place (``index_put_``) where the JAX package
 donated its buffers: the functions return the cache they were given.
@@ -39,7 +51,9 @@ from repro_torch.models.layers import apply_rope, softcap
 Params = Dict[str, Any]
 
 NEG_INF = -1e30
-IMPLS = ("dense", "kernel", "pallas")
+IMPLS = ("dense", "chunked", "flash", "banded", "triangular", "kernel",
+         "pallas")
+_KERNEL_IMPLS = ("kernel", "pallas")
 
 
 def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -134,21 +148,303 @@ def _attn_kernel(cfg: ModelConfig, q, k, v,
 
 
 # ---------------------------------------------------------------------------
+# Blocked attention: the online softmax over KV blocks.  The blocked paths
+# work heads-first, (B, K, G, S, ...), so each block's products are one
+# batched matmul over (B, K) with the group's queries folded into M.
+# ---------------------------------------------------------------------------
+
+
+def _heads_first(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, K, G, hd) -> (B, K, G, S, hd); (B, S, K, hd) -> (B, K, S,
+    hd)."""
+    if x.dim() == 5:
+        return x.permute(0, 2, 3, 1, 4).contiguous()
+    return x.transpose(1, 2).contiguous()
+
+
+def _seq_first(x: torch.Tensor) -> torch.Tensor:
+    """(B, K, G, S, hd) -> (B, S, K, G, hd), contiguous."""
+    return x.permute(0, 3, 1, 2, 4).contiguous()
+
+
+def _scores(qt: torch.Tensor, kj: torch.Tensor) -> torch.Tensor:
+    """qt (B, K, G, Sq, hd) · kj (B, K, Sk, hd) -> (B, K, G, Sq, Sk) in the
+    activation dtype (JAX's ``einsum("bqkgd,bskd->bkgqs")``)."""
+    b, kh, g, sq, hd = qt.shape
+    return (qt.reshape(b, kh, g * sq, hd) @ kj.transpose(-1, -2)).view(
+        b, kh, g, sq, kj.shape[2])
+
+
+def _weighted(p: torch.Tensor, vj: torch.Tensor) -> torch.Tensor:
+    """p (B, K, G, Sq, Sk) · vj (B, K, Sk, hd) -> (B, K, G, Sq, hd)."""
+    b, kh, g, sq, sk = p.shape
+    return (p.reshape(b, kh, g * sq, sk) @ vj).view(b, kh, g, sq,
+                                                    vj.shape[-1])
+
+
+def _flash_blocks(x: torch.Tensor, block: int, dim: int = 2):
+    """Split ``x`` along its sequence ``dim`` into the KV blocks the
+    online softmax walks in order (JAX's scan-major blocking)."""
+    return x.split(block, dim=dim)
+
+
+def _flash_mask(pj: torch.Tensor, q_pos: torch.Tensor,
+                window: Optional[int]) -> torch.Tensor:
+    """Causal (and windowed) validity of keys at ``pj`` (B, Sk) for queries
+    at ``q_pos`` (B, Sq) -> (B, 1, 1, Sq, Sk)."""
+    mask = pj[:, None, None, None, :] <= q_pos[:, None, None, :, None]
+    if window is not None:
+        mask &= (q_pos[:, None, None, :, None]
+                 - pj[:, None, None, None, :]) < window
+    return mask
+
+
+def _softmax_step(m, l, acc, s, vj):
+    """One block of the online softmax: the running max ``m`` and sum
+    ``l`` (B, K, G, Sq) and the fp32 accumulator ``acc`` (B, K, G, Sq, hd)
+    take the block's masked fp32 scores ``s`` and values ``vj`` (B, K,
+    Sk, hd; P·V in their dtype).  A query with no valid key yet keeps
+    ``m = NEG_INF`` and gathers exp(0) = 1 per key; the first valid key
+    clears that through ``corr = exp(NEG_INF - m) = 0`` (with -inf this
+    would be NaN), as in JAX."""
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    corr = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l_new = l * corr + p.sum(dim=-1)
+    pv = _weighted(p.to(vj.dtype), vj).float()
+    return m_new, l_new, acc * corr[..., None] + pv
+
+
+def _softmax_init(qt: torch.Tensor):
+    b, kh, g, sq, hd = qt.shape
+    m = torch.full((b, kh, g, sq), NEG_INF, dtype=torch.float32,
+                   device=qt.device)
+    return m, torch.zeros_like(m), torch.zeros(qt.shape, dtype=torch.float32,
+                                               device=qt.device)
+
+
+def _flash_fwd_core(qg, k, v, q_pos, k_pos, scale: float,
+                    cap: Optional[float], window: Optional[int], block: int):
+    """The flash forward: qg (B, Sq, K, G, hd), k, v (B, Sk, K, hd) ->
+    (out (B, Sq, K, G, hd) in qg's dtype, m, l (B, K, G, Sq) fp32, ``l``
+    clamped to 1e-30).  Scores are cast to fp32 before the scale and the
+    softcap, as JAX's ``_flash_fwd_core`` casts them."""
+    qt = _heads_first(qg)
+    m, l, acc = _softmax_init(qt)
+    for kj, vj, pj in zip(_flash_blocks(_heads_first(k), block),
+                          _flash_blocks(_heads_first(v), block),
+                          _flash_blocks(k_pos, block, dim=1)):
+        z = _scores(qt, kj).float() * scale
+        s = cap * torch.tanh(z / cap) if cap is not None else z
+        s = torch.where(_flash_mask(pj, q_pos, window), s, NEG_INF)
+        m, l, acc = _softmax_step(m, l, acc, s, vj)
+    l = torch.clamp(l, min=1e-30)
+    return _seq_first((acc / l[..., None]).to(qg.dtype)), m, l
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with a recomputing backward: the twin of JAX's
+    ``_flash`` custom VJP (``_flash_fwd`` / ``_flash_bwd``).
+
+    The forward saves only ``qg, k, v, q_pos, k_pos, out, m, l``; the
+    backward recomputes each block's normalized probabilities
+    ``p = exp(s - m) / l``, accumulates ``dq`` in fp32 across blocks and
+    emits ``dk`` and ``dv`` per block, summed over the query group (MQA
+    folds every query head into one kv head).  The casts are JAX's: ``p``
+    and ``ds`` go to the activation dtype before their products, ``dout``
+    and ``v`` to fp32 for ``dp``."""
+
+    @staticmethod
+    def forward(ctx, qg, k, v, q_pos, k_pos, scale, cap, window, block):
+        out, m, l = _flash_fwd_core(qg, k, v, q_pos, k_pos, scale, cap,
+                                    window, block)
+        ctx.save_for_backward(qg, k, v, q_pos, k_pos, out, m, l)
+        ctx.args = (scale, cap, window, block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qg, k, v, q_pos, k_pos, out, m, l = ctx.saved_tensors
+        scale, cap, window, block = ctx.args
+        b, sq, kh, g, hd = qg.shape
+        qt = _heads_first(qg)
+        dt = _heads_first(dout)
+        dout32 = dt.float()
+        # delta_i = sum_d dout_i * out_i  (B, K, G, Sq)
+        delta = (dout32 * _heads_first(out).float()).sum(dim=-1)
+        dq = torch.zeros(qt.shape, dtype=torch.float32, device=qt.device)
+        dks, dvs = [], []
+        for kj, vj, pj in zip(_flash_blocks(_heads_first(k), block),
+                              _flash_blocks(_heads_first(v), block),
+                              _flash_blocks(k_pos, block, dim=1)):
+            z = _scores(qt, kj).float() * scale
+            if cap is not None:
+                s = cap * torch.tanh(z / cap)
+                dsdz = 1.0 - torch.square(s / cap)
+            else:
+                s, dsdz = z, None
+            mask = _flash_mask(pj, q_pos, window)
+            s = torch.where(mask, s, NEG_INF)
+            p = torch.exp(s - m[..., None]) / l[..., None]     # normalized
+            bk = kj.shape[2]
+            pt = p.to(dout.dtype).reshape(b, kh, g * sq, bk).transpose(-1, -2)
+            dvs.append(pt @ dt.reshape(b, kh, g * sq, hd))
+            dp = _scores(dout32, vj.float())
+            ds = p * (dp - delta[..., None])
+            if dsdz is not None:
+                ds = ds * dsdz
+            ds = torch.where(mask, ds, 0.0) * scale
+            ds = ds.to(qg.dtype)
+            dq = dq + _weighted(ds, kj).float()
+            dks.append(ds.reshape(b, kh, g * sq, bk).transpose(-1, -2)
+                       @ qt.reshape(b, kh, g * sq, hd))
+        dk = torch.cat(dks, dim=2).transpose(1, 2).to(k.dtype)
+        dv = torch.cat(dvs, dim=2).transpose(1, 2).to(v.dtype)
+        return (_seq_first(dq).to(qg.dtype), dk, dv, None, None, None, None,
+                None, None)
+
+
+def _attn_flash(cfg: ModelConfig, q, k, v, q_pos, k_pos,
+                window: Optional[int] = None, block: int = 256
+                ) -> torch.Tensor:
+    """Memory-bounded attention with a flash (recomputing) backward; the
+    dense path where the keys do not split into whole blocks."""
+    sk = k.shape[1]
+    block = min(block, sk)
+    if sk % block:
+        return _attn_dense(cfg, q, k, v, q_pos, k_pos, window)
+    out = _FlashAttention.apply(_group(cfg, q), k, v, q_pos, k_pos,
+                                _scale(cfg), cfg.attn_logit_softcap, window,
+                                block)
+    return out.reshape(q.shape)
+
+
+def _attn_chunked(cfg: ModelConfig, q, k, v, q_pos, k_pos,
+                  window: Optional[int] = None, block: int = 1024
+                  ) -> torch.Tensor:
+    """The online-softmax scan over KV blocks (rectangle FLOPs, bounded
+    forward memory), differentiated by autograd; the dense path where the
+    keys do not split into whole blocks.  Scores are scaled and capped in
+    the activation dtype, then cast, as JAX's ``_attn_chunked`` does."""
+    sk = k.shape[1]
+    block = min(block, sk)
+    if sk % block:
+        return _attn_dense(cfg, q, k, v, q_pos, k_pos, window)
+    qt = _heads_first(_group(cfg, q))
+    m, l, acc = _softmax_init(qt)
+    for kj, vj, pj in zip(_flash_blocks(_heads_first(k), block),
+                          _flash_blocks(_heads_first(v), block),
+                          _flash_blocks(k_pos, block, dim=1)):
+        s = softcap(_scores(qt, kj) * _scale(cfg), cfg.attn_logit_softcap)
+        s = torch.where(_flash_mask(pj, q_pos, window), s.float(), NEG_INF)
+        m, l, acc = _softmax_step(m, l, acc, s, vj)
+    l = torch.clamp(l, min=1e-30)
+    return _seq_first((acc / l[..., None]).to(q.dtype)).reshape(q.shape)
+
+
+def _attn_triangular(cfg: ModelConfig, q, k, v, q_pos, k_pos,
+                     window: Optional[int] = None, block: int = 1024
+                     ) -> torch.Tensor:
+    """Exact-causal-FLOPs blocked attention over the lower-triangular
+    (q-block, kv-block) pairs, each q block's kv blocks in order, as JAX's
+    pair scan; self-attention only (``chunked`` where Sq != Sk or the
+    queries do not split into whole blocks).  Each q block's running
+    state is its own tensor and the outputs are concatenated, out of
+    place, so autograd differentiates it as JAX differentiates its
+    scan."""
+    sq, sk = q.shape[1], k.shape[1]
+    block = min(block, sq, sk)
+    if sq != sk or sq % block:
+        return _attn_chunked(cfg, q, k, v, q_pos, k_pos, window)
+    qb = _flash_blocks(_heads_first(_group(cfg, q)), block, dim=3)
+    kb = _flash_blocks(_heads_first(k), block)
+    vb = _flash_blocks(_heads_first(v), block)
+    pqb = _flash_blocks(q_pos, block, dim=1)
+    pkb = _flash_blocks(k_pos, block, dim=1)
+    outs = []
+    for i, (qi, pq) in enumerate(zip(qb, pqb)):
+        m, l, acc = _softmax_init(qi)
+        for kj, vj, pk in zip(kb[:i + 1], vb[:i + 1], pkb[:i + 1]):
+            s = softcap(_scores(qi, kj) * _scale(cfg), cfg.attn_logit_softcap)
+            s = torch.where(_flash_mask(pk, pq, window), s.float(), NEG_INF)
+            m, l, acc = _softmax_step(m, l, acc, s, vj)
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.cat(outs, dim=3).to(q.dtype)
+    return _seq_first(out).reshape(q.shape)
+
+
+def _attn_banded(cfg: ModelConfig, q, k, v, q_pos, k_pos,
+                 window: int) -> torch.Tensor:
+    """Sliding-window attention on a 2w band: query block i attends kv
+    blocks {i-1, i} at block size ``window``, exact O(S·2w) FLOPs; the
+    dense path where S is not a whole number of windows above one."""
+    b, s, hq, hd = q.shape
+    w = window
+    if s % w or s <= w:
+        return _attn_dense(cfg, q, k, v, q_pos, k_pos, window)
+    n = s // w
+    qg = _group(cfg, q)
+    qb = qg.reshape(b, n, w, *qg.shape[2:])
+    kb = k.reshape(b, n, w, *k.shape[2:])
+    vb = v.reshape(b, n, w, *v.shape[2:])
+    pqb, pkb = q_pos.reshape(b, n, w), k_pos.reshape(b, n, w)
+    kprev = torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], dim=1)
+    vprev = torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1)
+    pprev = torch.cat([torch.full_like(pkb[:, :1], -(10 ** 9)),
+                       pkb[:, :-1]], dim=1)
+    k2 = torch.cat([kprev, kb], dim=2)                # (B,n,2w,K,hd)
+    v2 = torch.cat([vprev, vb], dim=2)
+    p2 = torch.cat([pprev, pkb], dim=2)               # (B,n,2w)
+    sc = torch.einsum("bnqkgd,bnskd->bnkgqs", qb, k2) * _scale(cfg)
+    sc = softcap(sc, cfg.attn_logit_softcap)
+    pq, pk = pqb[:, :, None, None, :, None], p2[:, :, None, None, None, :]
+    mask = (pk <= pq) & (pq - pk < w)
+    sc = torch.where(mask, sc.float(), NEG_INF)
+    pr = torch.softmax(sc, dim=-1).to(q.dtype)
+    out = torch.einsum("bnkgqs,bnskd->bnqkgd", pr, v2)
+    return out.reshape(b, s, hq, hd)
+
+
+# ---------------------------------------------------------------------------
 # Training: full-sequence attention with autograd
 # ---------------------------------------------------------------------------
 
-TRAIN_IMPLS = ("dense",)
+TRAIN_IMPLS = ("dense", "chunked", "flash", "banded", "triangular")
 
 
 def check_train_impl(impl: str) -> None:
-    """Training runs the dense path only: the flash kernel has no backward
-    yet, and the JAX package's ``chunked`` / ``flash`` custom-VJP path is
-    not ported."""
+    """Training runs JAX's five training impls; the CUDA flash kernel
+    (``kernel`` / ``pallas``) has no backward, nor has JAX's Pallas
+    flash."""
+    _check_impl(impl)
     if impl not in TRAIN_IMPLS:
         raise NotImplementedError(
-            f"attention impl {impl!r} has no backward in the port yet: train "
-            f"with impl='dense' (ROADMAP Queue 1, item 6: the chunked / flash "
-            f"training path and the flash-attention backward kernel)")
+            f"attention impl {impl!r} runs the CUDA flash kernel, which has "
+            f"no backward yet (ROADMAP Queue 4, item 4.11; nor has JAX's "
+            f"Pallas flash): train with one of {TRAIN_IMPLS}")
+
+
+def _full_attention(cfg: ModelConfig, q, k, v, positions, window, impl,
+                    prefill: bool) -> torch.Tensor:
+    """Route a full-sequence attention as JAX does: ``multihead_attention``
+    (``prefill=False``) sends windowed ``banded`` to the band and
+    ``chunked`` / ``flash`` / windowless ``banded`` to the flash VJP;
+    ``prefill_attention`` sends windowed ``banded`` / ``chunked`` /
+    ``triangular`` to the band and the rest but ``dense`` / ``triangular``
+    to the online-softmax scan."""
+    if impl in _KERNEL_IMPLS:
+        return _attn_kernel(cfg, q, k, v, window)
+    pos = _mask_positions(positions)
+    if window is not None and (impl == "banded" or prefill and impl in (
+            "chunked", "triangular")):
+        return _attn_banded(cfg, q, k, v, pos, pos, window)
+    if impl == "dense":
+        return _attn_dense(cfg, q, k, v, pos, pos, window)
+    if impl == "triangular":
+        return _attn_triangular(cfg, q, k, v, pos, pos, window)
+    if prefill:
+        return _attn_chunked(cfg, q, k, v, pos, pos, window)
+    return _attn_flash(cfg, q, k, v, pos, pos, window)
 
 
 def multihead_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -157,19 +453,16 @@ def multihead_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
                         impl: str = "dense") -> torch.Tensor:
     """Full-sequence causal self-attention (train / prefill without a
     cache), global or within ``window``.  x (B,S,D); positions (B,S), or
-    (B,S,3) under M-RoPE (the dense path masks by the temporal stream, the
-    kernel by index).  ``dense`` is differentiable by autograd; the kernel
-    has no backward, so it raises while autograd is on."""
+    (B,S,3) under M-RoPE (every path but the kernel masks by the temporal
+    stream, the kernel by index).  Every impl of :data:`TRAIN_IMPLS` is
+    differentiable; the kernel has no backward, so it raises while
+    autograd is on."""
     _check_impl(impl)
     if torch.is_grad_enabled():
         check_train_impl(impl)
     q, k, v = _project_qkv(cfg, p, x, positions)
-    if impl == "dense":
-        pos1d = _mask_positions(positions)
-        out = _attn_dense(cfg, q, k, v, pos1d, pos1d, window)
-    else:
-        out = _attn_kernel(cfg, q, k, v, window)
-    return _out_proj(p, out)
+    return _out_proj(p, _full_attention(cfg, q, k, v, positions, window,
+                                        impl, prefill=False))
 
 
 # ---------------------------------------------------------------------------
@@ -242,15 +535,14 @@ def prefill_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     global layer's cache shorter than the prompt, which is a ring of the
     decode-window override (the prompt itself attends in full, as in
     JAX).  Positions start at 0, as every prefill does; under M-RoPE they
-    are (B,S,3) and mask the dense path as in
-    :func:`multihead_attention`."""
+    are (B,S,3) and mask every path but the kernel as in
+    :func:`multihead_attention`.  ``impl`` routes as JAX's prefill does: a
+    windowed ``banded``, ``chunked`` or ``triangular`` layer takes the
+    band, ``chunked`` / ``flash`` the online-softmax scan."""
     _check_impl(impl)
     q, k, v = _project_qkv(cfg, p, x, positions)
-    if impl == "dense":
-        pos1d = _mask_positions(positions)
-        out = _attn_dense(cfg, q, k, v, pos1d, pos1d, window)
-    else:
-        out = _attn_kernel(cfg, q, k, v, window)
+    out = _full_attention(cfg, q, k, v, positions, window, impl,
+                          prefill=True)
     ring = window is not None or cache["k"].shape[1] < k.shape[1]
     cache = cache_write(cache, k, v, 0, ring=ring)
     return _out_proj(p, out), cache

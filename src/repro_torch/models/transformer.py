@@ -35,9 +35,12 @@ tensors (``core/round.py`` binds each layer's slice as a leaf of its own,
 so autograd accumulates into the slice and not into a full-size buffer
 per layer); the layer loops index both forms the same way.  ``remat``
 recomputes the activations of each span of super-blocks in the backward
-(``torch.utils.checkpoint``), which changes no number.  Training runs
-every layer kind through its plain path (``impl="dense"``): the kernels
-have no backward, in either package.
+(``torch.utils.checkpoint``), and with a period above 1 each layer of a
+super-block under a checkpoint of its own inside the span's, as JAX
+nests them; neither changes a number.  Training runs attention through
+any impl of ``attention.TRAIN_IMPLS`` (the flash path's recomputing
+backward under ``chunked`` / ``flash``) and the recurrent blocks through
+their plain scans: the kernels have no backward, in either package.
 """
 
 from __future__ import annotations
@@ -62,7 +65,6 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, dense_param,
 Params = Dict[str, Any]
 
 _MIXERS = (ATTN_GLOBAL, ATTN_LOCAL, MIX_SSM, MIX_RGLRU)
-_KERNEL_IMPLS = ("kernel", "pallas")
 
 
 def _check_spec(spec: LayerSpec) -> None:
@@ -549,7 +551,7 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Params,
                  x: torch.Tensor, positions: torch.Tensor,
                  impl: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     h = apply_norm(cfg, p["norm1"], x)
-    use_kernel = impl in _KERNEL_IMPLS
+    use_kernel = impl in attn._KERNEL_IMPLS
     if _is_attn(spec):
         mixed = attn.multihead_attention(cfg, p["mixer"], h, positions,
                                          window=spec.window, impl=impl)
@@ -578,25 +580,36 @@ def _stack_forward(stack: List[Params], cfg: ModelConfig, x: torch.Tensor,
     aux, None without MoE layers).  With ``remat`` each span of
     ``remat_span`` super-blocks (the largest divisor of the count not
     above it) is recomputed in the backward, as the JAX scan body; the
-    aux sums within a span, then across spans, as JAX's forward does."""
+    aux sums within a span, then across spans, as JAX's forward does.
+    With ``remat`` and a period above 1, each layer of a super-block also
+    runs under a checkpoint of its own inside the span's (JAX's
+    ``nested``), so the span's recompute holds one layer's activations at
+    a time."""
     period_specs, _, _ = _superblock_layout(cfg)
     n = _num_blocks(stack)
     if n == 0:
         return x, None
     span = _resolve_span(n, remat_span if remat else 1)
+    remat = remat and torch.is_grad_enabled()
+    nested = remat and len(period_specs) > 1
 
     def span_block(x, first):
         aux = None
         for t in range(first, first + span):
             for j, spec in enumerate(period_specs):
-                x, a = _apply_layer(cfg, spec, _tree_index(stack[j], t), x,
-                                    positions, impl)
+                args = (cfg, spec, _tree_index(stack[j], t), x, positions,
+                        impl)
+                if nested:
+                    x, a = checkpoint(_apply_layer, *args, use_reentrant=False,
+                                      preserve_rng_state=False)
+                else:
+                    x, a = _apply_layer(*args)
                 aux = _add_aux(aux, a)
         return x, aux
 
     total = None
     for first in range(0, n, span):
-        if remat and torch.is_grad_enabled():
+        if remat:
             x, aux = checkpoint(span_block, x, first, use_reentrant=False,
                                 preserve_rng_state=False)
         else:

@@ -41,11 +41,13 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig, WSSLConfig
-from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import resolve_device
 
 Params = Any
+
+# the prefill paths the engine serves: the plain one and the flash kernel
+SERVE_IMPLS = ("dense", "kernel", "pallas")
 
 
 @dataclasses.dataclass
@@ -175,7 +177,9 @@ class DecodeEngine:
                  decode_window_override: Optional[int] = None,
                  spec_cut: Optional[int] = None,
                  paged_kernel: bool = False, device="cuda"):
-        attn._check_impl(impl)
+        if impl not in SERVE_IMPLS:
+            raise ValueError(f"unknown attn impl {impl!r} for the engine: it "
+                             f"prefills with {SERVE_IMPLS}")
         tf._superblock_layout(cfg)        # raises on an unported layer kind
         self.cfg = cfg
         self.impl = impl

@@ -207,7 +207,7 @@ def torch_case(name):
     cfg, w, t = _torch_config(name)
     state = state_from_jax(init, cfg, device="cpu")
     astate = init_async_state(state)
-    rf = make_async_round_fn(cfg, w, t)
+    rf = make_async_round_fn(cfg, w, t, impl="dense")
     _, sp = _scenarios(scenario)
     batches, val = _batches(rounds)
     tval = {k: torch.as_tensor(v) for k, v in val.items()}
@@ -378,7 +378,8 @@ def _inf_pair(scenario, rounds=2):
     a, b = state_from_jax(init, cfg, device="cpu"), state_from_jax(
         init, cfg, device="cpu")
     astate = init_async_state(a)
-    arf, srf = make_async_round_fn(cfg, wc, tc), make_round_fn(cfg, wc, tc)
+    arf = make_async_round_fn(cfg, wc, tc, impl="dense")
+    srf = make_round_fn(cfg, wc, tc, impl="dense")
     out = []
     for r in range(rounds):
         batch = {k: torch.as_tensor(v) for k, v in batches[r].items()}
@@ -422,7 +423,7 @@ def test_max_staleness_contributes_exactly_zero():
         if poison:
             for leaf in tree_leaves(astate.buffer):
                 leaf[0] = 1e6
-        make_async_round_fn(cfg, w, t)(
+        make_async_round_fn(cfg, w, t, impl="dense")(
             state, astate, {k: torch.as_tensor(v)
                             for k, v in batches[0].items()},
             {k: torch.as_tensor(v) for k, v in val.items()})
@@ -466,7 +467,8 @@ def test_async_beats_sync_under_async_stragglers():
     tc = TrainConfig(**dict(TRAIN_KW, learning_rate=3e-3))
     a, s = (state_from_jax(init, cfg, device="cpu") for _ in range(2))
     astate = init_async_state(a)
-    arf, srf = make_async_round_fn(cfg, wc, tc), make_round_fn(cfg, wc, tc)
+    arf = make_async_round_fn(cfg, wc, tc, impl="dense")
+    srf = make_round_fn(cfg, wc, tc, impl="dense")
     sp = sim.scenario_params(sim.get_scenario("async-stragglers"))
     val = {k: torch.as_tensor(v) for k, v in lm_batch(4, 16, 64,
                                                       seed=999).items()}

@@ -96,12 +96,12 @@ def run(kind, chunk):
     metrics = []
     if kind == "async":
         astate = init_async_state(state)
-        rf = make_async_round_fn(cfg, w, t)
+        rf = make_async_round_fn(cfg, w, t, impl="dense")
         for b in batches:
             _, _, m = rf(state, astate, b, val)
             metrics.append(m.base)
     else:
-        rf = make_round_fn(cfg, w, t)
+        rf = make_round_fn(cfg, w, t, impl="dense")
         for b in batches:
             metrics.append(rf(state, b, val)[1])
     return state, metrics
@@ -149,10 +149,10 @@ def test_chunk_must_divide_clients(kind):
     val, batches = _batches(N, rounds=1)
     with pytest.raises(ValueError, match="divide"):
         if kind == "async":
-            make_async_round_fn(cfg, w, t)(state, init_async_state(state),
-                                           batches[0], val)
+            make_async_round_fn(cfg, w, t, impl="dense")(
+                state, init_async_state(state), batches[0], val)
         else:
-            make_round_fn(cfg, w, t)(state, batches[0], val)
+            make_round_fn(cfg, w, t, impl="dense")(state, batches[0], val)
     for a, b in zip(before, _tensors(state)):
         assert torch.equal(a, b)
     assert int(state.round_index) == 0
@@ -256,9 +256,9 @@ def test_chunked_round_matches_live_jax(case):
     val, batches = _batches(JN)
     if is_async:
         astate = init_async_state(state)
-        rf = make_async_round_fn(cfg, w, t)
+        rf = make_async_round_fn(cfg, w, t, impl="dense")
     else:
-        rf = make_round_fn(cfg, w, t)
+        rf = make_round_fn(cfg, w, t, impl="dense")
     calls = []
 
     def spy(draw):

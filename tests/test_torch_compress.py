@@ -418,7 +418,7 @@ def _run(comp, rounds=3, validate=True):
     t = TrainConfig(**TRAIN_KW)
     state = init_state(torch.Generator().manual_seed(0), cfg, w, t,
                        device="cpu")
-    rf = make_round_fn(cfg, w, t)
+    rf = make_round_fn(cfg, w, t, impl="dense")
     val = {k: torch.as_tensor(v) for k, v in lm_batch(4, 16, 64,
                                                       seed=999).items()}
     out = []

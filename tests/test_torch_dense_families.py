@@ -387,7 +387,8 @@ def _rounds(name):
     jstate = jax.tree.map(np.asarray, js)
 
     state = state_from_jax(init, cfg, device="cpu")
-    rf = make_round_fn(cfg, WSSLConfig(**w), TrainConfig(**TRAIN_KW))
+    rf = make_round_fn(cfg, WSSLConfig(**w), TrainConfig(**TRAIN_KW),
+                       impl="dense")
     td = lm_batch(8, 24, cfg.vocab_size, seed=0)
     tv = lm_batch(2, 24, cfg.vocab_size, seed=999)
     state, m = rf(state, {k: torch.as_tensor(v).reshape(4, 2, 24)

@@ -95,7 +95,7 @@ def _torch_rounds(name):
         (state.client_stack, state.server_params, state.edge_stages)))
     rf = make_round_fn(cfg, WSSLConfig(num_clients=4,
                                        participation_fraction=0.5, **cut),
-                       TrainConfig(**TRAIN_KW))
+                       TrainConfig(**TRAIN_KW), impl="dense")
     val = {k: torch.as_tensor(v) for k, v in
            lm_batch(2, seq, cfg.vocab_size, seed=999).items()}
     metrics = []

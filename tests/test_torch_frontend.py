@@ -489,7 +489,8 @@ def torch_sync_rounds(chunk=None):
     cfg = cfg3()
     state = state_from_jax(_jax_init(), cfg, device="cpu")
     rf = make_round_fn(cfg, WSSLConfig(**W_KW),
-                       TrainConfig(client_chunk=chunk, **TRAIN_KW))
+                       TrainConfig(client_chunk=chunk, **TRAIN_KW),
+                       impl="dense")
     batches, val = _batches()
     metrics = []
     for b, g in zip(batches, gumbels):
@@ -562,7 +563,8 @@ def test_async_chunked_round_with_embeds_matches_live_jax_round():
     w = WSSLConfig(**W_KW, async_rounds=AsyncRoundsConfig(deadline=DEADLINE))
     tstate = state_from_jax(init, cfg, device="cpu")
     tastate = init_async_state(tstate)
-    trf = make_async_round_fn(cfg, w, TrainConfig(client_chunk=2, **TRAIN_KW))
+    trf = make_async_round_fn(cfg, w, TrainConfig(client_chunk=2, **TRAIN_KW),
+                              impl="dense")
     batches, val = _batches()
     for b in batches:
         _, rng_sel = jax.random.split(state.rng)

@@ -129,7 +129,8 @@ def torch_rounds(chunk=None, alt_rows=()):
     cfg = ModelConfig(**TINY_KW)
     state = state_from_jax(init, cfg, device="cpu")
     rf = make_round_fn(cfg, WSSLConfig(**W_KW),
-                       TrainConfig(client_chunk=chunk, **TRAIN_KW))
+                       TrainConfig(client_chunk=chunk, **TRAIN_KW),
+                       impl="dense")
     batches, val = _batches(alt_rows)
     tval = {k: _t(v) for k, v in val.items()}
     metrics = []
@@ -249,7 +250,7 @@ def test_async_round_matches_live_jax_round():
     w = WSSLConfig(**W_KW, async_rounds=AsyncRoundsConfig(deadline=DEADLINE))
     state = state_from_jax(init, cfg, device="cpu")
     astate = init_async_state(state)
-    rf = make_async_round_fn(cfg, w, TrainConfig(**TRAIN_KW))
+    rf = make_async_round_fn(cfg, w, TrainConfig(**TRAIN_KW), impl="dense")
     sp = sim.scenario_params(sim.get_scenario("stragglers"))
     batches, val = _batches()
     tval = {k: _t(v) for k, v in val.items()}

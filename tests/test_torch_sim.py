@@ -413,7 +413,7 @@ def torch_fault_rounds(name, scenario, rule="importance", frac=0.5,
     state = (state_from_jax(init, cfg, device="cpu") if init is not None
              else init_state(torch.Generator().manual_seed(0), cfg, w, t,
                              device="cpu"))
-    rf = make_round_fn(cfg, w, t)
+    rf = make_round_fn(cfg, w, t, impl="dense")
     batches, val = _batches(cfg.vocab_size)
     sc = (None if scenario is None
           else sim.scenario_params(sim.get_scenario(scenario)))
@@ -508,7 +508,7 @@ def test_all_dropped_round_leaves_shared_stages_alone():
         (state.server_params, state.opt_server.m, state.opt_server.v,
          state.client_stack))]
     before, step = snap(), int(state.opt_server.step)
-    rf = round_mod.make_round_fn(cfg, w, t)
+    rf = round_mod.make_round_fn(cfg, w, t, impl="dense")
     _, m = rf(state, {k: torch.as_tensor(v) for k, v in batches[0].items()},
               {k: torch.as_tensor(v) for k, v in val.items()},
               sim.scenario_params(Scenario(dropout_prob=1.0)))
