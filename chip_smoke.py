@@ -117,10 +117,10 @@ Phases, each printing its lines before the last:
              versions, the same seed and so the same draws: masks, losses,
              trained stages, the aggregate and the residuals bit-exact.
 
-12. family training — 3 WSSL rounds of Mamba-2-370M (full width at 16
-             of its 48 layers, 4 clients, cut 8, seq 256: two SSD
-             chunks) and full
-             RecurrentGemma-2B (26 layers, 2 clients, cut 3, seq 128)
+12. family training — 2 WSSL rounds of Mamba-2-370M (full width at 8
+             of its 48 layers, 4 clients, cut 4, seq 256: two SSD
+             chunks) and RecurrentGemma-2B (full width at 13 of its 26
+             layers, 2 clients, cut 3, seq 128)
              through ``launch/train.py``: fp32 params, bf16 activations,
              participation 0.5, fused AdamW, the plain scans (as the JAX
              package trains).  Checks: finite losses; fused-AdamW launches
@@ -129,15 +129,15 @@ Phases, each printing its lines before the last:
              masked it (fp64 row sums).  Reports round 0 and rounds 1-2,
              the peak memory and one more round under the profiler.
 13. family train parity — both families at full width and a cut depth
-             (Mamba-2 4 layers, cut 2; RecurrentGemma 8 layers, cut 3),
+             (Mamba-2 2 layers, cut 1; RecurrentGemma 6 layers, cut 3),
              through the AdamW kernel and then ``ops.fused_adamw_plain``,
              the same seed and Gumbel draws: masks equal, losses and
              stages within phase 7's bands.
 14. the paper experiment — ``core/paper_loop.py`` at full width in fp32
              on the synthetic stand-ins: the gait FFN WSSL at 2 and 10
-             clients (10 rounds x 10 local steps, ``make_gait_like(n=
+             clients (3 rounds x 10 local steps, ``make_gait_like(n=
              20000)``, split by subject) and its centralized baseline;
-             ResNet-18 (``CifarConfig``) WSSL at 4 clients (5 x 10, batch
+             ResNet-18 (``CifarConfig``) WSSL at 4 clients (2 x 10, batch
              128, lr 2e-3, ``make_image_like`` 12,000 images, stratified)
              and its baseline.  Checks: fused-AdamW launches = leaves x
              local steps taken, exactly, and nothing else launches; finite
@@ -153,17 +153,18 @@ Phases, each printing its lines before the last:
              layers since PR 24, 8 clients,
              cut 8, seq 256, batch 2, participation 1.0; fp32 params, bf16
              activations, fused AdamW, the plain scans), every client on a
-             token stream of its own: no scenario against ``clean``, 2
-             rounds each, the whole state bit-exact; then
+             token stream of its own: no scenario against ``clean``, 1
+             round each, the whole state bit-exact; then
              ``scaled-grad-adversary`` (clients 0-1 at x32) under the
-             importance mean and under Krum (f = 2), 2 rounds each.
+             importance mean and under Krum (f = 2), 1 round each.
              Checks: finite losses, fused-AdamW launches = leaves x
              rounds, Krum never picks client 0 or 1.  Reports the rounds'
              seconds, peak memory, the adversaries' importance against the
              honest mean and the global model's validation loss.
-17. fault parity — Mamba-2-370M at full width and 4 layers, cuts (1, 3)
+17. fault parity — Mamba-2-370M at full width and 3 layers, cuts (1, 2)
              (one edge stage, 2 hop replicas), 8 clients, seq 128 (one SSD
-             chunk; phase 16 crosses chunks), participation 0.5, 2 rounds: each fault scenario of ``FAULT_SCENARIOS``
+             chunk; phase 16 crosses chunks), participation 0.5, 1 round: each fault scenario of
+             ``FAULT_SCENARIOS``
              under the importance mean and each robust rule under
              ``scaled-grad-adversary``, through the AdamW kernel and
              through ``ops.fused_adamw_plain`` with the same seed and
@@ -172,11 +173,11 @@ Phases, each printing its lines before the last:
              launches = client leaves a round + shared leaves a round with
              a survivor.
 18. the paper's robustness — the paper loop on its own models: the gait
-             FFN at 10 clients (6 rounds x 10 steps, ``make_gait_like(n=
+             FFN at 10 clients (3 rounds x 10 steps, ``make_gait_like(n=
              20000)`` by subject) under seven scenarios with the importance
              mean, Krum and the median under the two model-poisoning
              scenarios, int8 and top-k uploads; ResNet-18 (``CifarConfig``)
-             at 8 clients (3 x 10) under ``label-flip-adversary`` with the
+             at 8 clients (2 x 10) under ``label-flip-adversary`` with the
              importance mean and Krum.  Checks: ``clean`` equals no
              scenario bit for bit (cuDNN deterministic, no TF32);
              ``history["dropped"]`` is the numpy replay of the loop's fault
@@ -188,10 +189,10 @@ Phases, each printing its lines before the last:
              versions (AdamW and the scheme's compression kernels at the
              gait leaves' shapes): bit-exact.  Reports accuracy
              by round and each adversary cohort's importance.
-19. Gemma-3-12B serving — Gemma-3-12B at full width and 24 of its 48
-             layers (20 local with window 1024 and 4 global, 16 query
+19. Gemma-3-12B serving — Gemma-3-12B at full width and 18 of its 48
+             layers (15 local with window 1024 and 3 global, 16 query
              heads over 8 kv heads, hd 256; cut in depth to make room for
-             phase 23) in bf16 at random weights (output projections x3),
+             phases 23 and 25) in bf16 at random weights (output projections x3),
              through the fault-routed router: 16 ``bursty_trace`` requests
              (prompts 768-1536, 16-32 new tokens, half with deadlines), 2
              replicas x 8 slots, chunk 8, paged KV of block 16, prefill
@@ -200,10 +201,10 @@ Phases, each printing its lines before the last:
              ``flash-crowd`` and ``degraded-fleet`` (both autoscaling to 4
              replicas), a pool of 60% of full residency, speculative
              decode (4 drafts from the client stage at cut 6) under
-             ``replica-drop``, split mode at cuts (6, 18), and the plain
+             ``replica-drop``, split mode at cuts (6, 12), and the plain
              path (dense prefill, gathered decode).  Checks: exact launch
-             counts (flash 24 per admission, re-admissions included; paged
-             4 per decode and verify step, 1 per draft step), every one on
+             counts (flash 18 per admission, re-admissions included; paged
+             3 per decode and verify step, 1 per draft step), every one on
              the tensor-core / split-K body; every request served or shed,
              shed ones with deadlines, none unfinished; re-routes under
              drops, a grown fleet under the flash crowd; runs 2, 3, 6, 7
@@ -215,8 +216,8 @@ Phases, each printing its lines before the last:
              admission and two decode steps of the kernel path profiled.
 
 20. the async round — see ``run_async``: the bounded-staleness round of
-             Mamba-2-370M (full width, 16 layers) under
-             ``async-stragglers`` (20a), a 4-layer
+             Mamba-2-370M (full width, 8 layers at cut 4) under
+             ``async-stragglers`` (20a), a 3-layer
              cut against the plain AdamW and compression bit for bit
              (20b), the gait loop under deadlines (20c).
 21. StableLM-2-12B and Qwen2.5-32B — 21a: flash (bf16 on the tensor-
@@ -226,14 +227,15 @@ Phases, each printing its lines before the last:
              TMA's zero fill) and Qwen's 40 over 8 at 128 (g 5), a ragged
              admission too, graph-timed beside SDPA.  21b: full
              StableLM-2-12B (40 layers, LayerNorm, bf16, its LayerNorm
-             scale and bias moved off their init) serving 16 requests
+             scale and bias moved off their init) serving 8 requests
              (prompts 256-1024, 16-32 new) on 2 replicas x 8 slots, chunk
              8, block 16, through flash and paged decode, then the plain
              path teacher-forced on the kernel path's tokens: exact launch
              counts on the tensor-core / split-K bodies, every served token
              equal to the plain path's argmax wherever that path's top-2
-             margin exceeds 0.5.  21c: full Qwen2.5-32B (64 layers, 65.5 GB, qkv biases
-             moved off zero) the same way, 8 requests (prompts 512-1024)
+             margin exceeds 0.5.  21c: Qwen2.5-32B at 32 of its 64 layers (65.5 GB
+             whole; qkv biases
+             moved off zero) the same way, 4 requests (prompts 512-1024)
              on 1 replica x 8 slots; both print their peak memory.  21d:
              StableLM-2-12B at full width cut to 4 layers (cut 2, 2
              clients, seq 128, fp32 params, 2 rounds) through the AdamW
@@ -247,8 +249,8 @@ Phases, each printing its lines before the last:
              every field on 4096 tokens with planted router ties and
              overflowing experts; OLMoE's full-width MoE layer run twice,
              bit-identical.  22b: full OLMoE-1B-7B (16 layers, 64 experts
-             top-8, bf16) serving 16 requests (prompts 256-1024, 16-32
-             new) on 2 x 8 slots; 22c: Phi-3.5-MoE at 16 of its 32
+             top-8, bf16) serving 8 requests (prompts 256-1024, 16-32
+             new) on 2 x 8 slots; 22c: Phi-3.5-MoE at 8 of its 32
              layers (LayerNorm moved off its init, 16 experts top-2), 8
              requests (prompts 512-1024) on 1 x 8; each kernel path vs the
              plain path as in 21b, the plain path also replaying the kernel
@@ -265,9 +267,9 @@ Phases, each printing its lines before the last:
              prefill's 2,048 positions and at MusicGen's 6,144-token
              windowed admission, as in 21a.  23b: full MusicGen-medium (48
              layers, ungated GELU MLP, LayerNorm moved off its init)
-             serving 16 requests (prompts 256-1024) on 2 x 8 slots; 23c:
-             Qwen2-VL-72B at 40 of its 80 layers (M-RoPE, qkv biases moved
-             off zero), 8 text requests (prompts 512-1024) on 1 x 8; each
+             serving 8 requests (prompts 256-1024) on 2 x 8 slots; 23c:
+             Qwen2-VL-72B at 20 of its 80 layers (M-RoPE, qkv biases moved
+             off zero), 4 text requests (prompts 512-1024) on 1 x 8; each
              as 21b; then Qwen2-VL's prefill step on 1,024 patch
              embeddings before 1,024 text tokens through the kernels
              against the same step with flash's plain version: flash once
@@ -279,7 +281,7 @@ Phases, each printing its lines before the last:
              embeddings a row, 4 clients, cut 1, fp32, the sync round and
              a round of client chunks of 2, through the AdamW kernel and
              its plain version: 0 elements differ.  23f: MusicGen whole
-             under the decode window 4096: 4 requests of 4608-6144 tokens,
+             under the decode window 4096: 2 requests of 4608-6144 tokens,
              64 new each, on 1 x 4 slots (every ring wraps), as 21b: flash
              48 launches an admission, paged none.
 24. the chunked / flash training path — 24a: full Gemma-2B (fp32
@@ -301,8 +303,33 @@ Phases, each printing its lines before the last:
              1 global), ``tf.loss_fn`` and its gradients at S 4096 with
              nested remat (the span's checkpoint and one a layer inside
              it, counted) and without: every element equal, each peak.
+25. the client axis — phase 16's Mamba-2-370M (full width, 16 layers,
+             cut 8, 8 clients, seq 256) in fp32 activations (in bf16 the
+             rounding of the activations, not the sharding, moves the
+             validation losses past the bands), participation 0.5, 2
+             rounds a case.  The flat kernel-path rounds first
+             (importance, trimmed_mean, async at deadline 4), whose Gumbel
+             draws every sharded run takes; 25a: the sharded sync round
+             at S 1 over NCCL in this process, every state element equal
+             to the flat round's; S 2 (importance, trimmed_mean) and S 4
+             (importance) as processes sharing the card over gloo
+             (``launch/mesh.py::spawn_client_shards``): masks equal, the
+             global client stage after round 0 within 1e-5 of the flat
+             round's (the tree's reassociated sum), the client and server
+             stages after round 1, validation losses and the loss within
+             5e-3, the cross-shard bytes equal to
+             ``hierarchical_sync_bytes``, AdamW launches on every rank
+             equal to the flat round's; 25b int8 at S 2: quantize and
+             dequantize launches = client leaves x the rounds the shard
+             uploads in, and the rounds through their plain versions bit
+             for bit; 25c the async round at S 2 under
+             ``async-stragglers``: at deadline inf the sharded sync round
+             bit for bit, at deadline 4 the flat async round's admission
+             counts and the 25a bands.  Each case prints its round times,
+             each rank's peak, rank 0's busy share and the collectives'
+             share of round 0.
 
-Each of phases 12-24 prints its wall time.  Then one JSON line with every
+Each of phases 12-25 prints its wall time.  Then one JSON line with every
 kernel's numbers (the nine kernels, then flash and paged decode at
 Gemma-3-12B's, StableLM-2-12B's, Qwen2.5-32B's, OLMoE-1B-7B's,
 Phi-3.5-MoE's, MusicGen-medium's and Qwen2-VL-72B's shapes), and as the
@@ -1959,18 +1986,18 @@ def run_family_serve(torch, ops):
 # module values, so a CPU rehearsal can shrink them.  Phase 12: each
 # family's full depth (``layers`` None), clients, cut, sequence and batch a
 # client; phase 13: the reduced depth and cut of the parity runs.
-FAMILY_TRAIN_RUN = dict(device="cuda", reduced=False, rounds=3, val_batch=2,
+FAMILY_TRAIN_RUN = dict(device="cuda", reduced=False, rounds=2, val_batch=2,
                         seed=0, parity_seq=128)
 FAMILY_TRAIN = {
-    # full width at 16 of its 48 layers, to make room for phase 23 (every
-    # check as at full depth): 8.3 GB of p, m, v and g (16 B x 521,384,704
-    # elements, reckoned; 11.7 GB at 48); sequence 256 is two SSD chunks,
-    # so the state crosses a chunk boundary
-    "mamba2-370m": dict(layers=16, clients=4, cut=8, seq=256, batch=2,
-                        parity_layers=4, parity_cut=2),
-    # 71.4 GB (16 B x 4,462,200,320 elements): 2 clients
-    "recurrentgemma-2b": dict(layers=None, clients=2, cut=3, seq=128,
-                              batch=2, parity_layers=8, parity_cut=3),
+    # full width at 8 of its 48 layers, to make room for phases 23 and 25
+    # (every check as at full depth); sequence 256
+    # is two SSD chunks, so the state crosses a chunk boundary
+    "mamba2-370m": dict(layers=8, clients=4, cut=4, seq=256, batch=2,
+                        parity_layers=2, parity_cut=1),
+    # 2 clients; 13 of its 26 layers (71.4 GB of p, m, v and g whole: 16 B
+    # x 4,462,200,320 elements), to make room for phase 25
+    "recurrentgemma-2b": dict(layers=13, clients=2, cut=3, seq=128,
+                              batch=2, parity_layers=6, parity_cut=3),
 }
 SCAN_KERNELS = ("ssd_scan", "rg_lru_scan", "flash_attention")
 
@@ -2018,8 +2045,8 @@ def _profile_family_round(torch, state, cfg, wssl_cfg, train_cfg, run):
 
 
 def run_family_train(torch, ops):
-    """Phase 12: 3 WSSL rounds of Mamba-2-370M (full width, 16 layers)
-    and full RecurrentGemma-2B through ``launch/train.py`` (fp32 params, bf16
+    """Phase 12: 2 WSSL rounds of Mamba-2-370M (full width, 8 layers)
+    and RecurrentGemma-2B (full width, 13 layers) through ``launch/train.py`` (fp32 params, bf16
     activations, participation 0.5, fused AdamW, the plain scans as the
     JAX package trains)."""
     from repro_torch.launch.train import train
@@ -2104,7 +2131,7 @@ def run_family_train(torch, ops):
 
 
 def run_family_train_parity(torch, ops):
-    """Phase 13: both families at full width and a cut depth, 3 rounds
+    """Phase 13: both families at full width and a cut depth, 2 rounds
     through the AdamW kernel and then through its plain version, the same
     seed and Gumbel draws: masks equal, losses and stages within phase 7's
     bands."""
@@ -2176,9 +2203,9 @@ def run_family_train_parity(torch, ops):
 # phases 14-15: the paper's experiment (gait FFN, ResNet-18) at full width
 PAPER_RUN = dict(device="cuda", parity_clients=2, parity_rounds=3,
                  parity_steps=3,
-                 gait=dict(n=20_000, clients=(2, 10), rounds=10, steps=10,
+                 gait=dict(n=20_000, clients=(2, 10), rounds=3, steps=10,
                            lr=1e-3, cfg="GaitConfig", batch=128),
-                 resnet=dict(n=12_000, clients=(4,), rounds=5, steps=10,
+                 resnet=dict(n=12_000, clients=(4,), rounds=2, steps=10,
                              lr=2e-3, cfg="CifarConfig", batch=128))
 # a sanity floor on the final test accuracy (chance: 0.5 and 0.1), not a
 # claim about the paper's numbers
@@ -2390,8 +2417,8 @@ def run_paper_parity(torch, ops):
 FAULT_RUN = dict(device="cuda", reduced=False, arch="mamba2-370m",
                  layers=16, clients=8, cut=8, seq=256, batch=2, val_batch=2,
                  seed=0,
-                 clean_rounds=2, rounds=2, byzantine_f=2,
-                 parity_layers=4, parity_cuts=(1, 3), parity_rounds=2,
+                 clean_rounds=1, rounds=1, byzantine_f=2,
+                 parity_layers=3, parity_cuts=(1, 2), parity_rounds=1,
                  parity_participation=0.5, parity_seq=128)
 FAULT_SCENARIOS = ("label-flip-adversary", "grad-noise-adversary",
                    "sign-flip-adversary", "dropout-30", "stragglers",
@@ -2517,9 +2544,9 @@ def _fault_launches(state, recs):
 def run_fault_train(torch, ops):
     """Phase 16: Mamba-2-370M (full width, ``FAULT_RUN["layers"]`` of its
     48 layers) at 8 clients under faults — no scenario
-    against ``clean`` (2 rounds each, state bit-exact), then
+    against ``clean`` (1 round each, state bit-exact), then
     ``scaled-grad-adversary`` (clients 0-1 at x32) under the importance
-    mean and under Krum (f = 2), 2 rounds each."""
+    mean and under Krum (f = 2), 1 round each."""
     from repro_torch.core import fairness
     from repro_torch.sim import get_scenario
     dev = torch.device(FAULT_RUN["device"])
@@ -2616,8 +2643,8 @@ def run_fault_train(torch, ops):
 
 
 def run_fault_parity(torch, ops):
-    """Phase 17: Mamba-2-370M at full width and 4 layers, cuts (1, 3) (one
-    edge stage, 2 hop replicas), 8 clients, seq 128, 2 rounds, under each
+    """Phase 17: Mamba-2-370M at full width and 3 layers, cuts (1, 2) (one
+    edge stage, 2 hop replicas), 8 clients, seq 128, 1 round, under each
     fault scenario (importance) and each robust rule
     (``scaled-grad-adversary``), through the AdamW kernel and through its
     plain version, the same seed and Gumbel draws: masks, losses and
@@ -2698,8 +2725,8 @@ def run_fault_parity(torch, ops):
 
 
 # phase 18: the paper's robustness on its own models
-PAPER_ROBUST = dict(gait_clients=10, gait_rounds=6, resnet_clients=8,
-                    resnet_rounds=3, steps=10, parity_rounds=2)
+PAPER_ROBUST = dict(gait_clients=10, gait_rounds=3, resnet_clients=8,
+                    resnet_rounds=2, steps=10, parity_rounds=2)
 PAPER_ROBUST_GAIT = (
     [(sc, "importance", "none") for sc in (
         "clean", "label-flip-adversary", "sign-flip-adversary",
@@ -2741,8 +2768,8 @@ def _replay_dropped(h, sc, seed):
 
 def run_paper_robust(torch, ops):
     """Phase 18: the paper loop under faults, robust rules and compressed
-    uploads on its own models — the gait FFN at 10 clients (6 rounds x 10
-    steps) and ResNet-18 at 8 (3 x 10) — with exact launch counts, the
+    uploads on its own models — the gait FFN at 10 clients (3 rounds x 10
+    steps) and ResNet-18 at 8 (2 x 10) — with exact launch counts, the
     dropout replay, clean against no scenario bit for bit, and 2-round
     gait runs (int8, top-k) through the kernels against their plain
     versions."""
@@ -2892,12 +2919,13 @@ def run_paper_robust(torch, ops):
 # ---------------------------------------------------------------------------
 
 # module values, so a CPU rehearsal can shrink them.  Gemma-3-12B at full
-# width in bf16 at random weights from seed 0, cut to 24 of its 48 layers
+# width in bf16 at random weights from seed 0, cut to 18 of its 48 layers
+# (to make room for phases 23 and 25)
 # and to 16 bursty requests (from 48 and 24, to make room for phase 23:
 # two bursts of 8 still fill both replicas, and every check holds) of
 # 768-1536 prompt tokens (they cross the 1024 window: the local rings wrap)
 # and 16-32 new tokens, half of them with deadlines; 2 replicas x 8 slots,
-# chunk 8, paged KV of block 16; split runs at cuts (6, 18), two hops.
+# chunk 8, paged KV of block 16; split runs at cuts (6, 12), two hops.
 #
 # The simulated clock prices a prefilled token at ``prefill_unit`` decode
 # steps.  The router's default, 0.25, prices a 1152-token admission at 288
@@ -2920,12 +2948,12 @@ def run_paper_robust(torch, ops):
 # always (the reduced configs accept every draft at the JAX package's
 # init, tests/test_torch_spec.py), and the speculative rollback would go
 # unexercised.
-GEMMA3_RUN = dict(device="cuda", reduced=False, layers=24, requests=16,
+GEMMA3_RUN = dict(device="cuda", reduced=False, layers=18, requests=16,
                   prompt_len=1536, gen=32, replicas=2, slots=8, chunk=8,
                   block_size=16,
                   burst_every=8, burst_size=8, deadline_frac=0.5,
                   slack=(0.125, 1.7), prefill_unit=0.002, out_scale=3.0,
-                  draft_k=4, cuts=(6, 18), autoscale_max=4, scale_up_queue=4,
+                  draft_k=4, cuts=(6, 12), autoscale_max=4, scale_up_queue=4,
                   pool_share=0.6)
 # (run, scenario, ServeParams overrides, DecodeEngine overrides); the first
 # is the reference of the comparisons below
@@ -3078,7 +3106,7 @@ def run_gemma3_serve(torch, ops):
     """Phase 19: Gemma-3-12B (full width, 24 layers) through the whole
     serving plane — the fault-routed router with every serving scenario,
     EDF shedding, autoscaling, a 60% pool, speculative decode under
-    replica drops, split mode at cuts (6, 18), and the plain path — then
+    replica drops, split mode at cuts (6, 12), and the plain path — then
     the attention kernels
     at its shapes.  Every kernel-path run: exact launch counts, all on the
     tensor-core / split-K bodies; every request served or shed, shed ones
@@ -3247,12 +3275,13 @@ def run_gemma3_serve(torch, ops):
 
 # module values, so a CPU rehearsal can shrink them.  20a: phase 16's
 # Mamba-2-370M at full width and 8 clients (FAULT_RUN), its depth cut to 16
-# of 48 layers to make room for phase 23 (every check as at full depth),
+# of 48 layers to make room for phase 23 and to 8 at cut 4 for phase 25
+# (every check as at full depth),
 # participation 1.0, under async-stragglers (clients 4-7 at 8x); the buffer
 # adds 8 client stages in fp32, ~3.5 GB (reckoned: the 51.5 M embedding
 # and 8 layers).  20b: phase
-# 17's 4-layer cut; 20c: phase 18's gait FFN at 10 clients.
-ASYNC_RUN = dict(layers=16, inf_rounds=2, park_rounds=3, int8_rounds=2,
+# 17's 3-layer cut; 20c: phase 18's gait FFN at 10 clients.
+ASYNC_RUN = dict(layers=8, cut=4, inf_rounds=2, park_rounds=3, int8_rounds=2,
                  chunk=4,
                  chunk_rounds=1, parity_rounds=3, parity_byz_rounds=4,
                  paper_clients=10, paper_rounds=6, paper_steps=10)
@@ -3434,7 +3463,7 @@ def _profile_async_round(torch, state, astate, cfg, wssl_cfg, train_cfg, sc,
 
 
 def run_async_train(torch, ops):
-    """Phase 20a: Mamba-2-370M (full width, 16 layers) at 8 clients
+    """Phase 20a: Mamba-2-370M (full width, 8 layers, cut 4) at 8 clients
     through the async round under async-stragglers: deadline inf against
     the sync round bit for bit; deadline 4 (the stragglers park, land at staleness 1, park
     again); deadline 1 (evicted and resynced); deadline 2 with two buffer
@@ -3449,7 +3478,7 @@ def run_async_train(torch, ops):
     n = FAULT_RUN["clients"]
     strag = sc.straggler_ids(n)
     lat = _latencies(sc, n)
-    cut = (FAULT_RUN["cut"],)
+    cut = (ASYNC_RUN["cut"],)
     out = {}
 
     # run 1: deadline inf against the sync round, both states live
@@ -3591,7 +3620,7 @@ def run_async_train(torch, ops):
 
 
 def run_async_parity(torch, ops):
-    """Phase 20b: the async round at full width and 4 layers, cuts (1, 3),
+    """Phase 20b: the async round at full width and 3 layers, cuts (1, 2),
     8 clients, participation 0.5, through the AdamW and compression
     kernels and through their plain versions, the same seed and Gumbel
     draws: masks, losses, stages, moments, residuals, the buffer and the
@@ -3807,9 +3836,10 @@ def run_async(torch, ops):
 DENSE_RUN = dict(device="cuda", reduced=False, seed=0, chunk=8,
                  block_size=16, bias_std=0.5, norm_std=0.2)
 DENSE_SERVE = {
-    "stablelm-12b": dict(requests=16, prompts=(256, 1024), gen=(16, 32),
+    "stablelm-12b": dict(requests=8, prompts=(256, 1024), gen=(16, 32),
                          replicas=2, slots=8, flash_s=1536),
-    "qwen2.5-32b": dict(requests=8, prompts=(512, 1024), gen=(16, 32),
+    "qwen2.5-32b": dict(layers=32, requests=4, prompts=(512, 1024),
+                        gen=(16, 32),
                         replicas=1, slots=8, flash_s=1024),
 }
 # 21d: StableLM-2-12B at full width, depth cut to 4 layers, cut 2, 2
@@ -4231,15 +4261,15 @@ def run_dense(torch, ops):
 
 # module values, so a CPU rehearsal can shrink them.  OLMoE-1B-7B whole
 # (16 layers, 64 experts top-8, 16 query over 16 kv heads at hd 128,
-# RMSNorm: 13.8 GB in bf16, reckoned) and Phi-3.5-MoE at 16 of its 32
+# RMSNorm: 13.8 GB in bf16, reckoned) and Phi-3.5-MoE at 8 of its 32
 # layers (16 experts top-2, 32 over 8 heads, LayerNorm moved off its init
 # as in phase 21: 83.7 GB whole, 42.1 GB at the cut), random weights from
 # seed 0, the configs' capacity factor 1.25.
 MOE_RUN = dict(device="cuda", reduced=False, chunk=8, block_size=16)
 MOE_SERVE = {
-    "olmoe-1b-7b": dict(layers=None, requests=16, prompts=(256, 1024),
+    "olmoe-1b-7b": dict(layers=None, requests=8, prompts=(256, 1024),
                         gen=(16, 32), replicas=2, slots=8, flash_s=1024),
-    "phi3.5-moe-42b-a6.6b": dict(layers=16, requests=8, prompts=(512, 1024),
+    "phi3.5-moe-42b-a6.6b": dict(layers=8, requests=8, prompts=(512, 1024),
                                  gen=(16, 32), replicas=1, slots=8,
                                  flash_s=1024),
 }
@@ -4406,7 +4436,7 @@ def run_moe(torch, ops):
 # module values, so a CPU rehearsal can shrink them.  MusicGen-medium
 # whole (48 layers, 24 query over 24 kv heads at hd 64, an ungated GELU
 # MLP, LayerNorm moved off its init as in phase 21: 2.73 GB in bf16,
-# reckoned) and Qwen2-VL-72B at 40 of its 80 layers (64 over 8 at hd 128,
+# reckoned) and Qwen2-VL-72B at 20 of its 80 layers (64 over 8 at hd 128,
 # M-RoPE, qkv biases moved off zero: 75.3 GB at the cut, 145.4 GB whole),
 # random weights from seed 0.  ``flash_s`` is the flash check's sequence:
 # an admission for MusicGen, the vision prefill's 1,024 patches before
@@ -4415,10 +4445,10 @@ def run_moe(torch, ops):
 FRONT_RUN = dict(device="cuda", reduced=False, chunk=8, block_size=16,
                  seed=0, patches=1024, text=1024)
 FRONT_SERVE = {
-    "musicgen-medium": dict(layers=None, requests=16, prompts=(256, 1024),
+    "musicgen-medium": dict(layers=None, requests=8, prompts=(256, 1024),
                             gen=(16, 32), replicas=2, slots=8, flash_s=1024,
                             long_s=6144),
-    "qwen2-vl-72b": dict(layers=40, requests=8, prompts=(512, 1024),
+    "qwen2-vl-72b": dict(layers=20, requests=4, prompts=(512, 1024),
                          gen=(16, 32), replicas=1, slots=8, flash_s=2048),
 }
 # 23d: MusicGen at full size, cuts (4, 44) (a client stage of 4 layers, an
@@ -4434,9 +4464,9 @@ FRONT_TRAIN = dict(arch="musicgen-medium", layers=48, clients=4,
 # embeddings and the head come to 4.75 G elements, 76 GB at 16 B each.
 FRONT_IMAGE = dict(clients=4, cuts=(1,), seq=32, batch=2, chunk=2, seed=0,
                    gumbel_seed=24)
-# 23f: MusicGen whole under the long-context decode window: 4 requests of
+# 23f: MusicGen whole under the long-context decode window: 2 requests of
 # 4608-6144 tokens, 64 new each, on 1 x 4 slots, so every ring wraps
-FRONT_WINDOW = dict(arch="musicgen-medium", window=4096, requests=4,
+FRONT_WINDOW = dict(arch="musicgen-medium", window=4096, requests=2,
                     prompts=(4608, 6144), gen=(64, 64), replicas=1, slots=4)
 
 
@@ -4957,6 +4987,499 @@ def run_flash(torch, ops):
         ("remat", "24c. nested remat", run_flash_remat)))
 
 
+# ---------------------------------------------------------------------------
+# The client axis (phase 25)
+# ---------------------------------------------------------------------------
+
+# phase 16's Mamba-2-370M (full width, FAULT_RUN["layers"] of its 48
+# layers, cut 8, 8 clients, seq 256, fp32 params, fused AdamW) at
+# participation 0.5, ``rounds`` rounds a case.  S = 1 runs over NCCL in
+# this process; S = 2 and 4 are processes sharing the card over gloo (NCCL
+# refuses two ranks on one GPU): one spawn of four ranks, in which two
+# pairs run their S = 2 cases side by side (a process pays ~11 s of CUDA
+# warm-up on its first round), then all four the S = 4 case.
+# 25c's async round: ``async-stragglers`` (the slow half 8x) at deadline
+# inf and at ``deadline`` (the slow half parks in round 0, lands in 1).
+SHARD_RUN = dict(device="cuda", dtype="float32", rounds=2, participation=0.5,
+                 deadline=4.0, max_staleness=4, timeout=600.0,
+                 scenario="async-stragglers")
+SHARD_PAIRS = (((0, 1), ("importance", "trimmed_mean")),
+               ((2, 3), ("int8", "async")))
+SHARD_ALL = ("importance",)
+# the bands of tests/test_sharded_round.py: the client stack, then the
+# server stage, the validation losses and the loss
+SHARD_CLIENT_BAND, SHARD_SHARED_BAND = 1e-5, 5e-3
+
+
+def _shard_setup(rule="importance", scheme="none", deadline=None):
+    import dataclasses
+    from repro_torch.config import AsyncRoundsConfig, CompressionConfig
+    cfg, w, t = _fault_setup(FAULT_RUN["layers"], (FAULT_RUN["cut"],),
+                             SHARD_RUN["participation"], rule)
+    cfg = cfg.replace(dtype=SHARD_RUN["dtype"])
+    if scheme != "none":
+        w = dataclasses.replace(w, compression=CompressionConfig(
+            scheme=scheme))
+    if deadline is not None:
+        w = dataclasses.replace(w, async_rounds=AsyncRoundsConfig(
+            deadline=deadline, max_staleness=SHARD_RUN["max_staleness"]))
+    return cfg, w, t
+
+
+def _shard_drive(torch, ops, dev, cfgs, *, kind, gumbels, group=None,
+                 profile=False, first=False):
+    """``SHARD_RUN["rounds"]`` rounds of ``kind`` (``sync``; ``sync-sc``,
+    the sync round under the scenario; ``async``) from the seed's initial
+    state with the Gumbel draws ``gumbels`` (None: the selection
+    generator's own, drawn ahead and recorded): flat without ``group``,
+    else as its shard.  Round 0 times the collectives; with ``profile``, round
+    1 runs under the profiler; with ``first``, round 0's record keeps the
+    global client stage on the host (``client0``).  Returns the state,
+    the async state (or None) and one record a round."""
+    from repro_torch import sharding, sim
+    from repro_torch.core import async_round as ar
+    from repro_torch.core import round as rnd
+    from repro_torch.core import wssl
+    from repro_torch.data.synthetic import lm_batch
+    cfg, w, t = cfgs
+    n = w.num_clients
+    gen = torch.Generator(device=dev).manual_seed(FAULT_RUN["seed"])
+    sc = (None if kind == "sync" else
+          sim.scenario_params(sim.get_scenario(SHARD_RUN["scenario"])))
+    if group is None:
+        state = rnd.init_state(gen, cfg, w, t, device=dev)
+        fn = (ar.make_async_round_fn(cfg, w, t) if kind == "async"
+              else rnd.make_round_fn(cfg, w, t))
+        place = lambda b: b
+    else:
+        state = sharding.init_shard_state(gen, cfg, w, t, group.num_shards,
+                                          group.index, device=dev)
+        fn = (ar.make_sharded_async_round_fn(cfg, w, t, group)
+              if kind == "async" else
+              rnd.make_sharded_round_fn(cfg, w, t, group))
+        place = fn.place_batch
+    astate = ar.init_async_state(state) if kind == "async" else None
+    if gumbels is None:
+        # the draws the rounds would take from the selection generator,
+        # from a copy of it
+        copy = torch.Generator()
+        copy.set_state(state.rng.get_state())
+        gumbels = [wssl.gumbel_noise((n,), copy).numpy()
+                   for _ in range(SHARD_RUN["rounds"])]
+    val = {k: torch.as_tensor(v, device=dev) for k, v in lm_batch(
+        FAULT_RUN["val_batch"], FAULT_RUN["seq"], cfg.vocab_size,
+        seed=10_000).items()}
+    recs = []
+    for r in range(SHARD_RUN["rounds"]):
+        batch = place(_client_streams(torch, cfg, n, FAULT_RUN["batch"],
+                                      FAULT_RUN["seq"], r, dev))
+        g = torch.as_tensor(gumbels[r], device=dev)
+        out = []
+
+        def call():
+            if kind == "async":
+                out.append(fn(state, astate, batch, val, sc, gumbel=g)[2])
+            else:
+                out.append(fn(state, batch, val, sc, gumbel=g)[1])
+
+        before = ops.launch_counts()
+        sharding.reset_collective_stats(timing=r == 0)
+        _sync(torch, dev)
+        prof = None
+        if profile and r == 1:
+            prof = _device_profile(torch, call, cpu=False)
+            dt = prof["wall_s"]
+        else:
+            t0 = time.perf_counter()
+            call()
+            _sync(torch, dev)
+            dt = time.perf_counter() - t0
+        m = out[0]
+        base = m.base if kind == "async" else m
+        after = ops.launch_counts()
+        rec = {"round": r, "dt_s": dt, "gumbel": gumbels[r],
+               "loss": float(base.loss),
+               "mask": base.mask.cpu().tolist(),
+               "val_loss": base.val_loss.cpu().tolist(),
+               "bytes_cross_shard": float(base.bytes_cross_shard),
+               "bytes_intra_shard": float(base.bytes_intra_shard),
+               "launches": {k: after[k] - before[k] for k in after
+                            if after[k] != before[k]},
+               "collectives": sharding.collective_stats()}
+        if kind == "async":
+            rec.update({f: float(getattr(m, f)) for f in (
+                "on_time", "buffered", "arrived", "evicted")})
+        if prof is not None:
+            rec["busy_share"] = prof["device_busy_share"]
+        if first and r == 0:
+            rec["client0"] = [t[0].detach().cpu()
+                              for t in _leaves(state.client_stack)]
+        recs.append(rec)
+    sharding.reset_collective_stats()
+    return state, astate, recs
+
+
+def _shard_snapshot(torch, state):
+    """What the parent holds a sharded run to: the global client stage
+    (every row equals it after the sync) and the server stage, on the
+    host."""
+    host = lambda tree: [t.detach().cpu() for t in _leaves(tree)]
+    return {"client": host([t[0] for t in _leaves(state.client_stack)]),
+            "server": host((state.server_params, state.edge_stages))}
+
+
+def _state_prints(torch, state, astate=None):
+    """Every tensor of a state (and its async state) as fingerprints."""
+    return [_fingerprint(torch, t.float() if t.is_floating_point()
+                         else t.to(torch.int32))
+            for t in _state_tensors(state, astate)]
+
+
+def _shard_case(torch, ops, ref, group, dev, name, gumbels):
+    """One rank's case of phase 25; returns its records, its peak, and
+    for the parent's comparisons rank 0's snapshot and every rank's
+    fingerprints of the replicated stages."""
+    import contextlib
+    from unittest import mock
+    t0 = time.perf_counter()
+    deadline = SHARD_RUN["deadline"] if name == "async" else None
+    cfgs = _shard_setup("trimmed_mean" if name == "trimmed_mean"
+                        else "importance",
+                        "int8" if name == "int8" else "none", deadline)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    kind = "async" if name == "async" else "sync"
+    # rank 0 keeps what the parent holds to the flat round (int8 has no
+    # flat reference: it is held to its plain run, here)
+    snap = group.index == 0 and name != "int8"
+    state, astate, recs = _shard_drive(torch, ops, dev, cfgs, kind=kind,
+                                       gumbels=gumbels, group=group,
+                                       profile=cuda, first=snap)
+    counts = ops.launch_counts()
+    out = {"recs": recs, "launches": counts,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else 0,
+           "client_leaves": len(_leaves(state.client_stack)),
+           "shared_leaves": len(_leaves((state.server_params,
+                                         state.edge_stages))),
+           "server_prints": [_fingerprint(torch, t) for t in _leaves(
+               (state.server_params, state.edge_stages))]}
+    if snap:
+        out["snapshot"] = _shard_snapshot(torch, state)
+    if name == "int8":
+        # 25b: the same rounds with the compression entry points patched
+        # to their plain versions: bit for bit
+        kernel = _state_prints(torch, state)
+        del state, astate
+        _free(torch)
+        ops.reset_launch_counts()
+        with mock.patch.multiple(ops,
+                                 quantize_stochastic=ref.quantize_stochastic_2d,
+                                 dequantize=ref.dequantize_2d):
+            plain, _, plain_recs = _shard_drive(torch, ops, dev, cfgs,
+                                                kind="sync", gumbels=gumbels,
+                                                group=group)
+        out["plain_launches"] = ops.launch_counts()
+        out["plain_equal"] = (kernel == _state_prints(torch, plain) and all(
+            a[f] == b[f] for a, b in zip(recs, plain_recs)
+            for f in ("loss", "mask", "val_loss")))
+        del plain
+    elif name == "async":
+        # 25c: at deadline inf the async round is the sync round under the
+        # same scenario, bit for bit
+        del state, astate
+        _free(torch)
+        inf = _shard_setup(deadline=math.inf)
+        s_sync, _, r_sync = _shard_drive(torch, ops, dev, inf, kind="sync-sc",
+                                         gumbels=gumbels, group=group)
+        prints = _state_prints(torch, s_sync)
+        del s_sync
+        _free(torch)
+        s_inf, a_inf, r_inf = _shard_drive(torch, ops, dev, inf, kind="async",
+                                           gumbels=gumbels, group=group)
+        out["inf_equal"] = (prints == _state_prints(torch, s_inf) and all(
+            a[f] == b[f] for a, b in zip(r_sync, r_inf)
+            for f in ("loss", "mask", "val_loss")))
+        out["inf_buffered"] = [r["buffered"] for r in r_inf]
+        del s_inf, a_inf
+    _free(torch)
+    out["case_s"] = time.perf_counter() - t0
+    return out
+
+
+def _shard_rank(group, dev, gumbels, fault_run, shard_run):
+    """The body of one spawned rank of phase 25, with the parent's
+    ``FAULT_RUN`` / ``SHARD_RUN``: its pair's S = 2 cases (the pair a
+    group of its own), then, after a barrier, the S = 4 cases.  Returns
+    (S, case) -> the case's output."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import ClientGroup
+    FAULT_RUN.update(fault_run)
+    SHARD_RUN.update(shard_run)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the round's two collectives straight on the card's tensors over the
+    # group's backend (gloo takes CUDA tensors itself: nothing is staged)
+    s, i = group.num_shards, group.index
+    t = torch.full((3,), float(i + 1), device=dev)
+    dist.all_reduce(t, group=group.group)
+    parts = [torch.empty_like(t) for _ in range(s)]
+    dist.all_gather(parts, torch.full((3,), float(i), device=dev),
+                    group=group.group)
+    if (t.tolist() != [s * (s + 1) / 2] * 3 or
+            torch.cat(parts).tolist() != [float(j) for j in range(s)
+                                          for _ in range(3)]):
+        raise AssertionError(f"{group.backend} collectives on {dev} tensors "
+                             f"came back wrong: {t.tolist()}")
+    out = {}
+    # every rank creates every pair's group, in the same order
+    pairs = [(ranks, cases, dist.new_group(list(ranks)))
+             for ranks, cases in SHARD_PAIRS]
+    for ranks, cases, pg in pairs:
+        if i in ranks:
+            pair = ClientGroup(group=pg, num_shards=len(ranks),
+                               index=ranks.index(i), backend=group.backend)
+            for name in cases:
+                out[(2, name)] = _shard_case(torch, ops, ref, pair, dev,
+                                             name, gumbels)
+    dist.barrier(group=group.group)
+    for name in SHARD_ALL:
+        out[(s, name)] = _shard_case(torch, ops, ref, group, dev, name,
+                                     gumbels)
+    return out
+
+
+def _shard_compare(where, ref, got, got0, recs, ref_recs, *, shards,
+                   stage_bytes, decomposes, adamw):
+    """A sharded run against its flat reference: masks equal; the global
+    client stage after round 0 within SHARD_CLIENT_BAND (the tree's
+    reassociated sum: every client's update is the flat round's there);
+    the client stage after the last round, the server stage, the
+    validation losses and the loss within SHARD_SHARED_BAND (from round 1
+    on the clients' updates carry the server stage's differences, which
+    AdamW amplifies, as the bands of tests/test_sharded_round.py say of
+    the server); the cross-shard bytes equal to the byte model; AdamW
+    ``adamw`` launches a round."""
+    import torch
+    from repro_torch.core.protocol import hierarchical_sync_bytes
+    n = FAULT_RUN["clients"]
+    diff = lambda a, b: max(float((x - y).abs().max()) for x, y in zip(a, b))
+    client0 = diff(got0, ref_recs[0]["client0"])
+    client = diff(got["client"], ref["client"])
+    server = diff(got["server"], ref["server"])
+    val = max(abs(a - b) for r, fr in zip(recs, ref_recs)
+              for a, b in zip(r["val_loss"], fr["val_loss"]))
+    loss = max(abs(r["loss"] - fr["loss"]) for r, fr in zip(recs, ref_recs))
+    if any(r["mask"] != fr["mask"] for r, fr in zip(recs, ref_recs)):
+        raise AssertionError(f"{where}: masks differ from the flat round's")
+    if client0 > SHARD_CLIENT_BAND or max(client, server, val, loss) > \
+            SHARD_SHARED_BAND:
+        per_round = [(max(abs(a - b) for a, b in zip(
+            r["val_loss"], fr["val_loss"])), abs(r["loss"] - fr["loss"]))
+            for r, fr in zip(recs, ref_recs)]
+        raise AssertionError(
+            f"{where}: client after round 0 {client0:.3g} (band "
+            f"{SHARD_CLIENT_BAND:g}); client {client:.3g}, server "
+            f"{server:.3g}, val {val:.3g}, loss {loss:.3g} (band "
+            f"{SHARD_SHARED_BAND:g}); (val, loss) by round {per_round}")
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    for r in recs:
+        up = (r["on_time"] + r["arrived"]) if "on_time" in r \
+            else sum(r["mask"])
+        cross, intra = hierarchical_sync_bytes(f32(up), n, shards,
+                                               f32(stage_bytes), decomposes)
+        if (r["bytes_cross_shard"], r["bytes_intra_shard"]) != (
+                float(cross), float(intra)):
+            raise AssertionError(f"{where}: cross / intra bytes "
+                                 f"{r['bytes_cross_shard']} / "
+                                 f"{r['bytes_intra_shard']}, model "
+                                 f"{float(cross)} / {float(intra)}")
+        if r["launches"].get("fused_adamw") != adamw[r["round"]]:
+            raise AssertionError(f"{where}: AdamW launches {r['launches']} "
+                                 f"in round {r['round']}, the flat round "
+                                 f"{adamw[r['round']]}")
+    return {"client0_max_diff": client0, "client_max_diff": client,
+            "server_max_diff": server, "val_max_diff": val,
+            "loss_max_diff": loss}
+
+
+def run_shards(torch, ops):
+    """Phase 25: the client axis on the card.  The flat kernel-path
+    rounds first (the references; their Gumbel draws go to every sharded
+    run), then 25a: S = 1 over NCCL in this process, bit for bit against
+    the flat round; S = 2 (importance, trimmed_mean) and S = 4
+    (importance) over gloo ranks sharing the card, each against its flat
+    round in the bands of tests/test_sharded_round.py, cross-shard bytes
+    against the byte model, AdamW launches on each rank equal to the flat
+    round's; 25b: int8 at S 2, quantize and dequantize launches = client
+    leaves x the rounds in which the rank's shard uploads (> 0) on each
+    rank, and the same rounds through the plain versions bit for bit; 25c: the async round at S 2 under
+    ``async-stragglers``, at deadline inf against the sharded sync round
+    bit for bit, at ``SHARD_RUN["deadline"]`` against the flat async round
+    in the same bands with equal admission counts.  Each case prints its
+    round times, each rank's peak, rank 0's busy share (round 1, under
+    the profiler) and the collectives' share of round 0."""
+    from repro_torch.core import aggregation
+    from repro_torch.core import round as rnd
+    from repro_torch.launch.mesh import (client_process_group,
+                                         spawn_client_shards)
+    dev = torch.device(SHARD_RUN["device"])
+    out = {"flat": {}, "cases": {}}
+    refs, gumbels = {}, None
+    # -- the flat references ----------------------------------------------
+    for name, rule, kind, deadline in (
+            ("importance", "importance", "sync", None),
+            ("trimmed_mean", "trimmed_mean", "sync", None),
+            ("async", "importance", "async", SHARD_RUN["deadline"])):
+        cfgs = _shard_setup(rule, deadline=deadline)
+        _free(torch)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, astate, recs = _shard_drive(torch, ops, dev, cfgs, kind=kind,
+                                           gumbels=gumbels, first=True)
+        gumbels = gumbels or [r["gumbel"] for r in recs]
+        refs[name] = {"snapshot": _shard_snapshot(torch, state),
+                      "recs": recs,
+                      "adamw": [r["launches"]["fused_adamw"] for r in recs],
+                      "stage_bytes": rnd.client_stage_bytes(state)}
+        out["flat"][name] = {"round_s": [r["dt_s"] for r in recs],
+                             "run_s": time.perf_counter() - t0,
+                             "loss": [r["loss"] for r in recs],
+                             "adamw": refs[name]["adamw"]}
+        if name == "importance":
+            # 25a, S = 1: one rank over NCCL, bit for bit
+            backend = "nccl" if dev.type == "cuda" else "gloo"
+            with client_process_group(1, 0, backend=backend,
+                                      timeout=SHARD_RUN["timeout"]) as group:
+                one, _, one_recs = _shard_drive(torch, ops, dev, cfgs,
+                                                kind="sync", gumbels=gumbels,
+                                                group=group)
+            a, b = _state_tensors(one), _state_tensors(state)
+            differing = sum(int((x != y).sum()) for x, y in zip(a, b))
+            same_recs = all(x[f] == y[f] for x, y in zip(one_recs, recs)
+                            for f in ("loss", "mask", "val_loss"))
+            if len(a) != len(b) or differing or not same_recs:
+                raise AssertionError(f"25a S 1 (nccl): {differing} state "
+                                     f"elements differ, records equal "
+                                     f"{same_recs}")
+            out["cases"]["importance/1"] = {
+                "backend": backend, "round_s": [r["dt_s"] for r in one_recs],
+                "state_elements_differing": 0,
+                "state_elements": sum(x.numel() for x in a)}
+            times = lambda rs: ", ".join(f"{r['dt_s']:.3f}" for r in rs)
+            print(f"  25a importance S 1 ({backend}, in process): rounds "
+                  f"{times(one_recs)} s (flat {times(recs)}); "
+                  f"{sum(x.numel() for x in a)} state elements, 0 differ",
+                  flush=True)
+            del one, a, b
+        del state, astate
+        _free(torch)
+    print("  25 flat references: " + ", ".join(
+        f"{k} {v['run_s']:.1f} s (rounds "
+        f"{', '.join(f'{t:.3f}' for t in v['round_s'])})"
+        for k, v in out["flat"].items()), flush=True)
+    # -- 25a-c on gloo ranks sharing the card -----------------------------
+    t0 = time.perf_counter()
+    ranks = spawn_client_shards(_shard_rank, 4, gumbels, dict(FAULT_RUN),
+                                dict(SHARD_RUN), device=dev, backend="gloo",
+                                timeout=SHARD_RUN["timeout"])
+    spawn_s = time.perf_counter() - t0
+    out["spawn_s"] = spawn_s
+    print(f"  25 S 2 and 4: one spawn of 4 ranks, {spawn_s:.1f} s", flush=True)
+    runs = [(2, name, members) for members, cases in SHARD_PAIRS
+            for name in cases] + [(4, name, range(4)) for name in SHARD_ALL]
+    for shards, name, members in runs:
+        per = [ranks[r][(shards, name)] for r in members]
+        recs = per[0]["recs"]
+        rec = {"backend": "gloo", "spawn_s": spawn_s,
+               "case_s": [p["case_s"] for p in per],
+               "round_s": [r["dt_s"] for r in recs],
+               "peak_bytes": [p["peak_bytes"] for p in per],
+               "busy_share_rank0": recs[1].get("busy_share"),
+               "collective_share": (recs[0]["collectives"]["seconds"]
+                                    / recs[0]["dt_s"]),
+               "collectives": recs[0]["collectives"],
+               "launches": [p["launches"] for p in per]}
+        if any(p["server_prints"] != per[0]["server_prints"]
+               for p in per):
+            raise AssertionError(f"25 {name} S {shards}: the ranks' "
+                                 f"server stages differ")
+        where = f"25 {name} S {shards}"
+        if name in ("importance", "trimmed_mean", "async"):
+            ref = refs[name]
+            cfgs = _shard_setup(name if name == "trimmed_mean"
+                                else "importance")
+            # every rank's records (its own launches), rank 0's stages
+            for p in reversed(per):
+                rec.update(_shard_compare(
+                    where, ref["snapshot"], per[0]["snapshot"],
+                    recs[0]["client0"], p["recs"], ref["recs"],
+                    shards=shards,
+                    stage_bytes=ref["stage_bytes"],
+                    decomposes=aggregation.rule_decomposes(cfgs[1]),
+                    adamw=ref["adamw"]))
+        if name == "async":
+            for f in ("on_time", "buffered", "arrived", "evicted"):
+                got = [r[f] for r in recs]
+                want = [r[f] for r in refs["async"]["recs"]]
+                if got != want:
+                    raise AssertionError(f"{where}: {f} {got}, flat "
+                                         f"{want}")
+            if not all(p["inf_equal"] for p in per):
+                raise AssertionError(f"{where}: deadline inf differs "
+                                     f"from the sharded sync round")
+            rec["admission"] = {f: [r[f] for r in recs] for f in (
+                "on_time", "buffered", "arrived", "evicted")}
+            rec["inf_equal_sync"] = True
+        if name == "int8":
+            n_loc = FAULT_RUN["clients"] // shards
+            for i, p in enumerate(per):
+                # a client leaf a round in which the shard uploads (a
+                # shard none of whose clients is selected sends
+                # nothing, as an all-dropped flat round)
+                want = per[0]["client_leaves"] * sum(
+                    any(m > 0 for m in r["mask"][i * n_loc:
+                                                 (i + 1) * n_loc])
+                    for r in recs)
+                got = (p["launches"]["quantize_stochastic"],
+                       p["launches"]["dequantize"])
+                if got != (want, want) or not want or \
+                        p["launches"]["fused_adamw"] <= 0:
+                    raise AssertionError(f"{where}: launches "
+                                         f"{p['launches']}, quantize / "
+                                         f"dequantize want {want}")
+                if p["plain_launches"]["quantize_stochastic"] or \
+                        p["plain_launches"]["dequantize"] or \
+                        not p["plain_equal"]:
+                    raise AssertionError(
+                        f"{where}: plain run launches "
+                        f"{p['plain_launches']}, bit-equal "
+                        f"{p['plain_equal']}")
+            rec["plain_equal"] = True
+        out["cases"][f"{name}/{shards}"] = rec
+        extra = "".join(
+            f", {k} {rec[k]:.3g}" for k in (
+                "client0_max_diff", "client_max_diff", "server_max_diff",
+                "val_max_diff", "loss_max_diff") if k in rec)
+        rounds = ", ".join(f"{t:.3f}" for t in rec["round_s"])
+        peaks = ", ".join(f"{b / 2**30:.2f}" for b in rec["peak_bytes"])
+        beside = " beside the other pair" if shards == 2 else ""
+        busy = rec["busy_share_rank0"]
+        busy = "not measured" if busy is None else f"{busy:.3f}"
+        print(f"  25 {name} S {shards} (gloo, {shards} processes on one "
+              f"card{beside}): case {max(rec['case_s']):.1f} s, rounds "
+              f"{rounds} s; peaks {peaks} GiB; rank 0 "
+              f"busy {busy}; collectives {rec['collective_share']:.3f} of round 0 "
+              f"({rec['collectives']['calls']} calls, "
+              f"{rec['collectives']['bytes'] / 2**20:.1f} MiB a rank)"
+              f"{extra}; launches rank 0 {_nonzero(rec['launches'][0])}",
+              flush=True)
+    return out
+
+
 def _check_bodies(ops, where, bf16=True):
     """The counted run's flash and SSD-scan launches all took their
     tensor-core bodies (bf16, at the models' shapes; none of them in fp32)
@@ -5249,7 +5772,8 @@ def main(argv=None) -> int:
             ("dense", "21. StableLM-2-12B and Qwen2.5-32B", run_dense),
             ("moe", "22. OLMoE-1B-7B and Phi-3.5-MoE", run_moe),
             ("front", "23. MusicGen-medium and Qwen2-VL-72B", run_front),
-            ("flash", "24. the flash training path", run_flash)):
+            ("flash", "24. the flash training path", run_flash),
+            ("shards", "25. the client axis", run_shards)):
         t0 = time.perf_counter()
         record[key] = fn(torch, ops)
         record[f"{key}_s"] = time.perf_counter() - t0

@@ -12,7 +12,10 @@ weighted-average kernel when ``use_kernel`` is set.  **Robust** rules
 (``trimmed_mean``, ``median``, ``krum``, ``multi_krum``,
 ``geometric_median``) are unweighted statistics: a positive mask entry is
 one full vote, and an empty mask falls back to every client (clients start
-each round synchronized, so that is a no-op sync).
+each round synchronized, so that is a no-op sync).  A client-sharded round
+aggregates through the two-level tree at the end of the module
+(``shard_aggregate_clients``; ``tree_aggregate`` is its one-process
+reference).
 
 The robust rules are plain tensor code in both packages (sorts, a Gram
 product, reductions); their knobs (:class:`AggParams`) are fp32 numbers,
@@ -378,3 +381,106 @@ def aggregate_clients(stacked: Params, importance: torch.Tensor,
     p = agg_params(acfg) if params is None else params
     return agg.fn(stacked, importance, mask, p, safe=safe,
                   use_kernel=use_kernel)
+
+
+# ---------------------------------------------------------------------------
+# The two-level aggregation tree of a client-sharded round
+# ---------------------------------------------------------------------------
+#
+# With the client axis split over a process group (core/round.py::
+# make_sharded_round_fn), aggregation is a tree: each shard reduces its
+# local clients to one partial stage and the partials combine across the
+# group.  A decomposable rule sums the unnormalized partial weighted sums,
+# its coefficients normalized against the global mask, in an all_reduce:
+# S |theta| bytes cross shards each way whatever the client count.  A rule
+# that needs the whole client axis at once (coordinate sorts, Krum's
+# distances, Weiszfeld) all_gathers the local stacks and runs the flat
+# rule as it is.
+
+
+def rule_decomposes(cfg: WSSLConfig) -> bool:
+    """Whether the configured rule aggregates per shard (a masked weighted
+    sum) or needs the all_gather fallback."""
+    return get_aggregator(cfg.resolve_aggregation().rule).decomposes
+
+
+def partial_weighted_sum(stacked: Params, coefs: torch.Tensor) -> Params:
+    """sum_i w_i theta_i over the (local) client axis, unnormalized and in
+    fp32: one shard's partial aggregate.  ``coefs`` carry the *global*
+    normalization, so the cross-shard sum completes the mean.  A matmul,
+    ``w @ flat``, as JAX computes it (outside any kernel)."""
+    w = coefs.float()
+
+    def one(a):
+        return (w @ a.reshape(a.shape[0], -1).float()).reshape(a.shape[1:])
+
+    return tree_map(one, stacked)
+
+
+def _tree_coefs(importance, mask, acfg, safe):
+    coef_fn = (wssl.safe_mean_coefficients if safe
+               else wssl.mean_coefficients)
+    return coef_fn(importance, mask,
+                   use_importance=acfg.rule == "importance")
+
+
+def shard_aggregate_clients(stacked: Params, importance: torch.Tensor,
+                            mask: torch.Tensor, cfg: WSSLConfig, *, group,
+                            shard_index: int, num_shards: int,
+                            safe: bool = False,
+                            params: Optional[AggParams] = None) -> Params:
+    """Algorithm 2 step 5 on one rank of a client-sharded round.
+    ``stacked`` leaves are local ``(N/S, ...)``; ``importance`` and
+    ``mask`` the whole (N,) vectors every rank holds.  Returns the global
+    stage, the same on every rank.
+
+    Decomposable rules: coefficients normalized against the global mask
+    (the flat rule's), sliced to the shard, the partial weighted sum, an
+    all_reduce, a cast to each leaf's dtype: the flat rule up to the order
+    of the client sum.  Every other rule: all_gather of the local stacks
+    (flat client order), then the flat rule as it is."""
+    from repro_torch import sharding
+    acfg = cfg.resolve_aggregation()
+    agg = get_aggregator(acfg.rule)
+    p = agg_params(acfg) if params is None else params
+    n_loc = tree_leaves(stacked)[0].shape[0]
+    if agg.decomposes:
+        coefs = _tree_coefs(importance, mask, acfg, safe)
+        loc = coefs[shard_index * n_loc:(shard_index + 1) * n_loc]
+        part = partial_weighted_sum(stacked, loc)
+        sharding.all_reduce_tree(part, group)
+        return tree_map(lambda t, a: t.to(a.dtype), part, stacked)
+    full = tree_map(lambda a: sharding.all_gather_rows(a, group), stacked)
+    return agg.fn(full, importance, mask, p, safe=safe, use_kernel=False)
+
+
+def tree_aggregate(stacked: Params, importance: torch.Tensor,
+                   mask: torch.Tensor, cfg: WSSLConfig, *, num_shards: int,
+                   safe: bool = False,
+                   params: Optional[AggParams] = None) -> Params:
+    """The two-level tree on one process, without a group: the client axis
+    split into ``num_shards`` contiguous groups (client i in shard i //
+    (N/S), the sharded round's layout), a partial sum each, the partials
+    combined pairwise in a binary tree.  A decomposable rule equals
+    :func:`aggregate_clients` up to the order of the sum; every other
+    rule is the flat rule exactly (the fallback)."""
+    acfg = cfg.resolve_aggregation()
+    agg = get_aggregator(acfg.rule)
+    p = agg_params(acfg) if params is None else params
+    if not agg.decomposes:
+        return agg.fn(stacked, importance, mask, p, safe=safe,
+                      use_kernel=False)
+    n = tree_leaves(stacked)[0].shape[0]
+    if n % num_shards != 0:
+        raise ValueError(f"tree_aggregate: {n} clients do not divide into "
+                         f"{num_shards} shards")
+    n_loc = n // num_shards
+    coefs = _tree_coefs(importance, mask, acfg, safe)
+    partials = [partial_weighted_sum(
+        tree_map(lambda a: a[s * n_loc:(s + 1) * n_loc], stacked),
+        coefs[s * n_loc:(s + 1) * n_loc]) for s in range(num_shards)]
+    while len(partials) > 1:               # the binary combine tree
+        partials = [tree_map(torch.add, partials[i], partials[i + 1])
+                    if i + 1 < len(partials) else partials[i]
+                    for i in range(0, len(partials), 2)]
+    return tree_map(lambda t, a: t.to(a.dtype), partials[0], stacked)

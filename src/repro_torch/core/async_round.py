@@ -51,9 +51,13 @@ What differs from the JAX round, and why:
   unconditional here, as in JAX: a tight deadline can empty a round
   without any fault plan.
 
-Client-axis sharding (``make_sharded_async_round_fn``) raises
-``NotImplementedError`` naming ROADMAP item 13.  There is no
-one-executable invariant to hold: nothing here is compiled per shape.
+Client-axis sharding (:func:`make_sharded_async_round_fn`) runs the
+round once a shard with a ``core/round.py::ShardCtx``, as the sync round
+does: the buffer rides the client axis with the stack, while ``pending``,
+``staleness`` and every admission-control vector are whole on every rank
+(computed from the same generator and latencies), so who is on time,
+parked, arriving or evicted is the flat round's on every shard.  There is
+no one-executable invariant to hold: nothing here is compiled per shape.
 """
 
 from __future__ import annotations
@@ -66,12 +70,13 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch.utils._pytree import tree_map
 
-from repro_torch import compress
+from repro_torch import compress, sharding
 from repro_torch.config import (AsyncRoundsConfig, ModelConfig, TrainConfig,
                                 WSSLConfig)
 from repro_torch.core import aggregation, wssl
 from repro_torch.core import round as rnd
-from repro_torch.core.round import RoundMetrics, Uniform, WSSLState
+from repro_torch.core.round import (RoundMetrics, ShardCtx, Uniform,
+                                    WSSLState, _gather, _loc, _local_plan)
 from repro_torch.optim.schedule import make_schedule
 from repro_torch.sim import faults as sim_faults
 from repro_torch.tree import tree_leaves
@@ -129,8 +134,9 @@ class AsyncRoundMetrics(NamedTuple):
 
 def init_async_state(state: WSSLState) -> AsyncState:
     """An empty buffer: every client idle, every slot zero, on the state's
-    device."""
-    n = tree_leaves(state.client_stack)[0].shape[0]
+    device.  On one shard's state (``sharding.shard_state``) the buffer
+    holds its rows and the counters stay whole (N,), as the importance."""
+    n = state.importance.shape[0]
     dev = state.importance.device
     return AsyncState(
         pending=torch.zeros((n,), dtype=torch.int32, device=dev),
@@ -142,6 +148,13 @@ def _rows(vec: torch.Tensor) -> List[int]:
     return torch.nonzero(vec > 0).flatten().tolist()
 
 
+def _shard_rows(vec: torch.Tensor, ctx: Optional[ShardCtx],
+                n_loc: int) -> List[int]:
+    """This shard's rows (local indices) where the whole (N,) ``vec`` is
+    positive."""
+    return _rows(_loc(vec, ctx, n_loc))
+
+
 def async_wssl_round(state: WSSLState, astate: AsyncState,
                      batch: Dict[str, torch.Tensor],
                      val_batch: Optional[Dict[str, torch.Tensor]] = None,
@@ -150,17 +163,22 @@ def async_wssl_round(state: WSSLState, astate: AsyncState,
                      comp_p: Optional[compress.CompressionParams] = None, *,
                      model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
                      train_cfg: TrainConfig, schedule, impl: str = "chunked",
-                     shard_ctx=None, gumbel: Optional[torch.Tensor] = None,
+                     shard_ctx: Optional[ShardCtx] = None,
+                     gumbel: Optional[torch.Tensor] = None,
                      comp_uniform: Optional[Uniform] = None,
                      fault_draws: Optional[sim_faults.FaultDraws] = None
                      ) -> Tuple[WSSLState, AsyncState, AsyncRoundMetrics]:
     """One bounded-staleness round, in place; returns ``(state, astate,
     metrics)``, the same objects it was given.  ``batch``, ``val_batch``,
-    ``scenario``, ``agg_p``, ``comp_p`` and the injected draws as for
-    ``wssl_round``; ``async_p`` overrides the config's runtime scalars
-    (a :class:`DeadlineController` retunes the deadline with it)."""
-    rnd._check_ported(batch, shard_ctx, train_cfg, wssl_cfg, impl)
+    ``scenario``, ``agg_p``, ``comp_p``, ``shard_ctx`` and the injected
+    draws as for ``wssl_round``; ``async_p`` overrides the config's
+    runtime scalars (a :class:`DeadlineController` retunes the deadline
+    with it).  With a ``shard_ctx`` the buffer holds this shard's rows and
+    ``pending`` / ``staleness`` stay whole."""
+    ctx = shard_ctx
+    rnd._check_ported(state, batch, ctx, train_cfg, wssl_cfg, impl)
     n = wssl_cfg.num_clients
+    n_loc = n // ctx.num_shards if ctx is not None else n
     acfg = wssl_cfg.async_rounds
     comp_cfg = wssl_cfg.compression
     if comp_cfg.enabled and comp_p is None:
@@ -169,7 +187,7 @@ def async_wssl_round(state: WSSLState, astate: AsyncState,
     ap = async_params(acfg, n) if async_p is None else async_p
     ap = AsyncParams(*(torch.as_tensor(v, dtype=torch.float32).to(dev)
                        for v in ap))
-    draw = rnd._draws(state, comp_uniform, dev)
+    draw = rnd._draws(state, comp_uniform, dev, ctx)
     fd = fault_draws if fault_draws is not None else sim_faults.FaultDraws()
     pending, staleness = astate.pending, astate.staleness
 
@@ -207,33 +225,42 @@ def async_wssl_round(state: WSSLState, astate: AsyncState,
     evicted = evict_late + overflow
     part = on_time + admit                      # fresh work this round
     agg_w = wssl.aggregation_weights(state.importance, part, wssl_cfg)
-    run_rows, admit_rows = _rows(part), _rows(admit)
-    arriving_rows = _rows(arriving)
+    # the shard's views of the whole (N,) vectors above (the vectors
+    # themselves when flat); every rank agrees on who is on time, parked,
+    # arriving or evicted
+    plan_loc = _local_plan(plan, ctx, n_loc)
+    part_loc = _loc(part, ctx, n_loc)
+    run_rows = _shard_rows(part, ctx, n_loc)
+    admit_rows = _shard_rows(admit, ctx, n_loc)
+    arriving_rows = _shard_rows(arriving, ctx, n_loc)
 
     # ---- split forward / chained backward, clip, corruption -------------
     labels = batch["labels"]
     if plan is not None:
-        labels = sim_faults.corrupt_labels(plan, labels, model_cfg.vocab_size)
-    g = rnd._client_grads(state, batch["tokens"], labels, agg_w * part,
-                          run_rows, model_cfg=model_cfg, train_cfg=train_cfg,
+        labels = sim_faults.corrupt_labels(plan_loc, labels,
+                                           model_cfg.vocab_size)
+    g = rnd._client_grads(state, batch["tokens"], labels,
+                          _loc(agg_w, ctx, n_loc) * part_loc, run_rows,
+                          model_cfg=model_cfg, train_cfg=train_cfg,
                           comp_cfg=comp_cfg, comp_p=comp_p, draw=draw,
-                          impl=impl, embeds=batch.get("embeds"))
-    rnd._clip_and_corrupt(state, g, plan, train_cfg, fd, dev)
+                          impl=impl, embeds=batch.get("embeds"), ctx=ctx)
+    rnd._clip_and_corrupt(state, g, plan_loc, train_cfg, fd, dev, ctx)
 
     # ---- optimizer masked to the fresh workers, in place ----------------
     # under a finite deadline the latency is when the update lands: the
     # straggler partial-progress scale is one
-    plan_u = plan
+    plan_u = plan_loc
     if plan is not None and math.isfinite(float(ap.deadline)):
-        plan_u = plan._replace(grad_scale=torch.ones_like(plan.grad_scale))
+        plan_u = plan_loc._replace(
+            grad_scale=torch.ones_like(plan_loc.grad_scale))
     saved = sorted(set(rnd._keep_rows(plan_u, run_rows, comp_cfg.enabled))
                    | set(admit_rows) | set(arriving_rows))
     pos = {i: j for j, i in enumerate(saved)}
     old_rows = rnd._saved_rows(state, saved)
-    rnd._step(state, g, part, train_cfg, schedule,
-              step_shared=bool(run_rows))
+    rnd._step(state, g, part_loc, train_cfg, schedule,
+              step_shared=bool(_rows(part)))
     if plan_u is not None:
-        rnd._transform_updates(plan_u, state, old_rows, saved, part)
+        rnd._transform_updates(plan_u, state, old_rows, saved, part_loc, ctx)
     buf_leaves = tree_leaves(astate.buffer)
     with torch.no_grad():
         if admit_rows:
@@ -249,16 +276,18 @@ def async_wssl_round(state: WSSLState, astate: AsyncState,
     # ---- validation on the server-held set -> importance ----------------
     val_losses, importance = rnd._validate(state, val_batch,
                                            model_cfg=model_cfg,
-                                           wssl_cfg=wssl_cfg, impl=impl)
+                                           wssl_cfg=wssl_cfg, impl=impl,
+                                           ctx=ctx)
 
     # ---- stale-update delivery: an arriving client applies its parked
     # delta to the current global stage, at its staleness discount --------
     contrib = wssl.async_contribution(
         on_time, arriving, staleness, ap.max_staleness,
         kind=acfg.staleness_weighting, alpha=ap.staleness_alpha)
-    pend = pending.tolist()
+    pend = _loc(pending, ctx, n_loc).tolist()
     admitted = set(admit_rows)
-    cleared = [i for i in range(n) if not (pend[i] > 1 or i in admitted)]
+    cleared = [i for i in range(n_loc)
+               if not (pend[i] > 1 or i in admitted)]
     with torch.no_grad():
         if arriving_rows:
             at = [pos[i] for i in arriving_rows]
@@ -274,14 +303,22 @@ def async_wssl_round(state: WSSLState, astate: AsyncState,
         # ---- compression at delivery: a stale arrival's parked delta
         # crosses the wire the round it lands ----------------------------
         if comp_cfg.enabled:
-            rnd._compress_update(state, old_rows, saved, _rows(contrib),
-                                 contrib, comp_cfg, comp_p, draw)
+            rnd._compress_update(state, old_rows, saved,
+                                 _shard_rows(contrib, ctx, n_loc),
+                                 _loc(contrib, ctx, n_loc), comp_cfg, comp_p,
+                                 draw)
         del old_rows
         # weighted rules fuse the fractional discount into their
         # coefficients; robust rules binarize membership
-        global_client = aggregation.aggregate_clients(
-            state.client_stack, importance, contrib, wssl_cfg, safe=True,
-            params=agg_p)
+        if ctx is None:
+            global_client = aggregation.aggregate_clients(
+                state.client_stack, importance, contrib, wssl_cfg, safe=True,
+                params=agg_p)
+        else:
+            global_client = aggregation.shard_aggregate_clients(
+                state.client_stack, importance, contrib, wssl_cfg,
+                group=ctx.group, shard_index=ctx.index,
+                num_shards=ctx.num_shards, safe=True, params=agg_p)
         wssl.broadcast_global(state.client_stack, global_client)
         del global_client
         state.importance.copy_(importance)
@@ -305,11 +342,12 @@ def async_wssl_round(state: WSSLState, astate: AsyncState,
         float(rnd.client_stage_bytes(state)), dtype=torch.float32,
         device=dev)
     metrics = RoundMetrics(
-        loss=g.loss, per_client_loss=g.pcl * part, val_loss=val_losses,
-        mask=part, importance=importance,
+        loss=g.loss, per_client_loss=_gather(g.pcl, ctx) * part,
+        val_loss=val_losses, mask=part, importance=importance,
         **rnd._byte_metrics(state, g, sel, on_time.sum() + n_arrived,
-                            model_cfg=model_cfg, comp_cfg=comp_cfg,
-                            comp_p=comp_p, resync=bytes_resync))
+                            model_cfg=model_cfg, wssl_cfg=wssl_cfg,
+                            comp_cfg=comp_cfg, comp_p=comp_p,
+                            resync=bytes_resync, ctx=ctx))
     return state, astate, AsyncRoundMetrics(
         base=metrics, on_time=on_time.sum(), buffered=admit.sum(),
         arrived=n_arrived, evicted=n_evicted, mean_staleness=mean_staleness,
@@ -331,12 +369,36 @@ def make_async_round_fn(model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
 
 
 def make_sharded_async_round_fn(model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
-                                train_cfg: TrainConfig, mesh=None, *,
-                                impl: str = "chunked", donate: bool = True):
-    """The client-axis scale-out of :func:`async_wssl_round`: not ported
-    yet."""
-    raise NotImplementedError(
-        "client-axis sharding is not ported yet (ROADMAP Queue 1, item 13)")
+                                train_cfg: TrainConfig, mesh, *,
+                                impl: str = "chunked"):
+    """Client-axis scale-out of :func:`async_wssl_round`, the async twin
+    of ``core/round.py::make_sharded_round_fn`` (the same ``mesh``, a
+    ``launch/mesh.py::ClientGroup``, and the same collectives).  The
+    stale-update buffer shards with the client stack; ``pending`` and
+    ``staleness`` stay whole.  Returns ``round_fn(state, astate, batch,
+    val_batch=None, scenario=None, async_p=None, agg_p=None, comp_p=None,
+    *, gumbel=None, comp_uniform=None, fault_draws=None)``, updating this
+    rank's states in place, with ``place_state``, ``place_astate``,
+    ``place_batch``, ``num_shards`` and ``mesh``."""
+    n = wssl_cfg.num_clients
+    if n % mesh.num_shards != 0:
+        raise ValueError(f"num_clients={n} must divide evenly over "
+                         f"{mesh.num_shards} client shards")
+    ctx = ShardCtx(group=mesh.group, num_shards=mesh.num_shards,
+                   index=mesh.index)
+    schedule = make_schedule(train_cfg.schedule, train_cfg.learning_rate,
+                             train_cfg.warmup_steps, train_cfg.rounds)
+    round_fn = functools.partial(async_wssl_round, model_cfg=model_cfg,
+                                 wssl_cfg=wssl_cfg, train_cfg=train_cfg,
+                                 schedule=schedule, impl=impl, shard_ctx=ctx)
+    place = lambda st: sharding.shard_state(st, ctx.num_shards, ctx.index)
+    round_fn.place_state = place
+    round_fn.place_astate = place
+    round_fn.place_batch = lambda batch: sharding.shard_batch(
+        batch, ctx.num_shards, ctx.index)
+    round_fn.num_shards = ctx.num_shards
+    round_fn.mesh = mesh
+    return round_fn
 
 
 class DeadlineController:

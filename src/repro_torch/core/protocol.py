@@ -4,7 +4,8 @@ a training round.
 A copy of the serving part of ``repro/core/protocol.py`` (``ServeTick``,
 ``ServeLog``, ``serve_hop_bytes``, ``reroute_sync_bytes``) and of its
 training part (``tree_bytes``, ``sync_round_bytes``,
-``compressed_update_bytes``, ``RoundComm``, ``CommLog``).
+``hierarchical_sync_bytes``, ``compressed_update_bytes``, ``RoundComm``,
+``CommLog``).
 Every crossing is recorded per tick; split mode counts per-hop activation
 bytes, and fault recovery (re-prefill after a replica drop) lands in the
 sync column.
@@ -126,6 +127,24 @@ def sync_round_bytes(selected, num_clients, client_stage_bytes):
     upload their stage for aggregation and the aggregated stage goes back
     to all N clients.  Works on tensors (the round passes its mask sum)."""
     return (selected + num_clients) * client_stage_bytes
+
+
+def hierarchical_sync_bytes(selected, num_clients: int, num_shards: int,
+                            client_stage_bytes, decomposes: bool):
+    """(cross_shard, intra_shard) sync bytes of the two-level aggregation
+    of a client-sharded round.  intra: each selected client uploads its
+    stage to its shard, sel |theta|, what the flat round pays.  cross: a
+    decomposable rule sends one partial a shard up the combine tree and
+    the global stage back down, 2 S |theta| whatever the client count; the
+    all-gather fallback moves every selected update to every shard's copy
+    of the rule once and the broadcast leg, (sel + S) |theta|.  Works on
+    tensors (the round passes its mask sum)."""
+    intra = selected * client_stage_bytes
+    if decomposes:
+        cross = 2 * num_shards * client_stage_bytes
+    else:
+        cross = (selected + num_shards) * client_stage_bytes
+    return cross, intra
 
 
 def _itemsize(dtype) -> int:

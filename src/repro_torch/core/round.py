@@ -98,9 +98,22 @@ Mamba-2 SSD block and the RG-LRU block through their plain scans
 (``ssd_chunked``, the doubling scan), as the JAX round trains them.  A
 vision frontend's ``batch["embeds"]`` go through each client's stage;
 the edge and server stages see text positions over the spliced length
-and the loss trims the prefix, as in JAX.  Not ported yet, and raising
-``NotImplementedError`` naming the ROADMAP item rather than being
-ignored: client-axis sharding (item 13).
+and the loss trims the prefix, as in JAX.
+
+**Client-axis scale-out** (:func:`make_sharded_round_fn`): the round runs
+once a shard, on a rank of a ``torch.distributed`` group
+(``launch/mesh.py``), with a :class:`ShardCtx`.  The client stack, its
+moments, the residuals and the batch hold the shard's N/S clients; every
+(N,) decision vector (importance, the fault plan, the mask and the
+aggregation weights) is computed whole on every rank from the same
+generator, so selection and faults are the flat round's.  The loss and
+the shared stages' gradients sum across shards, the client clip's squared
+norm and the adaptive attack's honest statistics too, the validation and
+per-client losses gather, and the aggregation goes through the two-level
+tree (``aggregation.shard_aggregate_clients``).  Each ctx helper is the
+identity without a ctx, so the flat round is unchanged; at S = 1 the
+sharded round is the flat round bit for bit (the compression and noise
+streams fold the shard index in only when S > 1; JAX folds it at any S).
 """
 
 from __future__ import annotations
@@ -112,10 +125,11 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch.utils._pytree import tree_map
 
-from repro_torch import compress
+from repro_torch import compress, sharding
 from repro_torch.config import MLP_MOE, ModelConfig, TrainConfig, WSSLConfig
 from repro_torch.core import aggregation, wssl
-from repro_torch.core.protocol import sync_round_bytes, tree_bytes
+from repro_torch.core.protocol import (hierarchical_sync_bytes,
+                                       sync_round_bytes, tree_bytes)
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import resolve_device, torch_dtype
@@ -155,7 +169,8 @@ class RoundMetrics(NamedTuple):
     bytes_sync: torch.Tensor          # client-stage aggregation + broadcast
     bytes_update_raw: Any = 0.0
     bytes_update_comp: Any = 0.0
-    # sharded rounds only (not ported): 0.0
+    # sharded rounds only (0.0 when flat): cross-shard tree traffic and
+    # on-shard client uploads
     bytes_cross_shard: Any = 0.0
     bytes_intra_shard: Any = 0.0
     # activation-path compression: raw vs wire bytes (0 when it is off)
@@ -224,20 +239,82 @@ def _row(tree: Params, i: int) -> Params:
     return tree_map(lambda a: a[i], tree)
 
 
-def _check_ported(batch, shard_ctx, train_cfg: TrainConfig,
+class ShardCtx(NamedTuple):
+    """The client-axis context of a round run once a shard
+    (:func:`make_sharded_round_fn`).  None everywhere a round runs flat:
+    every helper below then returns its argument as it is."""
+
+    group: Any           # the torch.distributed process group of the axis
+    num_shards: int      # S
+    index: int           # this rank's shard
+
+
+def _loc(vec: Optional[torch.Tensor], ctx: Optional[ShardCtx],
+         n_loc: int) -> Optional[torch.Tensor]:
+    """A whole (N,) per-client vector's rows of this shard, (N/S,)."""
+    if ctx is None or vec is None:
+        return vec
+    return vec[ctx.index * n_loc:(ctx.index + 1) * n_loc]
+
+
+def _local_plan(plan, ctx: Optional[ShardCtx], n_loc: int):
+    """A FaultPlan with every (N,) field cut to this shard's rows."""
+    if ctx is None or plan is None:
+        return plan
+    return type(plan)(*[_loc(v, ctx, n_loc) for v in plan])
+
+
+def _psum(x, ctx: Optional[ShardCtx]):
+    """The cross-shard sum of a tensor or a tree's leaves, in place."""
+    if ctx is None:
+        return x
+    return sharding.all_reduce_tree(x, ctx.group)
+
+
+def _psum_scalars(ctx: Optional[ShardCtx], *xs: torch.Tensor):
+    """0-d tensors summed across shards in one collective."""
+    if ctx is None:
+        return list(xs)
+    return sharding.sum_scalars(ctx.group, *xs)
+
+
+def _gather(vec: torch.Tensor, ctx: Optional[ShardCtx]) -> torch.Tensor:
+    """A shard's (N/S, ...) rows back to the whole (N, ...), flat client
+    order."""
+    if ctx is None:
+        return vec
+    return sharding.all_gather_rows(vec, ctx.group)
+
+
+def _group(ctx: Optional[ShardCtx]):
+    return None if ctx is None else ctx.group
+
+
+def _check_ported(state, batch, shard_ctx, train_cfg: TrainConfig,
                   wssl_cfg: WSSLConfig, impl: str) -> None:
-    """Refuse, before any state moves, what the port does not run yet, and
-    a client chunk that does not divide the clients (``ValueError``, as
-    the JAX round raises at trace time), and an attention impl without a
-    backward (``kernel`` / ``pallas``)."""
+    """Refuse, before any state moves, a client axis that does not divide
+    the clients or a state that is not this shard's, a client chunk that
+    does not divide the (per-shard) clients (``ValueError``, as the JAX
+    round raises at trace time), and an attention impl without a backward
+    (``kernel`` / ``pallas``)."""
+    n = wssl_cfg.num_clients
+    n_loc = n
     if shard_ctx is not None:
-        raise NotImplementedError(
-            "client-axis sharding is not ported yet (ROADMAP Queue 1, "
-            "item 13)")
+        if n % shard_ctx.num_shards:
+            raise ValueError(f"num_clients={n} must divide evenly over "
+                             f"{shard_ctx.num_shards} client shards")
+        n_loc = n // shard_ctx.num_shards
+        rows = tree_leaves(state.client_stack)[0].shape[0]
+        if rows != n_loc:
+            raise ValueError(f"the client stack holds {rows} clients, not "
+                             f"this shard's {n_loc} (place_state)")
     chunk = train_cfg.client_chunk
-    if chunk is not None and wssl_cfg.num_clients % chunk:
-        raise ValueError(f"client_chunk={chunk} must divide num_clients="
-                         f"{wssl_cfg.num_clients}")
+    if chunk is not None and n_loc % chunk:
+        if shard_ctx is None:
+            raise ValueError(f"client_chunk={chunk} must divide num_clients="
+                             f"{n}")
+        raise ValueError(f"client_chunk={chunk} must divide the per-shard "
+                         f"client count {n_loc} (num_clients/num_shards)")
     attn.check_train_impl(impl)
     aggregation.get_aggregator(wssl_cfg.resolve_aggregation().rule)
 
@@ -255,27 +332,30 @@ TAG_NOISE = 0xBAD
 Uniform = Callable[[int, Optional[int], Tuple[int, ...]], torch.Tensor]
 
 
-def _stream(state: WSSLState, tag: int, leaf: Optional[int], device
-            ) -> torch.Generator:
+def _stream(state: WSSLState, tag: int, leaf: Optional[int], device,
+            ctx: Optional[ShardCtx] = None) -> torch.Generator:
     """The generator of one of the round's own draws: seeded from the
-    selection generator's seed, the round, the tag and the leaf."""
+    selection generator's seed, the round, the tag and the leaf, and in a
+    round of more than one shard the shard index (each shard draws its
+    own rows' values)."""
+    shard = (ctx.index,) if ctx is not None and ctx.num_shards > 1 else ()
     return wssl.derived_generator(state.rng.initial_seed(),
                                   int(state.round_index), tag,
-                                  -1 if leaf is None else leaf,
+                                  -1 if leaf is None else leaf, *shard,
                                   device=device)
 
 
-def _draws(state: WSSLState, comp_uniform: Optional[Uniform], device
-           ) -> Uniform:
+def _draws(state: WSSLState, comp_uniform: Optional[Uniform], device,
+           ctx: Optional[ShardCtx] = None) -> Uniform:
     """The round's compression draws: ``(tag, leaf, shape) -> U[0, 1)``
     fp32 on ``device``, from ``comp_uniform`` or from a generator of their
-    own (see the module docstring)."""
+    own (see the module docstring).  ``shape`` is this shard's."""
     def draw(tag, leaf, shape):
         if comp_uniform is not None:
             return comp_uniform(tag, leaf, tuple(shape)).to(
                 device=device, dtype=torch.float32).contiguous()
         return torch.rand(tuple(shape),
-                          generator=_stream(state, tag, leaf, device),
+                          generator=_stream(state, tag, leaf, device, ctx),
                           dtype=torch.float32, device=device)
     return draw
 
@@ -372,11 +452,17 @@ def _client_grads(state: WSSLState, tokens: torch.Tensor,
                   train_cfg: TrainConfig, comp_cfg,
                   comp_p: Optional[compress.CompressionParams],
                   draw: Uniform, impl: str,
-                  embeds: Optional[torch.Tensor] = None) -> _Grads:
+                  embeds: Optional[torch.Tensor] = None,
+                  ctx: Optional[ShardCtx] = None) -> _Grads:
     """Algorithm 2 steps 2-4 for the clients ``run_rows``: each one's split
     forward and chained backward, its loss weighted by ``coef[i]``.  With
     an MoE layer past the client stage every client runs instead, and each
     one's edge and server aux enters at 1/N (see the module docstring).
+
+    With a ``ctx`` the rows are this shard's (``coef`` is (N/S,)): the aux
+    weight is 1/N, the loss terms and the shared stages' gradients are
+    summed across shards (JAX's psum of the per-shard sums), and ``pcl``
+    stays local.
 
     With ``train_cfg.client_chunk`` the clients go in chunks of that many,
     as JAX's ``_client_grads_chunked`` scans them: each chunk's
@@ -393,6 +479,7 @@ def _client_grads(state: WSSLState, tokens: torch.Tensor,
     positions per row."""
     cfg = model_cfg
     n = coef.shape[0]
+    n_all = n if ctx is None else n * ctx.num_shards
     num_edges = len(state.edge_stages)
     remat, span = train_cfg.remat, train_cfg.remat_span
     compress_acts = comp_cfg.enabled and comp_cfg.activations
@@ -409,7 +496,8 @@ def _client_grads(state: WSSLState, tokens: torch.Tensor,
     srv_aux = torch.zeros((n,), dtype=torch.float32, device=coef.device)
     edge_aux = torch.zeros((num_edges, n), dtype=torch.float32,
                            device=coef.device)
-    aux_w = torch.tensor(1.0 / n, dtype=torch.float32, device=coef.device)
+    aux_w = torch.tensor(1.0 / n_all, dtype=torch.float32,
+                         device=coef.device)
 
     def hop(a: torch.Tensor, tag: int, i: int) -> torch.Tensor:
         """What crosses a hop: ``a`` itself, or its wire reconstruction."""
@@ -476,18 +564,23 @@ def _client_grads(state: WSSLState, tokens: torch.Tensor,
                 if i in run:
                     pcl[i] = client_pass(i, server_b, edges_b)
 
-    n_t = torch.tensor(float(n), dtype=torch.float32, device=coef.device)
+    n_t = torch.tensor(float(n_all), dtype=torch.float32, device=coef.device)
     if chunk is None:
         chunk_pass(range(n), g_server, g_edges)
-        loss = torch.sum(coef * pcl)
-        if with_aux:
+        _psum((g_server, g_edges), ctx)
+        if not with_aux:
+            (loss,) = _psum_scalars(ctx, torch.sum(coef * pcl))
+        else:
             # JAX: the CE sum plus the server aux's client mean, then each
-            # edge stage's client mean
-            loss = loss + srv_aux.sum() / n_t
+            # edge stage's client mean (sums across shards, then / N)
+            loss, srv_sum, *edge_sums = _psum_scalars(
+                ctx, torch.sum(coef * pcl), srv_aux.sum(),
+                *(edge_aux[j].sum() for j in range(num_edges)))
+            loss = loss + srv_sum / n_t
             edge_total = torch.zeros((), dtype=torch.float32,
                                      device=coef.device)
             for j in range(num_edges):
-                edge_total = edge_total + edge_aux[j].sum() / n_t
+                edge_total = edge_total + edge_sums[j] / n_t
             loss = loss + edge_total
     else:
         f32 = lambda t: tree_map(lambda a: torch.zeros(
@@ -511,7 +604,7 @@ def _client_grads(state: WSSLState, tokens: torch.Tensor,
             if with_aux:
                 # JAX: the chunk's server-aux mean reweighted by chunk / N;
                 # the edge aux summed over the chunk, over all chunks, / N
-                loss_c = loss_c + srv_aux[c:c + k].sum() / k_t * (k / n)
+                loss_c = loss_c + srv_aux[c:c + k].sum() / k_t * (k / n_all)
                 aux_sum = torch.zeros((), dtype=torch.float32,
                                       device=coef.device)
                 for j in range(num_edges):
@@ -519,11 +612,17 @@ def _client_grads(state: WSSLState, tokens: torch.Tensor,
                 aux_acc = aux_acc + aux_sum
             loss = loss + loss_c
         if with_aux:
+            loss, aux_acc = _psum_scalars(ctx, loss, aux_acc)
             loss = loss + aux_acc / n_t
+        else:
+            (loss,) = _psum_scalars(ctx, loss)
+        # the fp32 chunk accumulators cast back to the params' dtype, then
+        # summed across shards
         cast = lambda acc, p: tree_map(lambda a, b: a.to(b.dtype), acc, p)
         g_server = cast(acc_s, state.server_params)
         g_edges = [cast(a, e) for a, e in zip(acc_e, state.edge_stages)]
         del acc_s, acc_e
+        _psum((g_server, g_edges), ctx)
     del hop_u
     hop_bytes = [rows * cfg.d_model * torch_dtype(cfg.dtype).itemsize
                  ] * (num_edges + 1)
@@ -533,19 +632,22 @@ def _client_grads(state: WSSLState, tokens: torch.Tensor,
 def _clip_and_corrupt(state: WSSLState, g: _Grads,
                       plan: Optional[sim_faults.FaultPlan],
                       train_cfg: TrainConfig, fd: sim_faults.FaultDraws,
-                      device) -> None:
+                      device, ctx: Optional[ShardCtx] = None) -> None:
     """The global-norm clip of each stage's gradients, then the plan's
     corruption of the client-stage gradients, in place (adversarial
-    corruption models the *sent* update, so it follows the clip)."""
+    corruption models the *sent* update, so it follows the clip).  With a
+    ``ctx`` the client stack's squared norm sums across shards, and
+    ``plan`` is this shard's rows."""
     if train_cfg.grad_clip:
-        clip_by_global_norm(g.client, train_cfg.grad_clip)
+        clip_by_global_norm(g.client, train_cfg.grad_clip,
+                            group=_group(ctx))
         clip_by_global_norm(g.server, train_cfg.grad_clip)
         for ge in g.edges:
             clip_by_global_norm(ge, train_cfg.grad_clip)
     if plan is not None:
         sim_faults.corrupt_client_grads(
             plan, g.client, noise=fd.noise,
-            generator=_stream(state, TAG_NOISE, None, device))
+            generator=_stream(state, TAG_NOISE, None, device, ctx))
 
 
 def _saved_rows(state: WSSLState, saved: List[int]) -> List[torch.Tensor]:
@@ -575,30 +677,37 @@ def _step(state: WSSLState, g: _Grads, mask: torch.Tensor,
 
 def _transform_updates(plan: sim_faults.FaultPlan, state: WSSLState,
                        old_rows: List[torch.Tensor], saved: List[int],
-                       mask: torch.Tensor) -> None:
+                       mask: torch.Tensor,
+                       ctx: Optional[ShardCtx] = None) -> None:
     """Straggler / slow-hop progress and Byzantine amplification on the
     post-optimizer update, then the adaptive clients' crafted stage from
-    the ``mask`` clients' honest updates, in place."""
+    the ``mask`` clients' honest updates, in place.  With a ``ctx``,
+    ``plan`` and ``mask`` are this shard's rows and the honest statistics
+    run over every shard's clients."""
     sim_faults.scale_client_updates(plan, state.client_stack, old_rows,
                                     rows=saved)
     sim_faults.adaptive_scale_updates(plan, state.client_stack, old_rows,
-                                      mask, rows=saved)
+                                      mask, rows=saved, group=_group(ctx))
 
 
 def _validate(state: WSSLState, val_batch, *, model_cfg: ModelConfig,
-              wssl_cfg: WSSLConfig, impl: str
+              wssl_cfg: WSSLConfig, impl: str,
+              ctx: Optional[ShardCtx] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every client's stage (as it stands) through the shared stages on
     the server-held set -> ``(val_losses, importance)``; without a set
-    the losses are 0 and the importance carries over."""
+    the losses are 0 and the importance carries over.  With a ``ctx``
+    each shard validates its own clients and the (N,) losses gather."""
     n = wssl_cfg.num_clients
     dev = state.importance.device
-    val_losses = torch.zeros((n,), dtype=torch.float32, device=dev)
     if val_batch is None:
-        return val_losses, state.importance.clone()
+        return (torch.zeros((n,), dtype=torch.float32, device=dev),
+                state.importance.clone())
+    rows = tree_leaves(state.client_stack)[0].shape[0]
+    val_losses = torch.zeros((rows,), dtype=torch.float32, device=dev)
     vt, vl = val_batch["tokens"], val_batch["labels"]
     with torch.no_grad():
-        for i in range(n):
+        for i in range(rows):
             a = tf.client_forward(_row(state.client_stack, i), model_cfg,
                                   vt, impl=impl, remat=False)
             for j, ep in enumerate(state.edge_stages):
@@ -606,6 +715,7 @@ def _validate(state: WSSLState, val_batch, *, model_cfg: ModelConfig,
                                      remat=False)
             val_losses[i], _ = tf.server_loss(state.server_params, model_cfg,
                                               a, vl, impl=impl, remat=False)
+    val_losses = _gather(val_losses, ctx)
     return val_losses, wssl.compute_importance(val_losses, wssl_cfg,
                                                prev=state.importance)
 
@@ -618,13 +728,16 @@ def client_stage_bytes(state: WSSLState) -> int:
 
 def _byte_metrics(state: WSSLState, g: _Grads, sel: torch.Tensor,
                   uploads: torch.Tensor, *, model_cfg: ModelConfig,
-                  comp_cfg, comp_p, resync: Optional[torch.Tensor] = None
+                  wssl_cfg: WSSLConfig, comp_cfg, comp_p,
+                  resync: Optional[torch.Tensor] = None,
+                  ctx: Optional[ShardCtx] = None
                   ) -> Dict[str, torch.Tensor]:
     """The round's byte counts as :class:`RoundMetrics` fields: ``sel``
     clients ran the split pipeline, ``uploads`` stage updates went up
     (compressed when compression is on) and the global stage went back
-    to all N; ``resync`` (async rounds) is added to ``bytes_sync``."""
-    n = tree_leaves(state.client_stack)[0].shape[0]
+    to all N; ``resync`` (async rounds) is added to ``bytes_sync``.  With
+    a ``ctx``, the two-level tree's cross- and intra-shard bytes."""
+    n = wssl_cfg.num_clients
     num_hops = len(g.hop_bytes)
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=sel.device)
     bytes_per_hop = sel * f32(g.hop_bytes)
@@ -648,10 +761,15 @@ def _byte_metrics(state: WSSLState, g: _Grads, sel: torch.Tensor,
         act_comp = sel * 2.0 * f32(wire * num_hops)
     else:
         act_raw = act_comp = f32(0.0)
-    return dict(bytes_up=bytes_per_hop.sum(), bytes_down=bytes_per_hop.sum(),
-                bytes_per_hop=bytes_per_hop, bytes_sync=bytes_sync,
-                bytes_update_raw=update_raw, bytes_update_comp=update_comp,
-                bytes_act_raw=act_raw, bytes_act_comp=act_comp)
+    out = dict(bytes_up=bytes_per_hop.sum(), bytes_down=bytes_per_hop.sum(),
+               bytes_per_hop=bytes_per_hop, bytes_sync=bytes_sync,
+               bytes_update_raw=update_raw, bytes_update_comp=update_comp,
+               bytes_act_raw=act_raw, bytes_act_comp=act_comp)
+    if ctx is not None:
+        out["bytes_cross_shard"], out["bytes_intra_shard"] = \
+            hierarchical_sync_bytes(uploads, n, ctx.num_shards, stage_bytes,
+                                    aggregation.rule_decomposes(wssl_cfg))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -665,7 +783,8 @@ def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
                comp_p: Optional[compress.CompressionParams] = None, *,
                model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
                train_cfg: TrainConfig, schedule, impl: str = "chunked",
-               shard_ctx=None, gumbel: Optional[torch.Tensor] = None,
+               shard_ctx: Optional[ShardCtx] = None,
+               gumbel: Optional[torch.Tensor] = None,
                comp_uniform: Optional[Uniform] = None,
                fault_draws: Optional[sim_faults.FaultDraws] = None
                ) -> Tuple[WSSLState, RoundMetrics]:
@@ -684,17 +803,27 @@ def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
     lowered from the config).  ``comp_p`` overrides the compression
     block's runtime values.
 
+    ``shard_ctx``: None runs the round flat.  A :class:`ShardCtx` runs it
+    as one shard of a client-sharded round (see the module docstring):
+    the state's client-axis leaves and the batch hold this shard's N/S
+    clients (``sharding.shard_state`` / ``shard_batch``), and the metrics
+    come back whole on every rank.
+
     ``gumbel`` (N,) replaces the selection draw from ``state.rng``,
     ``comp_uniform`` the compression draws and ``fault_draws`` the fault
     plan's and the gradient noise's (tests feed the JAX draws); the
-    compression and fault draws never advance ``state.rng``."""
-    _check_ported(batch, shard_ctx, train_cfg, wssl_cfg, impl)
+    compression and fault draws never advance ``state.rng``.  In a
+    sharded round ``comp_uniform`` and the noise hook are asked for this
+    shard's shapes; ``gumbel`` and the plan's draws stay whole."""
+    ctx = shard_ctx
+    _check_ported(state, batch, ctx, train_cfg, wssl_cfg, impl)
     n = wssl_cfg.num_clients
+    n_loc = n // ctx.num_shards if ctx is not None else n
     comp_cfg = wssl_cfg.compression
     if comp_cfg.enabled and comp_p is None:
         comp_p = compress.compression_params(comp_cfg)
     dev = state.importance.device
-    draw = _draws(state, comp_uniform, dev)
+    draw = _draws(state, comp_uniform, dev, ctx)
     fd = fault_draws if fault_draws is not None else sim_faults.FaultDraws()
 
     # ---- fault injection: the plan first, so its latencies can reach the
@@ -713,45 +842,60 @@ def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
         # dropout: dropped clients compose like unselected ones
         mask = mask * plan.keep
     agg_w = wssl.aggregation_weights(state.importance, mask, wssl_cfg)
+    # the shard's views of the whole (N,) decision vectors above (the
+    # vectors themselves when flat)
+    plan_loc = _local_plan(plan, ctx, n_loc)
+    mask_loc = _loc(mask, ctx, n_loc)
+    offset = 0 if ctx is None else ctx.index * n_loc
     selected = mask.cpu().tolist()
-    sel_rows = [i for i in range(n) if selected[i] > 0]
+    sel_rows = [i for i in range(n_loc) if selected[offset + i] > 0]
+    any_sel = any(v > 0 for v in selected)
 
     # ---- Algorithm 2 steps 2-4: split forward, chained backward ---------
     labels = batch["labels"]
     if plan is not None:
-        labels = sim_faults.corrupt_labels(plan, labels, model_cfg.vocab_size)
-    g = _client_grads(state, batch["tokens"], labels, agg_w * mask, sel_rows,
+        labels = sim_faults.corrupt_labels(plan_loc, labels,
+                                           model_cfg.vocab_size)
+    g = _client_grads(state, batch["tokens"], labels,
+                      _loc(agg_w, ctx, n_loc) * mask_loc, sel_rows,
                       model_cfg=model_cfg, train_cfg=train_cfg,
                       comp_cfg=comp_cfg, comp_p=comp_p, draw=draw, impl=impl,
-                      embeds=batch.get("embeds"))
-    _clip_and_corrupt(state, g, plan, train_cfg, fd, dev)
+                      embeds=batch.get("embeds"), ctx=ctx)
+    _clip_and_corrupt(state, g, plan_loc, train_cfg, fd, dev, ctx)
 
     # ---- optimizer (masked for unselected clients), in place ------------
     # the update transforms and the compressed upload read the pre-step
     # rows, which the in-place step overwrites: keep the ones they read
-    saved = _keep_rows(plan, sel_rows, comp_cfg.enabled)
+    saved = _keep_rows(plan_loc, sel_rows, comp_cfg.enabled)
     old_rows = _saved_rows(state, saved)
-    _step(state, g, mask, train_cfg, schedule,
-          step_shared=plan is None or bool(sel_rows))
+    _step(state, g, mask_loc, train_cfg, schedule,
+          step_shared=plan is None or any_sel)
     g = g._replace(client=(), server=(), edges=[])   # free the gradients
     if plan is not None:
-        _transform_updates(plan, state, old_rows, saved, mask)
+        _transform_updates(plan_loc, state, old_rows, saved, mask_loc, ctx)
 
     # ---- validation on the server-held set -> importance ----------------
     val_losses, importance = _validate(state, val_batch, model_cfg=model_cfg,
-                                       wssl_cfg=wssl_cfg, impl=impl)
+                                       wssl_cfg=wssl_cfg, impl=impl, ctx=ctx)
 
     # ---- update-path compression, then Algorithm 2 step 5: aggregation
     # through the registry + sync (dropout can empty the selection: `safe`
-    # falls back to a no-op sync) ----------------------------------------
+    # falls back to a no-op sync); sharded, through the two-level tree ---
     with torch.no_grad():
         if comp_cfg.enabled:
-            _compress_update(state, old_rows, saved, sel_rows, mask,
+            _compress_update(state, old_rows, saved, sel_rows, mask_loc,
                              comp_cfg, comp_p, draw)
         del old_rows
-        global_client = aggregation.aggregate_clients(
-            state.client_stack, importance, mask, wssl_cfg,
-            safe=plan is not None, params=agg_p)
+        if ctx is None:
+            global_client = aggregation.aggregate_clients(
+                state.client_stack, importance, mask, wssl_cfg,
+                safe=plan is not None, params=agg_p)
+        else:
+            global_client = aggregation.shard_aggregate_clients(
+                state.client_stack, importance, mask, wssl_cfg,
+                group=ctx.group, shard_index=ctx.index,
+                num_shards=ctx.num_shards, safe=plan is not None,
+                params=agg_p)
         wssl.broadcast_global(state.client_stack, global_client)
         del global_client
         state.importance.copy_(importance)
@@ -760,10 +904,11 @@ def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
     # ---- communication accounting --------------------------------------
     sel = mask.sum()
     metrics = RoundMetrics(
-        loss=g.loss, per_client_loss=g.pcl * mask, val_loss=val_losses,
-        mask=mask, importance=importance,
+        loss=g.loss, per_client_loss=_gather(g.pcl, ctx) * mask,
+        val_loss=val_losses, mask=mask, importance=importance,
         **_byte_metrics(state, g, sel, sel, model_cfg=model_cfg,
-                        comp_cfg=comp_cfg, comp_p=comp_p))
+                        wssl_cfg=wssl_cfg, comp_cfg=comp_cfg, comp_p=comp_p,
+                        ctx=ctx))
     return state, metrics
 
 
@@ -779,3 +924,42 @@ def make_round_fn(model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
     return functools.partial(wssl_round, model_cfg=model_cfg,
                              wssl_cfg=wssl_cfg, train_cfg=train_cfg,
                              schedule=schedule, impl=impl)
+
+
+def make_sharded_round_fn(model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
+                          train_cfg: TrainConfig, mesh, *,
+                          impl: str = "chunked"):
+    """Client-axis scale-out: :func:`wssl_round` as one shard of the client
+    axis ``mesh`` (a ``launch/mesh.py::ClientGroup``: this rank's process
+    group, ``num_shards`` and ``index``), called on every rank of the
+    group with the same arguments.
+
+    Each rank holds N/S clients (stack, moments, residuals, batch rows);
+    their forward, backward, optimizer step and compression run locally,
+    the shared stages' gradients and the aggregation tree sum across the
+    group, and the (N,) decision vectors are whole on every rank, so
+    selection and faults are the flat round's.  Returns ``round_fn(state,
+    batch, val_batch=None, scenario=None, agg_p=None, comp_p=None, *,
+    gumbel=None, comp_uniform=None, fault_draws=None)``, updating this
+    rank's state in place, with ``place_state`` (a whole state -> this
+    rank's copy), ``place_batch`` (a whole batch -> this rank's rows),
+    ``num_shards`` and ``mesh``.  Raises ``ValueError`` when the clients do
+    not divide evenly over the shards."""
+    n = wssl_cfg.num_clients
+    if n % mesh.num_shards != 0:
+        raise ValueError(f"num_clients={n} must divide evenly over "
+                         f"{mesh.num_shards} client shards")
+    ctx = ShardCtx(group=mesh.group, num_shards=mesh.num_shards,
+                   index=mesh.index)
+    schedule = make_schedule(train_cfg.schedule, train_cfg.learning_rate,
+                             train_cfg.warmup_steps, train_cfg.rounds)
+    round_fn = functools.partial(wssl_round, model_cfg=model_cfg,
+                                 wssl_cfg=wssl_cfg, train_cfg=train_cfg,
+                                 schedule=schedule, impl=impl, shard_ctx=ctx)
+    round_fn.place_state = lambda state: sharding.shard_state(
+        state, ctx.num_shards, ctx.index)
+    round_fn.place_batch = lambda batch: sharding.shard_batch(
+        batch, ctx.num_shards, ctx.index)
+    round_fn.num_shards = ctx.num_shards
+    round_fn.mesh = mesh
+    return round_fn

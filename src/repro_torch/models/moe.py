@@ -23,8 +23,12 @@ Two places where a PyTorch call would not do what the JAX one does:
   and its backward (a sorted index accumulate) as well.
 
 JAX's data-sharded branch (a ``vmap`` of the dispatch over the token
-shards of a mesh) needs client- or data-axis sharding, which the port
-does not have yet (ROADMAP Queue 1, item 13).
+shards of a mesh, ``repro/models/moe.py:63-74``) keys on the
+``moe_tokens`` binding of the logical-axis rules, which only a
+data-parallel serving mesh sets: the sharded rounds never do
+(``default_rules`` leaves it None, ``auto_rules`` drops it), so the
+port's client-sharded rounds dispatch per rank as here.  That branch
+waits for the logical-axis rules (ROADMAP Queue 1, item 13b).
 """
 
 from __future__ import annotations

@@ -119,16 +119,24 @@ def sgd_update(params: Params, grads: Params, state: SgdState, *,
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Params, max_norm: float
+def clip_by_global_norm(grads: Params, max_norm: float, *, group=None
                         ) -> Tuple[Params, torch.Tensor]:
     """Scale every leaf, in place, by ``min(1, max_norm / ||grads||)``
-    (the norm over all leaves, in fp32).  Returns (grads, the norm)."""
+    (the norm over all leaves, in fp32).  Returns (grads, the norm).
+    ``group``: when the tree is one shard of the client axis (a sharded
+    round's client gradients), the squared norm sums across the group, so
+    the clip sees the flat round's norm (JAX's ``axis_name``)."""
     leaves = tree_leaves(grads)
     # per-leaf norms without an fp32 temporary the size of the leaf (the
     # Gemma-2B client embedding gradient is 4.2 GB)
     gnorm2 = sum(torch.square(torch.linalg.vector_norm(l, dtype=torch.float32))
                  for l in leaves)
-    gnorm = torch.sqrt(torch.as_tensor(gnorm2, dtype=torch.float32))
+    gnorm2 = torch.as_tensor(gnorm2, dtype=torch.float32)
+    if group is not None:
+        from repro_torch import sharding
+        gnorm2 = gnorm2.clone()
+        sharding.all_reduce_sum([gnorm2], group)
+    gnorm = torch.sqrt(gnorm2)
     # a tensor numerator: ``float / tensor`` is a reciprocal times the
     # float in PyTorch, two roundings where JAX divides once
     num = torch.full_like(gnorm, max_norm)

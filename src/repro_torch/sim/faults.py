@@ -38,8 +38,11 @@ What differs from the JAX module, and why:
   noise, ``where`` on an all-false mask); here a plan with no noisy,
   sign-flipped, scaled or adaptive client skips the pass, so the
   ``clean`` scenario equals the round without one bit for bit.
-* The ``axis_name`` branch of the adaptive attack (client-axis sharding)
-  is not ported (ROADMAP Queue 1, item 13).
+* The adaptive attack's ``axis_name`` branch is a process ``group``: in a
+  client-sharded round the plan, mask and params are one shard's, and the
+  honest mean and std sum across the group (and whether any shard has an
+  adaptive client is decided across it too, so every rank joins the same
+  collectives).
 """
 
 from __future__ import annotations
@@ -296,7 +299,8 @@ def scale_client_updates(plan: FaultPlan, new_params: Params,
 @torch.no_grad()
 def adaptive_scale_updates(plan: FaultPlan, new_params: Params,
                            old_params: Params, mask: torch.Tensor,
-                           rows: Optional[Sequence[int]] = None) -> Params:
+                           rows: Optional[Sequence[int]] = None, *,
+                           group=None) -> Params:
     """Adaptive Byzantine attack ("a little is enough", Baruch et al.), in
     place: each adaptive client sends
 
@@ -309,13 +313,28 @@ def adaptive_scale_updates(plan: FaultPlan, new_params: Params,
     cannot down-weight it; distance-based rules out-vote it.  ``old_params``
     and ``rows`` as in :func:`scale_client_updates`; every adaptive
     client's row is replaced, selected or not (its validation reads it).
-    Nothing moves when no client is adaptive."""
+    Nothing moves when no client is adaptive.
+
+    ``group``: the plan, ``mask`` and params are one shard's rows of a
+    client-sharded round; the honest count, sum and squared deviations
+    sum across the group (JAX's ``axis_name`` psums), so the statistics
+    are the whole population's."""
+    from repro_torch import sharding
+
+    def psum(t: torch.Tensor) -> torch.Tensor:
+        if group is not None:
+            sharding.all_reduce_sum([t], group)
+        return t
+
     is_adaptive = (plan.adaptive > 0).float()
     adaptive = _rows(is_adaptive)
-    if not adaptive:
+    count = float(len(adaptive))
+    if group is not None:
+        count = float(psum(torch.tensor(count, device=plan.adaptive.device)))
+    if not count:
         return new_params
     honest = mask * plan.keep * (1.0 - is_adaptive)
-    denom = torch.clamp(honest.sum(), min=1.0)
+    denom = torch.clamp(psum(honest.sum()), min=1.0)
     n = honest.shape[0]
     idx = _row_index(rows, n)
     pos = {i: j for j, i in enumerate(idx)}
@@ -323,8 +342,8 @@ def adaptive_scale_updates(plan: FaultPlan, new_params: Params,
         delta = torch.zeros(new.shape, dtype=torch.float32, device=new.device)
         delta[idx] = new[idx].float() - old.float()
         h = _per_client(honest.to(new.device), delta)
-        mu = (h * delta).sum(dim=0) / denom
-        var = (h * (delta - mu) ** 2).sum(dim=0) / denom
+        mu = psum((h * delta).sum(dim=0)) / denom
+        var = psum((h * (delta - mu) ** 2).sum(dim=0)) / denom
         del delta, h
         sd = torch.sqrt(var)
         for i in adaptive:

@@ -70,8 +70,7 @@ from repro_torch.config import (AsyncRoundsConfig, CompressionConfig,
 from repro_torch.core import wssl
 from repro_torch.core.async_round import (AsyncParams, DeadlineController,
                                           async_params, init_async_state,
-                                          make_async_round_fn,
-                                          make_sharded_async_round_fn)
+                                          make_async_round_fn)
 from repro_torch.core.round import make_round_fn
 
 TINY_KW = dict(name="tiny-async", num_layers=2, d_model=32, num_heads=2,
@@ -557,12 +556,6 @@ def test_async_params_match_jax():
             x = getattr(got, f)
             assert x.dtype == torch.float32 and x.dim() == 0
             assert float(x) == float(getattr(want, f)), f
-
-
-def test_sharded_async_round_is_not_ported():
-    cfg, w, t = _torch_config("buffer-arrive")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
-        make_sharded_async_round_fn(cfg, w, t)
 
 
 # ---------------------------------------------------------------------------

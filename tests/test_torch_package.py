@@ -18,7 +18,10 @@ import torch
 
 from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch._bridge import params_from_jax
-from repro_torch.config import ATTN_LOCAL, get_arch, reduced
+from repro_torch.config import (ATTN_LOCAL, TrainConfig, WSSLConfig,
+                                get_arch, reduced)
+from repro_torch.launch.mesh import spawn_client_shards
+from repro_torch.sharding import init_shard_state
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import transformer as tf
 from repro_torch.serve import DecodeEngine
@@ -71,6 +74,12 @@ def test_entry_points_raise_without_a_card():
         params_from_jax({"x": {"scale": np.zeros(2, np.float32)}}, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve.main(["--arch", "gemma-2b", "--reduced"])
+    # the client axis: spawned shards default to the card too
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spawn_client_shards(print, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_shard_state(torch.Generator(), cfg, WSSLConfig(num_clients=4),
+                         TrainConfig(), 2, 0)
 
 
 def test_unported_layer_kinds_raise():

@@ -64,7 +64,7 @@ from repro.models import transformer as jtf
 from repro_torch._bridge import params_from_jax, state_from_jax, state_to_numpy
 from repro_torch.config import (CompressionConfig, ModelConfig, TrainConfig,
                                 WSSLConfig, get_arch, reduced)
-from repro_torch.core.round import init_state, make_round_fn
+from repro_torch.core.round import ShardCtx, init_state, make_round_fn
 from repro_torch.core.split import (end_to_end_grads, end_to_end_grads_n,
                                     pipeline_grads, split_grads)
 from repro_torch.data.synthetic import lm_batch
@@ -531,8 +531,10 @@ def test_round_refuses_what_is_not_ported():
     rf = make_round_fn(cfg, w, t)
     with pytest.raises(NotImplementedError, match="no backward"):
         make_round_fn(cfg, w, t, impl="kernel")(state, batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
-        rf(state, batch, shard_ctx=object())
+    # a client axis the clients do not divide over (n 2 over 4 shards)
+    with pytest.raises(ValueError, match="divide evenly"):
+        rf(state, batch, shard_ctx=ShardCtx(group=None, num_shards=4,
+                                            index=0))
     for x, y in zip(before, _state_tensors(state)):
         assert torch.equal(x, y)
     assert int(state.round_index) == 0
