@@ -328,6 +328,29 @@ Phases, each printing its lines before the last:
              counts and the 25a bands.  Each case prints its round times,
              each rank's peak, rank 0's busy share and the collectives'
              share of round 0.
+26. the roofline — three whole steps of full Gemma-2B, each on objects
+             an earlier phase built: 26a the prefill step
+             (``make_prefill_step(cfg, "kernel")``, B 2 x S 4096) and 26b
+             one decode step (``make_serve_step``, a contiguous cache at
+             phase 3's engine shape: 8 slots, its max_len) on phase 3's
+             serving params, run right after phase 4; 26c one round at
+             phase 24a's shape (2 clients, S 4096, ``impl="chunked"``) on
+             the state 24a trained, run inside 24a.  For each: (a) the
+             dry run's predicted argument bytes (``launch/specs.py``,
+             ``core/round.py::abstract_state``, placed by
+             ``sharding.device_bytes`` on one card) equal the summed
+             ``nbytes`` of the objects on the card exactly; (b) the op
+             counter (``roofline/op_cost.py``) on one untimed call on the
+             card and on the same step on the meta device agree exactly
+             in FLOPs, bytes, elementwise operations and kernel credits
+             (the round with every client selected on both, as the dry
+             run's host decision); (c) the step's time (CUDA events, the
+             mean of 3 calls after a warm-up; the counted step itself:
+             for 26c ``make_train_step``, a round without validation,
+             its round index zeroed before each call) beside its
+             ``t_compute`` and ``t_memory``, ``mfu = model_flops /
+             (t x peak)`` at bf16, and the meta peak estimate beside
+             the ``max_memory_allocated`` of one more call.
 
 Each of phases 12-25 prints its wall time.  Then one JSON line with every
 kernel's numbers (the nine kernels, then flash and paged decode at
@@ -359,10 +382,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): memory rate, dense bf16 tensor-core
-# rate, fp32 rate outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # kernel vs plain version, max |diff|, per kernel and dtype.  Both sides
 # keep fp32 scores, softmax and sums and round once at the end, so in bf16
 # they differ by at most one rounding flip of an output: one bf16 ulp at
@@ -479,10 +498,12 @@ def _kernel_device_ms(torch, fn, reps: int = 20):
     return {k["name"][:60]: k["device_ms"] / reps for k in prof["kernels"]}
 
 
-def _bound(nbytes: float, flops: float, dtype: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops, "operations")
+def _cost():
+    """``repro_torch.roofline.analysis``: the card's peaks and each
+    kernel's (flops, bytes), from which every bound here is taken
+    (imported once ``main`` has put ``src`` on the path)."""
+    from repro_torch.roofline import analysis
+    return analysis
 
 
 def check_flash(torch, ops, ref, *, b, hq, hkv, s, hd, dtype, window=None,
@@ -541,11 +562,11 @@ def check_flash(torch, ops, ref, *, b, hq, hkv, s, hd, dtype, window=None,
                                                           attn_mask=band)
         rec["library_ms"] = _time_graph_ms(torch, sdpa)
         rec["library_eager_ms"] = _time_ms(torch, sdpa)
-    pairs = sum(min(i + 1 if causal else s, window or s) for i in range(s))
-    isz = q.element_size()
-    nbytes = isz * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
-    rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 4.0 * b * hq * hd * pairs,
-                                              dtype)
+    an = _cost()
+    cost = an.flash_attention_cost(b, hq, hkv, s, hd, q.element_size(),
+                                   causal=causal, window=window)
+    rec["bound_ms"], rec["bound_by"] = an.bound_ms(cost.bytes, cost.flops,
+                                                   dtype)
     return rec
 
 
@@ -596,10 +617,8 @@ def check_paged(torch, ops, ref, *, b, hq, hkv, hd, bs, nb, dtype,
     # the work the function needs: each row reads the table entries and
     # positions of its blocks j <= pos // bs, and the K and V of (and
     # computes with) only the entries whose position is in [0, pos]
-    walked = [table[r, :min(int(pos[r]) // bs, nb - 1) + 1] for r in range(b)]
-    valid = sum(int(((ppos[blks] >= 0) & (ppos[blks] <= pos[r])).sum())
-                for r, blks in enumerate(walked))
-    n_walked = sum(len(blks) for blks in walked)
+    an = _cost()
+    valid, n_walked = an.paged_live_entries(ppos, table, pos, bs)
     splits, bps = split_plan(b, hkv, nb, bs)
     live = [min(int(p) // bs, nb - 1) if p >= 0 else -1 for p in pos]
     rec = {"kernel": "paged_decode_attention", "B": b, "Hq": hq, "Hkv": hkv,
@@ -616,12 +635,10 @@ def check_paged(torch, ops, ref, *, b, hq, hkv, hd, bs, nb, dtype,
         rec["device_ms_by_kernel"] = _kernel_device_ms(torch, call)
     rec["plain_ms"] = _time_ms(torch, lambda: ref.paged_decode_attention(*args))
     rec["library_ms"] = None     # no single PyTorch call computes it
-    isz = args[0].element_size()
-    nbytes = (2 * b * hq * hd * isz              # q in, out
-              + valid * hkv * hd * isz * 2       # valid K and V entries
-              + n_walked * (bs + 1) * 4 + b * 4)  # ppos, table, pos
-    rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 4.0 * hq * hd * valid,
-                                              dtype)
+    cost = an.paged_decode_cost(b, hq, hkv, hd, args[0].element_size(),
+                                block_size=bs, valid=valid, walked=n_walked)
+    rec["bound_ms"], rec["bound_by"] = an.bound_ms(cost.bytes, cost.flops,
+                                                   dtype)
     return rec
 
 
@@ -676,10 +693,12 @@ def check_fused_adamw(torch, ops, ref, *, rows, cols, dtype, seed=0):
     # no single PyTorch call computes it: torch._fused_adamw_ applies the
     # weight decay elsewhere and has no per-row freeze mask
     rec["library_ms"] = None
-    n = rows * cols
-    isz = p.element_size()
-    nbytes = n * (2 * isz + g.element_size() + 16) + rows * 4
-    rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 20.0 * n, "float32")
+    an = _cost()
+    cost = an.fused_adamw_cost(rows * cols, rows=rows,
+                               itemsize=p.element_size(),
+                               grad_itemsize=g.element_size())
+    rec["bound_ms"], rec["bound_by"] = an.bound_ms(cost.bytes, cost.flops,
+                                                   "float32")
     return rec
 
 
@@ -706,9 +725,10 @@ def check_wavg(torch, ops, ref, *, rows, cols, dtype, seed=0):
         rec["library_ms"] = _time_ms(torch, lambda: w @ x, reps=10)
     else:
         rec["library_ms"] = None
-    isz = x.element_size()
-    rec["bound_ms"], rec["bound_by"] = _bound(rows * cols * isz + cols * isz,
-                                              2.0 * rows * cols, "float32")
+    an = _cost()
+    cost = an.wavg_cost(rows, cols, x.element_size())
+    rec["bound_ms"], rec["bound_by"] = an.bound_ms(cost.bytes, cost.flops,
+                                                   "float32")
     return rec
 
 
@@ -771,7 +791,6 @@ def check_quantize(torch, ops, ref, *, rows, cols, levels, seed,
                      "differing": diff, "max_abs_err": err, "band": 0.0})
     del qp, dp
     if timed:
-        n = rows * cols
         qrec, drec = recs
         qrec["ms"] = _time_ms(torch, lambda: ops.quantize_stochastic(
             x, u, inv, levels), reps=10)
@@ -779,16 +798,19 @@ def check_quantize(torch, ops, ref, *, rows, cols, levels, seed,
             x, u, inv, levels), reps=3, warmup=1)
         # no PyTorch call draws a stochastic rounding from given uniforms
         qrec["library_ms"] = None
-        qrec["bound_ms"], qrec["bound_by"] = _bound(9.0 * n + 4.0 * rows,
-                                                    4.0 * n, "float32")
+        an = _cost()
+        cost = an.quantize_cost(rows, cols)
+        qrec["bound_ms"], qrec["bound_by"] = an.bound_ms(
+            cost.bytes, cost.flops, "float32")
         drec["ms"] = _time_ms(torch, lambda: ops.dequantize(q, step), reps=10)
         drec["plain_ms"] = _time_ms(torch, lambda: ref.dequantize_2d(q, step),
                                     reps=10)
         # one PyTorch call computes the same function: int8 * fp32 promotes
         drec["library_ms"] = _time_ms(torch, lambda: q * step[:, None],
                                       reps=10)
-        drec["bound_ms"], drec["bound_by"] = _bound(5.0 * n + 4.0 * rows,
-                                                    1.0 * n, "float32")
+        cost = an.dequantize_cost(rows, cols)
+        drec["bound_ms"], drec["bound_by"] = an.bound_ms(
+            cost.bytes, cost.flops, "float32")
     return recs
 
 
@@ -813,14 +835,15 @@ def check_topk_mask(torch, ops, ref, *, rows, cols, seed, zero_row=None,
            "band": 0.0, "kept": int((out != 0).sum().item())}
     del want, out
     if timed:
-        n = rows * cols
         rec["ms"] = _time_ms(torch, lambda: ops.topk_mask(x, t), reps=10)
         rec["plain_ms"] = _time_ms(torch, lambda: ref.topk_mask_2d(x, t),
                                    reps=10)
         # no one PyTorch call: the mask needs abs, a comparison and where
         rec["library_ms"] = None
-        rec["bound_ms"], rec["bound_by"] = _bound(8.0 * n + 4.0 * rows,
-                                                  2.0 * n, "float32")
+        an = _cost()
+        cost = an.topk_mask_cost(rows, cols)
+        rec["bound_ms"], rec["bound_by"] = an.bound_ms(cost.bytes, cost.flops,
+                                                       "float32")
         # the plain per-row threshold that feeds the mask on the round's path
         rec["threshold_ms"] = _time_ms(torch, lambda: topk_threshold(x, 0.05),
                                        reps=3, warmup=1)
@@ -969,9 +992,10 @@ def profile_train(torch, state, cfg, wssl_cfg, train_cfg):
         adamw_update(state.server_params, g_s, state.opt_server, lr=1e-4)
 
     n_elems = sum(t.numel() for t in _leaves((g_c, g_s)))
+    adam = _cost().fused_adamw_cost(n_elems)
     out = {"opt_step_ms": _time_ms(torch, step, reps=3, warmup=1),
-           "opt_step_bound_ms": _bound(28.0 * n_elems, 20.0 * n_elems,
-                                       "float32")[0]}
+           "opt_step_bound_ms": _cost().bound_ms(adam.bytes, adam.flops,
+                                                 "float32")[0]}
     del g_c, g_s
     torch.cuda.empty_cache()
     s = TRAIN_RUN["seq_len"]
@@ -1437,17 +1461,11 @@ def check_ssd(torch, ops, ref, *, b, s, h, p, n, dtype, seed, body,
                                    reps=2, warmup=1)
         # no PyTorch call computes the SSD scan
         rec["library_ms"] = None
-        isz = args[0].element_size()
-        nbytes = (2 * b * s * h * p * isz        # x in, y out
-                  + b * s * h * 4 + h * 4        # dt, a
-                  + 2 * b * s * n * isz)         # B, C
-        q = min(chunk, s)
-        # the SSD form per chunk: C.B^T (shared by the heads), then per
-        # head the masked product with x, C . state and the state update
-        flops = 2.0 * b * (s // q) * (q * q * n + h * q * q * p
-                                      + 2 * h * q * n * p)
-        rec["flops"] = flops
-        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops, dtype)
+        an = _cost()
+        cost = an.ssd_scan_cost(b, s, h, p, n, args[0].element_size(), chunk)
+        rec["flops"] = cost.flops
+        rec["bound_ms"], rec["bound_by"] = an.bound_ms(cost.bytes,
+                                                       cost.flops, dtype)
     return rec
 
 
@@ -1485,9 +1503,10 @@ def check_rglru(torch, ops, ref, *, b, s, w, dtype, seed, timed=False):
                                    reps=2, warmup=1)
         # no PyTorch call computes a linear recurrence
         rec["library_ms"] = None
-        n = b * s * w
-        nbytes = n * (4 + 2 * bb.element_size())
-        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 3.0 * n, "float32")
+        an = _cost()
+        cost = an.rg_lru_cost(b, s, w, bb.element_size())
+        rec["bound_ms"], rec["bound_by"] = an.bound_ms(cost.bytes, cost.flops,
+                                                       "float32")
     return rec
 
 
@@ -4744,6 +4763,186 @@ def _peak(torch, dev, base=0):
     return 0
 
 
+ROOFLINE_RUN = dict(device="cuda", prefill_batch=2, prefill_seq=4096,
+                    decode_pos=512, reps=3, seed=0)
+
+
+def _step_ms(torch, dev, fn, reps):
+    """ms a call: CUDA events on the card, the host clock elsewhere (a
+    CPU rehearsal)."""
+    if dev.type == "cuda":
+        return _time_ms(torch, fn, reps=reps, warmup=1)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _tensor_bytes(torch, leaves) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves
+               if isinstance(t, torch.Tensor))
+
+
+def _count(torch, dev, call):
+    """The op counter (``roofline/op_cost.py``) over one call."""
+    from repro_torch.roofline import op_cost
+    with op_cost.OpCounter() as counter:
+        call()
+    _sync(torch, dev)
+    return counter
+
+
+def _hold_counts(label, card, meta):
+    """26 (b): the card's count of one call equals the meta count of the
+    same step: FLOPs, bytes, elementwise operations, kernel credits."""
+    ct, mt = card.totals(), meta.totals()
+    bad = {k: (ct[k], mt[k]) for k in ("flops", "bytes", "elementwise_ops",
+                                       "kernels") if ct[k] != mt[k]}
+    if bad:
+        ops_diff = {op: (card.by_op.get(op), meta.by_op.get(op))
+                    for op in sorted(set(card.by_op) | set(meta.by_op))
+                    if card.by_op.get(op) != meta.by_op.get(op)}
+        raise AssertionError(f"26{label}: the card's count differs from the "
+                             f"meta count: {bad}; by op (card, meta) "
+                             f"{ops_diff}")
+    return ct
+
+
+def _roofline_reading(label, cfg, shape, totals, predicted, card_bytes,
+                      step_s, meta_peak, card_peak, dtype="bfloat16"):
+    """26 (a) and (c) of one step: its record, printed on a line."""
+    from repro_torch.roofline import analysis as an
+    if predicted != card_bytes:
+        raise AssertionError(f"26{label}: the dry run predicts {predicted} "
+                             f"argument bytes, the card holds {card_bytes}")
+    rep_ = an.RooflineReport(
+        arch=cfg.name, shape=shape.name, mesh="1",
+        flops_per_device=totals["flops"], bytes_per_device=totals["bytes"],
+        coll_bytes_per_device=0.0,
+        model_flops_global=an.model_flops(cfg, shape), chips=1, dtype=dtype)
+    rec = {"argument_bytes": card_bytes, "flops": totals["flops"],
+           "bytes": totals["bytes"],
+           "elementwise_ops": totals["elementwise_ops"],
+           "kernels": totals["kernels"],
+           "model_flops": rep_.model_flops_global,
+           "t_compute_s": rep_.t_compute, "t_memory_s": rep_.t_memory,
+           "bottleneck": rep_.bottleneck, "mfu_bound": rep_.mfu_bound,
+           "step_s": step_s,
+           "mfu": an.mfu(rep_.model_flops_global, step_s, dtype),
+           "meta_peak_bytes": meta_peak, "card_peak_bytes": card_peak}
+    print(f"26{label}: {cfg.name} {shape.name}: argument bytes "
+          f"{card_bytes} = dry run's; counts equal (flops {totals['flops']:.6g}"
+          f", bytes {totals['bytes']:.6g}); step {step_s * 1e3:.2f} ms vs "
+          f"t_compute {rep_.t_compute * 1e3:.2f} ms, t_memory "
+          f"{rep_.t_memory * 1e3:.2f} ms; mfu {rec['mfu']:.4f} (bound "
+          f"{rep_.mfu_bound:.4f}); peak meta {meta_peak / 2**30:.2f} GiB, "
+          f"card {card_peak / 2**30:.2f} GiB", flush=True)
+    return rec
+
+
+def run_roofline_serve(torch, cfg, params, max_len, slots):
+    """26a and 26b on phase 3's serving params (see the docstring)."""
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import MESHES
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import device_bytes
+    run = ROOFLINE_RUN
+    dev = torch.device(run["device"])
+    mesh = MESHES["1"]
+    g = torch.Generator(device=dev).manual_seed(run["seed"])
+    meta_params, p_axes = sp.serve_param_specs(cfg)
+    out = {}
+    for label, shape in (
+            ("a", ShapeConfig(f"prefill_b{run['prefill_batch']}_s"
+                              f"{run['prefill_seq']}", run["prefill_seq"],
+                              run["prefill_batch"], "prefill")),
+            ("b", ShapeConfig("decode_phase3", max_len, slots, "decode"))):
+        rules = sp.build_rules(mesh, cfg, shape.kind, shape.global_batch)
+        meta_batch, b_axes = sp.batch_specs(cfg, shape)
+        predicted = (device_bytes(mesh, rules, p_axes, meta_params)
+                     + device_bytes(mesh, rules, b_axes, meta_batch))
+        b = shape.global_batch
+        if shape.kind == "prefill":
+            batch = {"tokens": torch.randint(
+                0, cfg.vocab_size, (b, shape.seq_len), generator=g,
+                device=dev, dtype=torch.int32)}
+            step = st.make_prefill_step(cfg, "kernel")
+            call = lambda: step(params, batch)
+            meta_call = lambda: step(meta_params, meta_batch)
+            cache = ()
+        else:
+            meta_cache, c_axes = sp.cache_specs(cfg, shape)
+            predicted += device_bytes(mesh, rules, c_axes, meta_cache)
+            cache = tf.init_cache(cfg, b, shape.seq_len, device=dev)
+            batch = {"tokens": torch.randint(
+                0, cfg.vocab_size, (b, 1), generator=g, device=dev,
+                dtype=torch.int32),
+                "pos": torch.full((b,), run["decode_pos"], device=dev,
+                                  dtype=torch.int32)}
+            step = st.make_serve_step(cfg, shape)
+            call = lambda: step(params, cache, batch)
+            meta_call = lambda: step(meta_params, meta_cache, meta_batch)
+        card_bytes = _tensor_bytes(torch, tree_leaves((params, batch, cache)))
+        ms = _step_ms(torch, dev, call, run["reps"])
+        base = _peak_reset(torch, dev)
+        call()
+        card_peak = _peak(torch, dev, base)
+        meta = _count(torch, torch.device("meta"), meta_call)
+        totals = _hold_counts(label, _count(torch, dev, call), meta)
+        out[shape.name] = _roofline_reading(
+            label, cfg, shape, totals, predicted, card_bytes, ms / 1e3,
+            meta.peak_temp_bytes, card_peak)
+        del cache, batch
+    return out
+
+
+def _roofline_round(torch, cfg, wssl_cfg, train_cfg, state, seq):
+    """26c on the state 24a trained (see the docstring)."""
+    from repro_torch import sharding
+    from repro_torch.config import ShapeConfig
+    from repro_torch.core.round import abstract_state
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import MESHES
+    dev = state.importance.device
+    mesh = MESHES["1"]
+    n = wssl_cfg.num_clients
+    shape = ShapeConfig(f"round_s{seq}", seq, n, "train")
+    rules = sp.build_rules(mesh, cfg, "train", n)
+    meta_state, s_axes = abstract_state(cfg, wssl_cfg, train_cfg)
+    meta_batch, b_axes = sp.batch_specs(cfg, shape, wssl_cfg)
+    predicted = (sharding.device_bytes(mesh, rules, s_axes, meta_state)
+                 + sharding.device_bytes(mesh, rules, b_axes, meta_batch))
+    g = torch.Generator(device=dev).manual_seed(ROOFLINE_RUN["seed"])
+    batch = {k: torch.randint(0, cfg.vocab_size, tuple(v.shape), generator=g,
+                              device=dev, dtype=torch.int32)
+             for k, v in meta_batch.items()}
+    card_bytes = _tensor_bytes(torch, sharding.tree_leaves_state(state)
+                               + list(batch.values()))
+    step = st.make_train_step(cfg, wssl_cfg, train_cfg, impl="chunked")
+
+    def call():
+        # round 0 selects every client: the dry run's host decision
+        state.round_index.zero_()
+        step(state, batch)
+
+    ms = _step_ms(torch, dev, call, ROOFLINE_RUN["reps"])
+    _peak_reset(torch, dev)
+    call()
+    card_peak = _peak(torch, dev)
+    state.round_index.zero_()
+    card = _count(torch, dev, lambda: step(state, batch))
+    meta = _count(torch, torch.device("meta"),
+                  lambda: step(meta_state, meta_batch))
+    totals = _hold_counts("c", card, meta)
+    meta_peak = predicted + meta.peak_temp_bytes
+    return _roofline_reading("c", cfg, shape, totals, predicted, card_bytes,
+                             ms / 1e3, meta_peak, card_peak)
+
+
 def run_flash_rounds(torch, ops):
     """24a: one WSSL round of full Gemma-2B at S 4096 through
     ``launch/train.py`` with ``impl="chunked"`` (the flash path) and one
@@ -4781,6 +4980,10 @@ def run_flash_rounds(torch, ops):
         peak = _peak(torch, dev, base)
         counts = ops.launch_counts()
         leaves = len(_leaves((state.client_stack, state.server_params)))
+        if (impl, s) == ("chunked", s0):
+            # 26c on this state
+            out["roofline_round"] = _roofline_round(
+                torch, cfg, wssl_cfg, train_cfg, state, s)
         del state
         want = {**{k: 0 for k in counts}, "fused_adamw": leaves}
         h = hist[0]
@@ -5737,6 +5940,13 @@ def main(argv=None) -> int:
     print(f"parity: prefill logits max|diff| {worst:.4f} (band {LOGIT_BAND}); "
           f"{compared} greedy tokens compared, {len(diverged)} requests "
           f"diverged within 2x band; plain path {plain_secs:.2f} s", flush=True)
+    # -- 26a, 26b. the roofline of the prefill and decode steps ----------
+    t0 = time.perf_counter()
+    record["roofline_serve"] = run_roofline_serve(torch, cfg, params,
+                                                  sp.max_len, sp.slots)
+    record["roofline_serve_s"] = time.perf_counter() - t0
+    print(f"26a-b. the roofline of serving: {record['roofline_serve_s']:.1f}"
+          f" s", flush=True)
     del params, engine, plain_engine
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,6 +1,7 @@
 """Configuration for the PyTorch port: the model dataclasses, the
 architecture registry, the fault :class:`Scenario`, the input shapes
-(:class:`ShapeConfig`), and the training blocks (:class:`WSSLConfig`,
+(:class:`ShapeConfig`), the device mesh (:class:`MeshConfig`), and the
+training blocks (:class:`WSSLConfig`,
 :class:`TrainConfig`, :class:`AggregationConfig`, and the async and
 compression blocks).
 
@@ -145,6 +146,53 @@ class ModelConfig:
     @property
     def uses_attention(self) -> bool:
         return any(p in (ATTN_GLOBAL, ATTN_LOCAL) for p in self.pattern)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for MODEL_FLOPS = 6·N·D)."""
+        n = 0
+        emb = self.vocab_size * self.d_model
+        n += emb
+        if not self.tie_embeddings:
+            n += emb
+        hd = self.head_dim
+        for spec in self.layer_specs():
+            if spec.mixer in (ATTN_GLOBAL, ATTN_LOCAL):
+                n += self.d_model * (self.num_heads * hd)          # q
+                n += 2 * self.d_model * (self.num_kv_heads * hd)   # k,v
+                n += (self.num_heads * hd) * self.d_model          # o
+                if self.qkv_bias:
+                    n += (self.num_heads + 2 * self.num_kv_heads) * hd
+            elif spec.mixer == MIX_RGLRU:
+                w = self.lru_width
+                n += 2 * self.d_model * w + w * self.d_model       # in x2 + out
+                n += self.lru_conv * w                             # conv
+                n += 2 * w * w + 3 * w                             # gates + Λ etc.
+            elif spec.mixer == MIX_SSM:
+                di, st, nh = self.d_inner, self.ssm_state, self.ssm_heads
+                n += self.d_model * (2 * di + 2 * st + nh)         # in_proj
+                n += self.ssm_conv * (di + 2 * st)                 # conv
+                n += di * self.d_model                             # out_proj
+                n += 2 * nh + di                                   # A, D, dt_bias-ish
+            if spec.mlp == MLP_DENSE:
+                mult = 3 if self.activation in ("swiglu", "geglu") else 2
+                n += mult * self.d_model * self.d_ff
+            elif spec.mlp == MLP_MOE:
+                mult = 3 if self.activation in ("swiglu", "geglu") else 2
+                n += self.num_experts * mult * self.d_model * self.d_ff
+                n += self.d_model * self.num_experts               # router
+            n += 2 * self.d_model                                  # 2 norms
+        n += self.d_model                                          # final norm
+        return n
+
+    def active_param_count(self) -> int:
+        """Params active per token (MoE: only routed experts)."""
+        if self.num_experts == 0:
+            return self.param_count()
+        mult = 3 if self.activation in ("swiglu", "geglu") else 2
+        per_expert = mult * self.d_model * self.d_ff
+        n_moe_layers = sum(1 for s in self.layer_specs() if s.mlp == MLP_MOE)
+        inactive = n_moe_layers * (self.num_experts - self.experts_per_token) * per_expert
+        return self.param_count() - inactive
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -513,6 +561,23 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.axes if a in ("pod", "data"))
+
+
+@dataclass(frozen=True)
 class ShapeConfig:
     name: str
     seq_len: int
@@ -549,6 +614,13 @@ def get_arch(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; ported so far: "
                        f"{sorted(_REGISTRY)}")
     return _REGISTRY[name]()
+
+
+def list_archs() -> List[str]:
+    """Every registered architecture's name, sorted."""
+    if not _REGISTRY:
+        import repro_torch.configs  # noqa: F401  (registers every config)
+    return sorted(_REGISTRY)
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

@@ -440,6 +440,7 @@ def shard_aggregate_clients(stacked: Params, importance: torch.Tensor,
     of the client sum.  Every other rule: all_gather of the local stacks
     (flat client order), then the flat rule as it is."""
     from repro_torch import sharding
+    from repro_torch.roofline import op_cost
     acfg = cfg.resolve_aggregation()
     agg = get_aggregator(acfg.rule)
     p = agg_params(acfg) if params is None else params
@@ -448,9 +449,12 @@ def shard_aggregate_clients(stacked: Params, importance: torch.Tensor,
         coefs = _tree_coefs(importance, mask, acfg, safe)
         loc = coefs[shard_index * n_loc:(shard_index + 1) * n_loc]
         part = partial_weighted_sum(stacked, loc)
-        sharding.all_reduce_tree(part, group)
+        with op_cost.collective_site("aggregation"):
+            sharding.all_reduce_tree(part, group)
         return tree_map(lambda t, a: t.to(a.dtype), part, stacked)
-    full = tree_map(lambda a: sharding.all_gather_rows(a, group), stacked)
+    with op_cost.collective_site("aggregation"):
+        full = tree_map(lambda a: sharding.all_gather_rows(a, group),
+                        stacked)
     return agg.fn(full, importance, mask, p, safe=safe, use_kernel=False)
 
 

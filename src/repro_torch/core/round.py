@@ -185,7 +185,10 @@ def init_state(gen: torch.Generator, model_cfg: ModelConfig,
     random params drawn with ``gen`` (a generator on ``device``) and stored
     in ``model_cfg.param_dtype``; fresh optimizer state; uniform
     importance; zero error-feedback residuals when compression with error
-    feedback is on.  The selection generator is seeded from ``gen``."""
+    feedback is on.  The selection generator is seeded from ``gen``.  On
+    the meta device ``gen`` is None and nothing is drawn
+    (:func:`abstract_state`); the round index, the optimizer steps and the
+    selection generator are host values, as on the card."""
     device = resolve_device(device)
     cuts = wssl_cfg.resolve_cuts(model_cfg)
     params = tf.init_params(model_cfg, gen, device=device,
@@ -200,8 +203,8 @@ def init_state(gen: torch.Generator, model_cfg: ModelConfig,
     edges = tuple(stages[1:-1])
     comp = wssl_cfg.compression
     ef = comp.enabled and comp.error_feedback
-    seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen,
-                             device=gen.device))
+    seed = 0 if gen is None else int(torch.randint(
+        0, 2 ** 62, (1,), generator=gen, device=gen.device))
     return WSSLState(
         client_stack=client_stack, server_params=stages[-1],
         edge_stages=edges, opt_client=opt_init(client_stack),
@@ -212,6 +215,42 @@ def init_state(gen: torch.Generator, model_cfg: ModelConfig,
         round_index=torch.zeros((), dtype=torch.int32),
         rng=torch.Generator().manual_seed(seed),
         ef_residual=compress.init_ef_residual(client_stack) if ef else ())
+
+
+def state_axes(model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
+               train_cfg: TrainConfig) -> WSSLState:
+    """The logical-axes tree of :func:`init_state`'s state, leaf for leaf
+    the ``state_axes`` JAX's ``init_state`` returns: client-stage leaves
+    lead with ``"client"``, the optimizer moments follow their params,
+    the step and the round index are scalars; ``rng`` maps to ``()``."""
+    from repro_torch.optim.optimizers import AdamState, SgdState
+    cuts = wssl_cfg.resolve_cuts(model_cfg)
+    stages = tf.partition_axes(tf.param_axes_tree(model_cfg), model_cfg,
+                               cuts)
+    stacked = tree_map(lambda t: ("client",) + t, stages[0],
+                       is_leaf=sharding.is_axes_leaf)
+
+    def opt_axes(p_axes):
+        if train_cfg.optimizer == "adamw":
+            return AdamState(step=(), m=p_axes, v=p_axes)
+        return SgdState(step=(), mom=p_axes)
+
+    comp = wssl_cfg.compression
+    ef = comp.enabled and comp.error_feedback
+    edges = tuple(stages[1:-1])
+    return WSSLState(
+        client_stack=stacked, server_params=stages[-1], edge_stages=edges,
+        opt_client=opt_axes(stacked), opt_server=opt_axes(stages[-1]),
+        opt_edge=tuple(opt_axes(a) for a in edges), importance=(None,),
+        round_index=(), rng=(), ef_residual=stacked if ef else ())
+
+
+def abstract_state(model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
+                   train_cfg: TrainConfig) -> Tuple[WSSLState, WSSLState]:
+    """(the state of :func:`init_state` on the meta device, its axes):
+    shapes and dtypes without allocating (JAX's ``abstract_state``)."""
+    return (init_state(None, model_cfg, wssl_cfg, train_cfg, device="meta"),
+            state_axes(model_cfg, wssl_cfg, train_cfg))
 
 
 def _bind(tree: Params, grads: Params, layered: bool = False) -> Params:
@@ -387,6 +426,15 @@ def _compress_update(state: WSSLState, old_rows: List[torch.Tensor],
         leaf[saved] = (old.float() + sent[saved]).to(leaf.dtype)
         if res:
             res[i].copy_(new_r)
+
+
+def _host_values(t: torch.Tensor) -> List[float]:
+    """``t``'s values on the host.  A meta tensor (the dry run counts a
+    round on the meta device) has none: it reads as all ones, every client
+    selected."""
+    if t.is_meta:
+        return [1.0] * t.numel()
+    return t.cpu().tolist()
 
 
 def _keep_rows(plan: Optional[sim_faults.FaultPlan], sel: List[int],
@@ -847,7 +895,7 @@ def wssl_round(state: WSSLState, batch: Dict[str, torch.Tensor],
     plan_loc = _local_plan(plan, ctx, n_loc)
     mask_loc = _loc(mask, ctx, n_loc)
     offset = 0 if ctx is None else ctx.index * n_loc
-    selected = mask.cpu().tolist()
+    selected = _host_values(mask)
     sel_rows = [i for i in range(n_loc) if selected[offset + i] > 0]
     any_sel = any(v > 0 for v in selected)
 

@@ -1,7 +1,16 @@
-"""The client axis of a sharded round: a ``torch.distributed`` process
-group, one rank a shard of N/S clients.
+"""The mesh shapes of the placement arithmetic, and the client axis of a
+sharded round: a ``torch.distributed`` process group, one rank a shard of
+N/S clients.
 
-The twin of ``repro/launch/mesh.py::make_client_mesh``.  JAX builds a
+**Mesh shapes** (the twin of ``repro/launch/mesh.py``'s
+``make_production_mesh``, ``mesh_info``, ``data_axis_size`` and
+``model_axis_size``): a mesh here is its axis-name -> size map, e.g.
+``{"data": 16, "model": 16}``.  It feeds the logical-axis rules of
+``sharding.py`` and the dry run (``launch/dryrun.py``) and creates no
+process group.  Every function also takes an object with a ``.shape``
+map (a JAX mesh, or a test's stand-in).
+
+**The client axis** (the twin of ``make_client_mesh``).  JAX builds a
 mesh of devices and runs the round once per shard under ``shard_map``;
 here each shard is a process, and the process group is the mesh's data
 axis:
@@ -29,10 +38,58 @@ import tempfile
 import time
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import Any, Callable, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 import torch.distributed as dist
+
+
+MeshShape = Dict[str, int]
+
+# the meshes the dry run places on: one card, a 16x16 pod, two pods
+MESHES = {"1": {"data": 1, "model": 1},
+          "16x16": {"data": 16, "model": 16},
+          "2x16x16": {"pod": 2, "data": 16, "model": 16}}
+
+
+def production_mesh_shape(multi_pod: bool = False) -> MeshShape:
+    """16x16 single pod (256 devices) or 2x16x16 (512 devices, 2 pods), as
+    ``make_production_mesh`` lays them out."""
+    return dict(MESHES["2x16x16" if multi_pod else "16x16"])
+
+
+def _shape(mesh) -> MeshShape:
+    return dict(getattr(mesh, "shape", mesh))
+
+
+def mesh_info(mesh) -> MeshShape:
+    return _shape(mesh)
+
+
+def mesh_size(mesh) -> int:
+    n = 1
+    for v in _shape(mesh).values():
+        n *= v
+    return n
+
+
+def mesh_name(mesh) -> str:
+    """"1" for one device, else the axis sizes joined by "x"."""
+    sizes = list(_shape(mesh).values())
+    return "1" if mesh_size(mesh) == 1 else "x".join(map(str, sizes))
+
+
+def data_axis_size(mesh) -> int:
+    shape = _shape(mesh)
+    n = 1
+    for a in ("pod", "data"):
+        if a in shape:
+            n *= shape[a]
+    return n
+
+
+def model_axis_size(mesh) -> int:
+    return _shape(mesh).get("model", 1)
 
 
 @dataclass(frozen=True)

@@ -186,7 +186,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     ``A_log``, ``D``, ``dt_bias``, ``norm_scale``; the RG-LRU gates
     ``w_r``, ``w_i``, ``b_r``, ``b_i`` and ``lambda``).  The tree's keys
     and shapes are the JAX package's, so ``tree.py``'s sorted-key leaf
-    order is shared with it."""
+    order is shared with it.  On the meta device ``gen`` is None (nothing
+    is drawn: :func:`abstract_params`)."""
     device = resolve_device(device)
     period_specs, n_full, n_rem = _superblock_layout(cfg)
     rem_specs = cfg.layer_specs()[n_full * len(period_specs):]
@@ -211,6 +212,141 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     if proj:
         params["frontend"] = proj
     return params
+
+
+def abstract_params(cfg: ModelConfig, *, dtype: Optional[torch.dtype] = None
+                    ) -> Tuple[Params, Dict[str, Any]]:
+    """(params on the meta device, their logical-axes tree): the shapes
+    and dtypes :func:`init_params` gives, allocating nothing (the
+    counterpart of JAX's ``abstract_params``)."""
+    return (init_params(cfg, None, device="meta", dtype=dtype),
+            param_axes_tree(cfg))
+
+
+# ---------------------------------------------------------------------------
+# Logical axes (the rules of ``sharding.py`` bind them to mesh axes)
+# ---------------------------------------------------------------------------
+
+
+def _norm_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    if cfg.norm == "layernorm":
+        return {"scale": ("embed",), "bias": ("embed",)}
+    return {"scale": ("embed",)}
+
+
+def _mixer_axes(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Tuple]:
+    if _is_attn(spec):
+        # attn_din / attn_dout rebind to the model axis when the heads
+        # cannot shard it (launch/specs.py::build_rules)
+        ax = {"wq": ("attn_din", "heads", None),
+              "wk": ("attn_din", "kv_heads", None),
+              "wv": ("attn_din", "kv_heads", None),
+              "wo": ("heads", None, "attn_dout")}
+        if cfg.qkv_bias:
+            ax.update(bq=("heads", None), bk=("kv_heads", None),
+                      bv=("kv_heads", None))
+        return ax
+    if spec.mixer == MIX_SSM:
+        return {"wz": ("fsdp", "ssm_inner"), "wx": ("fsdp", "ssm_inner"),
+                "wB": ("fsdp", None), "wC": ("fsdp", None),
+                "wdt": ("fsdp", "ssm_heads"), "wo": ("ssm_inner", "fsdp"),
+                "conv_x": (None, "ssm_inner"), "conv_BC": (None, None),
+                "A_log": ("ssm_heads",), "D": ("ssm_heads",),
+                "dt_bias": ("ssm_heads",), "norm_scale": ("ssm_inner",)}
+    return {"wy": ("fsdp", "lru"), "wgate": ("fsdp", "lru"),
+            "conv": (None, "lru"), "w_r": (None, "lru"),
+            "w_i": (None, "lru"), "wo": ("lru", "fsdp"),
+            "lambda": ("lru",), "b_r": ("lru",), "b_i": ("lru",)}
+
+
+def _mlp_axes(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Tuple]:
+    gated = cfg.activation in ("swiglu", "geglu")
+    if spec.mlp == MLP_MOE:
+        ax = {"router": ("fsdp", None),
+              "wu": ("expert", "fsdp", None), "wd": ("expert", None, "fsdp")}
+        if gated:
+            ax["wg"] = ("expert", "fsdp", None)
+        return ax
+    ax = {"wu": ("fsdp", "ff"), "wd": ("ff", "fsdp")}
+    if gated:
+        ax["wg"] = ("fsdp", "ff")
+    if cfg.mlp_bias:
+        ax.update(bu=("ff",), bd=("embed",))
+    return ax
+
+
+def _layer_axes(cfg: ModelConfig, spec: LayerSpec, stacked: bool) -> Params:
+    ax: Params = {"norm1": _norm_axes(cfg), "mixer": _mixer_axes(cfg, spec)}
+    if spec.mlp != MLP_NONE:
+        ax["norm2"] = _norm_axes(cfg)
+        ax["mlp"] = _mlp_axes(cfg, spec)
+    if stacked:     # the leading layer axis is never sharded
+        ax = _prepend_none(ax)
+    return ax
+
+
+def _prepend_none(tree):
+    if isinstance(tree, dict):
+        return {k: _prepend_none(v) for k, v in tree.items()}
+    return (None,) + tuple(tree)
+
+
+def param_axes_tree(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical-axes tree of :func:`init_params`'s tree, leaf for leaf
+    JAX's ``param_axes_tree``."""
+    period_specs, n_full, _ = _superblock_layout(cfg)
+    rem_specs = cfg.layer_specs()[n_full * len(period_specs):]
+    axes: Dict[str, Any] = {
+        "embed": {"tok": ("vocab", "fsdp")},
+        "stack": [_layer_axes(cfg, spec, True) for spec in period_specs],
+        "rem": [_layer_axes(cfg, spec, False) for spec in rem_specs],
+        "final_norm": _norm_axes(cfg),
+    }
+    if cfg.frontend == "vision":
+        axes["frontend"] = {"proj": ("fsdp", "embed")}
+    if not cfg.tie_embeddings:
+        axes["head"] = ("fsdp", "vocab")
+    return axes
+
+
+def _layer_cache_axes(spec: LayerSpec, stacked: bool,
+                      paged: bool) -> Dict[str, Tuple]:
+    if _is_attn(spec):
+        if paged:
+            ax = {"pk": (None, None, "kv_heads", None),
+                  "pv": (None, None, "kv_heads", None),
+                  "ppos": (None, None)}
+        else:
+            ax = {"k": ("batch", "kv_seq", "kv_heads", None),
+                  "v": ("batch", "kv_seq", "kv_heads", None),
+                  "pos": ("batch", None)}
+    elif spec.mixer == MIX_SSM:
+        ax = {"state": ("batch", "ssm_heads", None, None),
+              "conv_x": ("batch", None, "ssm_inner"),
+              "conv_BC": ("batch", None, None)}
+    else:
+        ax = {"h": ("batch", "lru"), "conv": ("batch", None, "lru")}
+    return _prepend_none(ax) if stacked else ax
+
+
+def cache_axes(cfg: ModelConfig, *, paged: bool = False,
+               decode_window_override: Optional[int] = None
+               ) -> Dict[str, Any]:
+    """The logical-axes tree of :func:`init_cache`'s tree, JAX's
+    ``cache_axes`` for a contiguous cache.  ``paged=True`` gives a paged
+    cache's pools (layers that page, as :func:`init_cache` decides)
+    unsharded block axes."""
+    period_specs, n_full, _ = _superblock_layout(cfg)
+    rem_specs = cfg.layer_specs()[n_full * len(period_specs):]
+
+    def pages(spec):
+        return (paged and _is_attn(spec)
+                and _decode_window(spec, decode_window_override) is None)
+
+    return {"stack": [_layer_cache_axes(s, True, pages(s))
+                      for s in period_specs],
+            "rem": [_layer_cache_axes(s, False, pages(s))
+                    for s in rem_specs]}
 
 
 # ---------------------------------------------------------------------------
@@ -729,6 +865,27 @@ def partition_params(params: Params, cfg: ModelConfig, cuts: Sequence[int],
         last["embed"] = {"tok": tok.clone() if copy else tok}
     elif "head" in params:
         last["head"] = params["head"]
+    stages.append(last)
+    return stages
+
+
+def partition_axes(axes: Dict[str, Any], cfg: ModelConfig,
+                   cuts: Sequence[int]) -> List[Dict[str, Any]]:
+    """The logical-axes trees matching :func:`partition_params` (a stacked
+    leaf's axes do not change when its layer axis is sliced)."""
+    cuts = _check_cuts(cfg, cuts)
+    first = {"embed": axes["embed"], "stack": axes["stack"]}
+    if "frontend" in axes:
+        first["frontend"] = axes["frontend"]
+    stages: List[Dict[str, Any]] = [first]
+    for _ in cuts[1:]:
+        stages.append({"stack": axes["stack"]})
+    last = {"stack": axes["stack"], "rem": axes["rem"],
+            "final_norm": axes["final_norm"]}
+    if cfg.tie_embeddings:
+        last["embed"] = axes["embed"]
+    elif "head" in axes:
+        last["head"] = axes["head"]
     stages.append(last)
     return stages
 

@@ -165,3 +165,29 @@ def fail_on_rank(group, device, rank):
 def sleep_past(group, device, seconds):
     import time
     time.sleep(seconds)
+
+
+def count_round(group, device, cfgs, tokens):
+    """One sharded round of a fresh state (every client selected: round
+    0) under the op counter: the collective bytes by kind, the
+    aggregation's alone, the round's cross-shard bytes and the shared
+    stages' bytes."""
+    from repro_torch.core.protocol import tree_bytes
+    from repro_torch.roofline import op_cost
+    from repro_torch.sharding import init_shard_state
+    model_cfg, wssl_cfg, train_cfg = cfgs
+    state = init_shard_state(torch.Generator().manual_seed(0), model_cfg,
+                             wssl_cfg, train_cfg, group.num_shards,
+                             group.index, device=device)
+    round_fn = make_sharded_round_fn(model_cfg, wssl_cfg, train_cfg, group,
+                                     impl="dense")
+    tok = torch.as_tensor(tokens)
+    batch = round_fn.place_batch({"tokens": tok, "labels": tok})
+    with op_cost.OpCounter() as counter:
+        _, m = round_fn(state, batch)
+    tot = counter.totals()
+    return {"coll": {k: v for k, v in tot.items() if k.startswith("coll_")},
+            "by_site": tot["collectives_by_site"],
+            "cross": float(m.bytes_cross_shard),
+            "shared_bytes": tree_bytes(state.server_params) + sum(
+                tree_bytes(e) for e in state.edge_stages)}

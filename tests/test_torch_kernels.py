@@ -9,6 +9,8 @@ softmax sums in another order); the bf16 case atol = rtol = 5e-2 (outputs
 rounded to bf16).
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -195,6 +197,12 @@ def test_flash_wrapper_head_dims(hd, ok):
 
 
 def test_dispatch_refuses_other_devices():
+    # the meta device takes the plain version's shape (the dry run);
+    # any device other than the CPU, the card and meta raises
     q = torch.zeros(1, 8, 4, 16, device="meta")
+    out = ops.flash_attention(q, q, q)
+    assert out.is_meta and out.shape == q.shape
+    other = types.SimpleNamespace(shape=q.shape, is_meta=False,
+                                  device=torch.device("xla"))
     with pytest.raises(ValueError, match="no kernel"):
-        ops.flash_attention(q, q, q)
+        ops.flash_attention(other, other, other)
