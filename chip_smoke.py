@@ -351,11 +351,46 @@ Phases, each printing its lines before the last:
              ``t_compute`` and ``t_memory``, ``mfu = model_flops /
              (t x peak)`` at bf16, and the meta peak estimate beside
              the ``max_memory_allocated`` of one more call.
+27. the model axis — the sharded prefill step
+             (``make_prefill_step(cfg, "kernel", grid)``) over a ``data x
+             model`` grid of processes sharing the card over gloo
+             (``launch/mesh.py::spawn_grid``), placed by
+             ``build_rules(grid, cfg, "prefill", B)``: 27a full Gemma-2B
+             at 1 x 2, B 2 x S 2,048 (4 query heads over the one kv head
+             a rank); 27b full OLMoE-1B-7B at 2 x 2, B 2 x S 1,024 (8
+             over 8 heads and 32 of 64 experts a rank, FSDP over the data
+             axis; 1,024 tokens a data shard >= 8 x 64, so the per-shard
+             dispatch runs, capacity 160 against the global stream's
+             320).  Each rank builds only its blocks
+             (``_bridge.init_shard_params``, one seeded piece at a time);
+             the reference is the one-rank step on the same seeded tree,
+             run first and freed (27a plain, 27b under the bare mesh shape
+             ``{"data": 2, "model": 1}``, per shard as JAX).  Checks: (i)
+             every rank's held bytes equal ``sharding.device_bytes``
+             exactly and the grid's distinct blocks sum to the whole
+             tree's leaves; (ii) flash launches a rank = the layers; (iii)
+             at 4 layers in fp32, last-position logits within 1e-4 of max
+             |logit| of the reference; (iv) in bf16 at full depth, under
+             the reference's expert choices (replayed into each rank, as
+             phase 22 replays them), the greedy token equal wherever the
+             reference's top-2 gap exceeds ``MODEL_AXIS_GAP``; for MoE
+             the grid's own top-k flip rate and its replayed logits'
+             max|diff| each at most ``MODEL_AXIS_WITNESS_RATIO`` times a
+             witness's, the one-rank step with the grid's roundings
+             (``_row_parallel_split``), the free routing's tokens printed
+             beside; the ranks' MoE dispatches, each of its shard's
+             tokens at the shard's capacity; (v) each rank's collective
+             bytes by kind (the op counter) beside the dry run's even
+             split of the same step and grid.  Prints each rank's peak,
+             the warm replayed step's time (CUDA events, each collective
+             synchronised for its own timing) and the collectives' share
+             of it, and flash against SDPA at the per-rank shapes.
 
-Each of phases 12-25 prints its wall time.  Then one JSON line with every
-kernel's numbers (the nine kernels, then flash and paged decode at
+Each of phases 12-25 and 27 prints its wall time.  Then one JSON line with
+every kernel's numbers (the nine kernels, then flash and paged decode at
 Gemma-3-12B's, StableLM-2-12B's, Qwen2.5-32B's, OLMoE-1B-7B's,
-Phi-3.5-MoE's, MusicGen-medium's and Qwen2-VL-72B's shapes), and as the
+Phi-3.5-MoE's, MusicGen-medium's and Qwen2-VL-72B's shapes, then flash
+at phase 27's per-rank shapes), and as the
 last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
 exits non-zero before that line; it also exits non-zero, printing no
@@ -5683,6 +5718,568 @@ def run_shards(torch, ops):
     return out
 
 
+MODEL_AXIS_RUN = dict(device="cuda", reduced=False, seed=0, reps=1,
+                      fp32_layers=4, timeout=900.0)
+# arch -> its grid (data, model) and prefill shape
+MODEL_AXIS = {"gemma-2b": dict(grid=(1, 2), batch=2, seq=2048),
+              "olmoe-1b-7b": dict(grid=(2, 2), batch=2, seq=1024)}
+# (iii): fp32 last-position logits, grid vs one rank, in max |logit| of
+# the reference: the grid only reassociates the row-parallel sums
+MODEL_AXIS_FP32_BAND = 1e-4
+# (iv): bf16 at full depth, the greedy token must equal the reference's
+# on every row whose top-2 gap exceeds this band.  Set before the first
+# run from phase 4's parity band (0.25, kernel vs plain prefill, the same
+# 18 Gemma layers in bf16): the grid rounds each row-parallel partial sum
+# to bf16 before the model group adds them, one rounding more a layer
+# than the one-rank GEMM, as the plain path rounds its scores once more.
+# MoE is held under the reference's expert choices: with free routing
+# the first run's OLMoE row 0 differed at a gap of 0.656, the ranks'
+# own top-k picking other experts on ~26% of the rows routed (bf16 ties
+# at the k-th place, as phase 22 found between its paths)
+MODEL_AXIS_GAP = 0.5
+# (iv), MoE: the grid's free routing and its logits under the reference's
+# routing are held against a witness, the one-rank step with the grid's
+# roundings (each row-parallel partial rounded to bf16, then added in
+# bf16): the grid's own top-k flip rate and its replayed logits' max|diff|
+# must each be at most this many times the witness's.  Set before the
+# witness's first run: the two run the same roundings and differ only
+# where a GEMM of another width picks another kernel.  The grid's free
+# greedy tokens must also equal the witness's free ones wherever the
+# witness's top-2 gap exceeds MODEL_AXIS_GAP (added after the first run,
+# which read the two bit-equal, replayed and free)
+MODEL_AXIS_WITNESS_RATIO = 2.0
+
+
+def _model_axis_cfg(arch, key):
+    """27's config: ``bf16`` the full model, ``fp32`` its first
+    ``MODEL_AXIS_RUN["fp32_layers"]`` layers in fp32 activations and
+    params (reduced both when rehearsing on the CPU)."""
+    from repro_torch.config import get_arch, reduced
+    cfg = get_arch(arch)
+    if MODEL_AXIS_RUN["reduced"]:
+        cfg = reduced(cfg).replace(dtype="bfloat16")
+    if key == "fp32":
+        cfg = cfg.replace(num_layers=min(cfg.num_layers,
+                                         MODEL_AXIS_RUN["fp32_layers"]),
+                          dtype="float32")
+    return cfg
+
+
+def _model_axis_batch(torch, cfg, spec, dev):
+    g = torch.Generator().manual_seed(MODEL_AXIS_RUN["seed"] + 1)
+    return {"tokens": torch.randint(0, cfg.vocab_size,
+                                    (spec["batch"], spec["seq"]),
+                                    generator=g, dtype=torch.int32).to(dev)}
+
+
+def _leaf_sums(torch, tree):
+    from repro_torch.tree import tree_leaves
+    return [float(t.double().sum()) for t in tree_leaves(tree)]
+
+
+@contextlib.contextmanager
+def _dispatches():
+    """The (tokens, capacity) of every MoE dispatch in the block, as
+    ``models/moe.py::_capacity`` reckons them."""
+    from unittest import mock
+    from repro_torch.models import moe
+    real, seen = moe._capacity, []
+
+    def cap(cfg, n):
+        c = real(cfg, n)
+        seen.append((n, c))
+        return c
+    with mock.patch.object(moe, "_capacity", cap):
+        yield seen
+
+
+@contextlib.contextmanager
+def _row_parallel_split(torch, model):
+    """The witness of (iv): in the block the one-rank step rounds its
+    row-parallel products as a grid of ``model`` ranks on the model axis
+    does, each rank's partial in the activation dtype, then the partials
+    added in it (the model group's sum): ``wo`` over blocks of heads and
+    the MoE combine over blocks of experts (an assignment of another
+    block, or dropped, adds zero, as a rank's zero row does)."""
+    import functools
+    import operator
+    from unittest import mock
+    from repro_torch.models import attention, moe
+    real_out, real_route, real_combine = (attention._out_proj, moe.route,
+                                          moe.combine)
+    last = {}
+
+    def summed(parts):
+        return functools.reduce(operator.add, parts)
+
+    def out_proj(p, out):
+        n = out.shape[2] // model
+        return summed(real_out({"wo": p["wo"][i * n:(i + 1) * n]},
+                               out[:, :, i * n:(i + 1) * n])
+                      for i in range(model))
+
+    def route(cfg, probs, cap):
+        last.update(r=real_route(cfg, probs, cap), cap=cap,
+                    per=cfg.num_experts // model)
+        return last["r"]
+
+    def combine(contrib, order, k):
+        block = last["r"].slot // last["cap"] // last["per"]
+        zero = torch.zeros((), dtype=contrib.dtype, device=contrib.device)
+        return summed(real_combine(torch.where((block == i)[:, None],
+                                               contrib, zero), order, k)
+                      for i in range(model))
+
+    with mock.patch.object(attention, "_out_proj", out_proj), \
+            mock.patch.object(moe, "route", route), \
+            mock.patch.object(moe, "combine", combine):
+        yield
+
+
+def _model_axis_rank(grid, dev, arch, spec, run, routing):
+    """One rank of 27: its blocks and the counted step, in fp32 at 4
+    layers and in bf16 at full depth; in bf16 then a step under the
+    reference's expert choices for its data shard (``routing``: the
+    reference's top-k calls in order, shard by shard within a layer),
+    each collective timed, and the timed warm steps."""
+    import torch
+    from repro_torch import _bridge, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch.specs import build_rules
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.roofline import op_cost
+    from repro_torch.tree import tree_leaves
+    MODEL_AXIS_RUN.update(run)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"coords": grid.coords, "entered": time.time()}
+    for key in ("fp32", "bf16"):
+        cfg = _model_axis_cfg(arch, key)
+        batch = _model_axis_batch(torch, cfg, spec, dev)
+        rules = build_rules(grid, cfg, "prefill", spec["batch"])
+        base = _peak_reset(torch, dev)
+        t0 = time.perf_counter()
+        blocks = _bridge.init_shard_params(cfg, MODEL_AXIS_RUN["seed"],
+                                           grid, rules, device=dev)
+        _sync(torch, dev)
+        rec = {"build_s": time.perf_counter() - t0,
+               "held_bytes": _tensor_bytes(torch, tree_leaves(blocks)),
+               "device_bytes": sharding.device_bytes(
+                   grid, rules, tf.param_axes_tree(cfg),
+                   tf.abstract_params(cfg)[0]),
+               "sums": _leaf_sums(torch, blocks),
+               "rules": {k: str(v) for k, v in rules.items()}}
+        step = make_prefill_step(cfg, "kernel", grid=grid)
+        ops.reset_launch_counts()
+        sharding.reset_collective_stats()
+        t0 = time.perf_counter()
+        with op_cost.OpCounter() as counter, _dispatches() as dispatched:
+            logits = step(blocks, batch)
+        _sync(torch, dev)
+        rec["counted_s"] = time.perf_counter() - t0
+        rec["dispatches"] = sorted(set(dispatched))
+        tot = counter.totals()
+        rec.update(logits=logits.float().cpu(),
+                   launches=ops.launch_counts(),
+                   collectives=sharding.collective_stats(),
+                   coll={k.removeprefix("coll_"): v for k, v in tot.items()
+                         if k.startswith("coll_") and k != "coll_weighted"},
+                   flops=tot["flops"], bytes=tot["bytes"])
+        if key == "bf16":
+            # warm: the step under the reference's routing (MoE) is the
+            # timed one, each collective timed between synchronises
+            replay = _Routing()
+            d = grid.coords["data"]
+            replay.calls = [ids.to(dev) for ids in routing[d::grid.data]]
+            replayed = []
+
+            def run():
+                with replay.replay():
+                    replayed.append(step(blocks, batch))
+            sharding.reset_collective_stats(timing=True)
+            _sync(torch, dev)
+            rec["ms"] = (_time_ms(torch, run, reps=1, warmup=0)
+                         if dev.type == "cuda" else
+                         _step_ms(torch, dev, run, 1))
+            rec["replayed"] = replayed[0].float().cpu()
+            rec["collective_s"] = sharding.collective_stats()["seconds"]
+            rec["flips"] = [int(replay.flips), replay.rows]
+            if replay.at != len(replay.calls):
+                raise AssertionError(f"27 {arch}: the replay used "
+                                     f"{replay.at} of {len(replay.calls)} "
+                                     f"recorded calls")
+            sharding.reset_collective_stats()
+        rec["peak_bytes"] = _peak(torch, dev, base)
+        out[key] = rec
+        del blocks, logits
+        _free(torch)
+    out["left"] = time.time()
+    return out
+
+
+def _model_axis_reference(torch, ops, arch, spec, key, dev):
+    """27's reference: the one-rank step on the whole seeded tree (the bare
+    mesh shape ``{"data": D, "model": 1}`` bound where D > 1), then freed.
+    Returns its logits, each leaf's fp64 sum, its warm time and peak."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves
+    cfg = _model_axis_cfg(arch, key)
+    data = spec["grid"][0]
+    batch = _model_axis_batch(torch, cfg, spec, dev)
+    base = _peak_reset(torch, dev)
+    whole = tf.init_params_by_layer(cfg, MODEL_AXIS_RUN["seed"], device=dev)
+    step = make_prefill_step(cfg, "kernel", grid=(
+        {"data": data, "model": 1} if data > 1 else None))
+    ops.reset_launch_counts()
+    routing = _Routing()
+    with routing.record():
+        logits = step(whole, batch)
+    rec = {"logits": logits.float().cpu(), "sums": _leaf_sums(torch, whole),
+           "shapes": [tuple(t.shape) for t in tree_leaves(whole)],
+           "launches": ops.launch_counts(),
+           "routing": [ids.cpu() for ids in routing.calls]}
+    if key == "bf16" and cfg.num_experts:
+        # (iv)'s witness: the grid's roundings on one rank, under the
+        # recorded routing (its own top-k's flips counted) and free
+        witness = _Routing()
+        witness.calls = routing.calls
+        with _row_parallel_split(torch, spec["grid"][1]):
+            with witness.replay():
+                replayed = step(whole, batch).float().cpu()
+            free = step(whole, batch).float().cpu()
+        rec["witness"] = {"flips": [int(witness.flips), witness.rows],
+                          "replayed": replayed, "free": free}
+    if key == "bf16":
+        rec["ms"] = _step_ms(torch, dev, lambda: step(whole, batch),
+                             MODEL_AXIS_RUN["reps"])
+    rec["peak_bytes"] = _peak(torch, dev, base)
+    del whole, logits
+    _free(torch)
+    return rec
+
+
+def _model_axis_blocks(arch, key, spec, ranks, ref):
+    """(i)'s second half: the grid's distinct blocks of each leaf (one rank
+    a block) hold as many elements as the leaf, and their fp64 sums add up
+    to the whole leaf's."""
+    from repro_torch import sharding
+    from repro_torch.launch.mesh import ProcessGrid
+    from repro_torch.launch.specs import build_rules
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves
+    cfg = _model_axis_cfg(arch, key)
+    data, model = spec["grid"]
+    rules = build_rules({"data": data, "model": model}, cfg, "prefill",
+                        spec["batch"])
+    axes = sharding.axes_leaves(tf.param_axes_tree(cfg))
+    worst = 0.0
+    for i, (ax, shape) in enumerate(zip(axes, ref["shapes"])):
+        seen, total, n = set(), 0.0, 0
+        for r in range(data * model):
+            g = ProcessGrid(data, model, r)
+            sl = sharding.block_slices(sharding.resolve_spec(
+                g, rules, ax, shape), shape, g)
+            key_ = tuple((x.start, x.stop) for x in sl)
+            if key_ in seen:
+                continue
+            seen.add(key_)
+            total += ranks[r][key]["sums"][i]
+            n += math.prod(x.stop - x.start for x in sl)
+        if n != math.prod(shape):
+            raise AssertionError(f"27 {arch} {key}: leaf {i} {shape}: the "
+                                 f"blocks hold {n} elements")
+        err = abs(total - ref["sums"][i]) / max(abs(ref["sums"][i]), 1.0)
+        worst = max(worst, err)
+    if worst > 1e-9:
+        raise AssertionError(f"27 {arch} {key}: the blocks' sums differ from "
+                             f"the whole leaves' by {worst:.3g} (relative)")
+    return worst
+
+
+def _grid_rows(ranks, key, data, model, what):
+    """The grid's logits in row order; a model group's ranks must agree
+    bit for bit."""
+    import torch
+    rows = []
+    for d in range(data):
+        first = ranks[d * model][key][what]
+        for m in range(1, model):
+            if not torch.equal(ranks[d * model + m][key][what], first):
+                raise AssertionError(f"27: the model group of d={d} "
+                                     f"returned different {what}")
+        rows.append(first)
+    return torch.cat(rows)
+
+
+def _even_split(torch, arch, key, spec):
+    """(v): the dry run's count of the same step on the grid, divided
+    evenly (``launch/dryrun.py::build_step`` on the meta device)."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import op_cost
+    cfg = _model_axis_cfg(arch, key)
+    data, model = spec["grid"]
+    shape = ShapeConfig("prefill", spec["seq"], spec["batch"], "prefill")
+    call, _, split, _, _ = dryrun.build_step(
+        cfg, shape, {"data": data, "model": model}, impl="kernel")
+    with op_cost.OpCounter() as counter:
+        call()
+    tot = counter.totals()
+    return {"split": split, "flops": tot["flops"] / split,
+            "bytes": tot["bytes"] / split,
+            "coll": {k.removeprefix("coll_"): v / split
+                     for k, v in tot.items()
+                     if k.startswith("coll_") and k != "coll_weighted"}}
+
+
+def run_model_axis(torch, ops, ref=None):
+    """Phase 27 (see the docstring): for each arch the references, then
+    one spawn of its grid; checks (i)-(v), then flash against SDPA at the
+    per-rank shapes (on the card)."""
+    from repro_torch.launch.mesh import spawn_grid
+    from repro_torch.models import moe
+    dev = torch.device(MODEL_AXIS_RUN["device"])
+    out = {}
+    for arch, spec in MODEL_AXIS.items():
+        data, model = spec["grid"]
+        t0 = time.perf_counter()
+        refs = {key: _model_axis_reference(torch, ops, arch, spec, key, dev)
+                for key in ("fp32", "bf16")}
+        ref_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        spawned = time.time()
+        ranks = spawn_grid(_model_axis_rank, data, model, arch, spec,
+                           dict(MODEL_AXIS_RUN), refs["bf16"]["routing"],
+                           device=dev, backend="gloo",
+                           timeout=MODEL_AXIS_RUN["timeout"])
+        rec = {"grid": spec["grid"], "batch": spec["batch"],
+               "seq": spec["seq"], "reference_s": ref_s,
+               "spawn_s": time.perf_counter() - t0}
+        cfg = _model_axis_cfg(arch, "bf16")
+        if cfg.num_experts:
+            # the dispatches the ranks ran: per shard when each dispatched
+            # its shard's tokens, at the shard's capacity
+            t_all = spec["batch"] * spec["seq"]
+            per = t_all // data
+            ran = sorted({d for r in ranks for d in r["bf16"]["dispatches"]})
+            shard = [(per, moe._capacity(cfg, per))]
+            rec["moe"] = {
+                "tokens_a_shard": per, "dispatches": ran,
+                "branch": ("per shard" if data > 1 and ran == shard
+                           else "global" if ran == [(t_all, moe._capacity(
+                               cfg, t_all))] else f"other: {ran}"),
+                "capacity_shard": moe._capacity(cfg, per),
+                "capacity_global": moe._capacity(cfg, t_all)}
+            if data > 1 and per >= 8 * cfg.num_experts and ran != shard:
+                raise AssertionError(f"27 {arch}: the ranks dispatched "
+                                     f"{ran}, the per-shard branch "
+                                     f"{shard}")
+        for key in ("fp32", "bf16"):
+            kcfg = _model_axis_cfg(arch, key)
+            # (i) the held bytes and the blocks
+            for r, res in enumerate(ranks):
+                if res[key]["held_bytes"] != res[key]["device_bytes"]:
+                    raise AssertionError(
+                        f"27 {arch} {key}: rank {r} holds "
+                        f"{res[key]['held_bytes']} bytes, device_bytes "
+                        f"{res[key]['device_bytes']}")
+            blocks_err = _model_axis_blocks(arch, key, spec, ranks,
+                                            refs[key])
+            # (ii) flash on every rank, once a layer
+            flash = [res[key]["launches"].get("flash_attention", 0)
+                     for res in ranks]
+            if dev.type == "cuda" and flash != [kcfg.num_layers] * len(ranks):
+                raise AssertionError(f"27 {arch} {key}: flash launches "
+                                     f"{flash}, want {kcfg.num_layers} a "
+                                     f"rank")
+            got = _grid_rows(ranks, key, data, model, "logits")
+            want = refs[key]["logits"]
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"27 {arch} {key}: logits "
+                                     f"{tuple(got.shape)}, finite "
+                                     f"{bool(torch.isfinite(got).all())}")
+            diff = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            krec = {"held_bytes": [r[key]["held_bytes"] for r in ranks],
+                    "blocks_sum_rel_err": blocks_err, "flash": flash,
+                    "max_abs_diff": diff, "max_abs_logit": scale,
+                    "peak_bytes": [r[key]["peak_bytes"] for r in ranks],
+                    "reference_peak_bytes": refs[key]["peak_bytes"],
+                    "build_s": [r[key]["build_s"] for r in ranks]}
+            if key == "fp32":
+                # (iii)
+                if diff > MODEL_AXIS_FP32_BAND * scale:
+                    raise AssertionError(
+                        f"27 {arch} fp32: logits differ by {diff:.3g} > "
+                        f"{MODEL_AXIS_FP32_BAND} x {scale:.3g}")
+            else:
+                # (iv) under the reference's expert choices; the free
+                # routing's tokens beside
+                replayed = _grid_rows(ranks, key, data, model, "replayed")
+                top = torch.topk(want[:, -1], 2, dim=-1).values
+                gaps = (top[:, 0] - top[:, 1]).tolist()
+                tok = replayed[:, -1].argmax(-1).tolist()
+                free_tok = got[:, -1].argmax(-1).tolist()
+                ref_tok = want[:, -1].argmax(-1).tolist()
+                for row, (a, b, gap) in enumerate(zip(tok, ref_tok, gaps)):
+                    if a != b and gap > MODEL_AXIS_GAP:
+                        raise AssertionError(
+                            f"27 {arch} bf16: row {row} greedy {a} vs {b} "
+                            f"with top-2 gap {gap:.3f} > {MODEL_AXIS_GAP}")
+                rep_diff = float((replayed - want).abs().max())
+                if cfg.num_experts:
+                    krec["witness"] = _check_witness(
+                        arch, refs[key], ranks, replayed, got, want)
+                krec.update(gaps=gaps, tokens=tok, reference_tokens=ref_tok,
+                            free_tokens=free_tok,
+                            replayed_max_abs_diff=rep_diff,
+                            flips=[r[key]["flips"] for r in ranks],
+                            ms=[r[key]["ms"] for r in ranks],
+                            reference_ms=refs[key]["ms"],
+                            collective_share=[
+                                r[key]["collective_s"] / (r[key]["ms"] / 1e3)
+                                for r in ranks])
+            # (v)
+            even = _even_split(torch, arch, key, spec)
+            krec["rank_coll"] = [r[key]["coll"] for r in ranks]
+            krec["rank_calls"] = [r[key]["collectives"]["calls"]
+                                  for r in ranks]
+            krec["rank_flops"] = [r[key]["flops"] for r in ranks]
+            krec["dryrun_even_split"] = even
+            rec[key] = krec
+            c0 = krec["rank_coll"][0]
+            print(f"  27 {arch} {key} ({data} x {model}): logits max|diff| "
+                  f"{diff:.4g} of max|logit| {scale:.4g}; held bytes a rank "
+                  f"{krec['held_bytes']} = device_bytes; flash {flash}; "
+                  f"rank 0 collectives {krec['rank_calls'][0]} calls, "
+                  f"all-reduce {c0.get('all-reduce', 0) / 2**20:.2f} MiB, "
+                  f"all-gather {c0.get('all-gather', 0) / 2**20:.2f} MiB "
+                  f"(dry run's even split: "
+                  f"{sum(even['coll'].values()) / 2**20:.2f} MiB); "
+                  f"rank 0 flops {krec['rank_flops'][0]:.6g} vs even split "
+                  f"{even['flops']:.6g}; peaks "
+                  f"{', '.join(f'{b / 2**30:.2f}' for b in krec['peak_bytes'])}"
+                  f" GiB (reference {refs[key]['peak_bytes'] / 2**30:.2f})",
+                  flush=True)
+            if key == "bf16":
+                flips = (f"; routing flips a rank {krec['flips']} (rows the "
+                         f"grid's own top-k routes elsewhere, of rows "
+                         f"routed)" if cfg.num_experts else "")
+                if "witness" in krec:
+                    w = krec["witness"]
+                    flips += (f"; witness (one rank, the grid's roundings): "
+                              f"flips {w['flips']}, rate "
+                              f"{w['flip_rate']:.4f} vs the grid's "
+                              f"{w['grid_flip_rate']:.4f}, replayed "
+                              f"max|diff| {w['replayed_max_abs_diff']:.4g} "
+                              f"vs the grid's {krec['replayed_max_abs_diff']:.4g}"
+                              f" (each within x{MODEL_AXIS_WITNESS_RATIO}; "
+                              f"the two replayed apart by "
+                              f"{w['replayed_vs_grid_max_abs_diff']:.4g}), "
+                              f"free tokens {w['free_tokens']} (gaps "
+                              f"{', '.join(f'{g:.3f}' for g in w['free_gaps'])}"
+                              f"), free max|diff| "
+                              f"{w['free_max_abs_diff']:.4g}, from the "
+                              f"grid's free logits "
+                              f"{w['free_vs_grid_max_abs_diff']:.4g}")
+                print(f"  27 {arch} bf16 under the reference's routing: "
+                      f"logits max|diff| {krec['replayed_max_abs_diff']:.4g}"
+                      f"; gaps "
+                      f"{', '.join(f'{g:.3f}' for g in krec['gaps'])} "
+                      f"(band {MODEL_AXIS_GAP}), tokens {krec['tokens']} vs "
+                      f"{krec['reference_tokens']} (free routing "
+                      f"{krec['free_tokens']}){flips}; step "
+                      f"{', '.join(f'{m:.1f}' for m in krec['ms'])} ms a rank "
+                      f"(one rank {krec['reference_ms']:.1f} ms); "
+                      f"collectives "
+                      f"{', '.join(f'{c:.3f}' for c in krec['collective_share'])}"
+                      f" of a timed step", flush=True)
+        if "moe" in rec:
+            m = rec["moe"]
+            print(f"  27 {arch}: the {m['branch']} dispatch ran, "
+                  f"{m['tokens_a_shard']} tokens a data shard, capacity "
+                  f"{m['capacity_shard']} (the global stream's "
+                  f"{m['capacity_global']})", flush=True)
+        r0 = ranks[0]
+        rec["rank0_s"] = {
+            "start": r0["entered"] - spawned,
+            **{f"{k}_{part}": r0[k][part] for k in ("fp32", "bf16")
+               for part in ("build_s", "counted_s")},
+            "bf16_replayed": r0["bf16"]["ms"] / 1e3,
+            "exit": spawned + rec["spawn_s"] - r0["left"]}
+        print(f"  27 {arch}: references {rec['reference_s']:.1f} s, the "
+              f"grid's spawn {rec['spawn_s']:.1f} s (rank 0: " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in rec["rank0_s"].items())
+              + " s)", flush=True)
+        out[arch] = rec
+        del ranks, refs
+        _free(torch)
+    # flash at the per-rank shapes against its plain version and SDPA
+    out["kernels"] = {}
+    if dev.type == "cuda" and ref is not None:
+        for arch, spec in MODEL_AXIS.items():
+            cfg = _model_axis_cfg(arch, "bf16")
+            data, model = spec["grid"]
+            kv = (cfg.num_kv_heads // model if cfg.num_kv_heads % model == 0
+                  else cfg.num_kv_heads)
+            rec = check_flash(torch, ops, ref, b=spec["batch"] // data,
+                              hq=cfg.num_heads // model, hkv=kv,
+                              s=spec["seq"], hd=cfg.head_dim,
+                              dtype="bfloat16", seed=27)
+            _check_band(rec)
+            rec["launches"] = out[arch]["bf16"]["flash"][0]
+            out["kernels"][arch] = rec
+            print(f"  27 flash {arch} a rank (B {rec['B']}, {rec['Hq']} over "
+                  f"{rec['Hkv']} heads, S {rec['S']}): {rec['ms']:.4f} ms, "
+                  f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+                  f"plain {rec['plain_ms']:.4f} ms, SDPA "
+                  f"{rec['library_ms']:.4f} ms; {rec['launches']} launches "
+                  f"a step", flush=True)
+    return out
+
+
+def _check_witness(arch, ref, ranks, replayed, free, want):
+    """(iv) for MoE: the grid's own top-k flips (rate over its ranks' rows)
+    and its logits under the reference's routing (max|diff|), each at most
+    ``MODEL_AXIS_WITNESS_RATIO`` times the witness's: the one-rank step
+    with the grid's roundings (``_row_parallel_split``); and the grid's
+    free routing, whose greedy token must equal the witness's free one on
+    every row whose witness top-2 gap exceeds ``MODEL_AXIS_GAP``."""
+    w = ref["witness"]
+    two = w["free"][:, -1].topk(2, dim=-1).values
+    top = (two[:, 0] - two[:, 1]).tolist()
+    for row, (a, b, gap) in enumerate(zip(
+            free[:, -1].argmax(-1).tolist(),
+            w["free"][:, -1].argmax(-1).tolist(), top)):
+        if a != b and gap > MODEL_AXIS_GAP:
+            raise AssertionError(
+                f"27 {arch} bf16, free routing: row {row} greedy {a} vs the "
+                f"witness's {b} with top-2 gap {gap:.3f} > {MODEL_AXIS_GAP}")
+    flips = sum(r["bf16"]["flips"][0] for r in ranks)
+    rows = sum(r["bf16"]["flips"][1] for r in ranks)
+    out = {"flips": w["flips"], "flip_rate": w["flips"][0] / w["flips"][1],
+           "grid_flip_rate": flips / rows,
+           "replayed_max_abs_diff": float((w["replayed"] - want).abs().max()),
+           "replayed_vs_grid_max_abs_diff": float(
+               (w["replayed"] - replayed).abs().max()),
+           "free_max_abs_diff": float((w["free"] - want).abs().max()),
+           "free_vs_grid_max_abs_diff": float(
+               (w["free"] - free).abs().max()),
+           "free_gaps": top,
+           "free_tokens": w["free"][:, -1].argmax(-1).tolist()}
+    rep_diff = float((replayed - want).abs().max())
+    for what, grid, wit in (
+            ("flip rate", out["grid_flip_rate"], out["flip_rate"]),
+            ("replayed max|diff|", rep_diff, out["replayed_max_abs_diff"])):
+        if grid > MODEL_AXIS_WITNESS_RATIO * wit:
+            raise AssertionError(
+                f"27 {arch} bf16: the grid's {what} {grid:.4g} > "
+                f"{MODEL_AXIS_WITNESS_RATIO} x the witness's {wit:.4g}")
+    return out
+
+
 def _check_bodies(ops, where, bf16=True):
     """The counted run's flash and SSD-scan launches all took their
     tensor-core bodies (bf16, at the models' shapes; none of them in fp32)
@@ -5983,7 +6580,9 @@ def main(argv=None) -> int:
             ("moe", "22. OLMoE-1B-7B and Phi-3.5-MoE", run_moe),
             ("front", "23. MusicGen-medium and Qwen2-VL-72B", run_front),
             ("flash", "24. the flash training path", run_flash),
-            ("shards", "25. the client axis", run_shards)):
+            ("shards", "25. the client axis", run_shards),
+            ("model_axis", "27. the model axis",
+             lambda torch, ops: run_model_axis(torch, ops, ref))):
         t0 = time.perf_counter()
         record[key] = fn(torch, ops)
         record[f"{key}_s"] = time.perf_counter() - t0
@@ -6069,6 +6668,18 @@ def main(argv=None) -> int:
                             "bound_ms": rec["bound_ms"],
                             "bound_by": rec["bound_by"],
                             "library_ms": rec["library_ms"]})
+    # flash again at phase 27's per-rank shapes (Gemma-2B's 4 over 1 heads
+    # at model 2, OLMoE-1B-7B's 8 over 8), launches from a rank's bf16 step
+    for arch, rec in record["model_axis"]["kernels"].items():
+        src, replaces = sources[rec["kernel"]]
+        kernels.append({"name": f"{rec['kernel']}/{arch}/model-axis-rank",
+                        "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": rec["launches"],
+                        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                        "plain_ms": rec["plain_ms"],
+                        "bound_ms": rec["bound_ms"],
+                        "bound_by": rec["bound_by"],
+                        "library_ms": rec["library_ms"]})
     record["kernels"] = kernels
     if record_path is not None:
         record_path.parent.mkdir(parents=True, exist_ok=True)

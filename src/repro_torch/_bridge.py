@@ -3,6 +3,11 @@
 ``params_from_jax`` takes the JAX parameter tree as numpy arrays (for
 example ``jax.tree.map(np.asarray, params)``) and returns the port's tree:
 the same nesting of dicts and lists, each leaf a tensor on ``device``.
+:func:`shard_params` cuts a whole param tree to one rank's blocks of a
+grid (``launch/mesh.py::ProcessGrid``) under the logical-axis rules, the
+counterpart of ``jax.device_put(params, shardings_from_axes(...))``, and
+:func:`init_shard_params` builds a rank's blocks of a seeded random tree
+without the whole tree (``transformer.init_params_by_layer``).
 ``state_from_jax`` does the same for a whole training state, and
 ``state_to_numpy`` goes back, for comparisons; ``async_state_from_jax``
 and ``async_state_to_numpy`` do it for the async round's buffer state.
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_map
 
+from repro_torch import sharding
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import resolve_device, torch_dtype
 
@@ -60,6 +66,36 @@ def params_from_jax(np_params: Any, cfg: ModelConfig, *, device="cuda",
         return t.to(device=device, dtype=leaf_dtype)
 
     return conv(np_params)
+
+
+def _block(grid, rules, axes, leaf: torch.Tensor) -> torch.Tensor:
+    """This rank's block of ``leaf`` under the rules, a contiguous copy."""
+    place = sharding.resolve_spec(grid, rules, axes, leaf.shape)
+    return leaf[sharding.block_slices(place, leaf.shape, grid)].clone(
+        memory_format=torch.contiguous_format)
+
+
+def shard_params(params: Any, grid, rules, axes_tree) -> Any:
+    """This rank's blocks of a whole param tree (``params_from_jax``'s or
+    ``init_params``'): each leaf cut to its ``sharding.local_shape``
+    block by its ``sharding.placement_tree`` entry under ``rules``, at the
+    rank's coordinates in ``grid``, a contiguous copy on the leaf's
+    device.  A rank's blocks hold ``sharding.device_bytes(grid, rules,
+    axes_tree, params)`` bytes."""
+    return sharding.map_axes(lambda ax, t: _block(grid, rules, ax, t),
+                             axes_tree, params)
+
+
+def init_shard_params(cfg: ModelConfig, seed: int, grid, rules, *,
+                      device="cuda") -> Any:
+    """This rank's blocks of ``transformer.init_params_by_layer(cfg,
+    seed)``'s tree, each drawn piece (one layer) cut to its blocks as it is
+    drawn: what :func:`shard_params` gives of the whole tree, without the
+    whole tree on this rank."""
+    from repro_torch.models import transformer as tf
+    return tf.init_params_by_layer(
+        cfg, seed, device=device,
+        keep=lambda ax, t: _block(grid, rules, ax, t))
 
 
 def _opt_from_jax(np_opt: Any, device):

@@ -24,8 +24,12 @@ needed: the run is the same on the CPU as on the card's machine.
   sharded round over a ``sharding.MetaGroup``, its collectives logged by
   kind; a serve step: the shard's rows, or the whole batch over every
   device when it has fewer rows than data shards) and divided evenly over
-  the model axis: the record says ``model_axis: "even split"``, since no
-  model axis runs yet.
+  the model axis: the record says ``model_axis: "even split"``.  The
+  prefill step does run on a model axis (``launch/steps.py::
+  make_prefill_step`` with a grid; chip_smoke phase 27 prints a rank's
+  counted FLOPs and collective bytes beside this split, which counts no
+  collective), but the dry run counts the one-rank step: the decode step
+  and the rounds have no model axis yet (ROADMAP Queue 1, item 13b).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-2b --shape prefill_32k

@@ -9,7 +9,13 @@
   that returns the last position's logits, a vision frontend's patch
   embeddings (``batch["embeds"]``) in front of the text when given.  With
   ``impl="kernel"`` it runs every attention, SSD and RG-LRU layer through
-  its CUDA kernel.
+  its CUDA kernel.  Given a grid (``launch/mesh.py::ProcessGrid``) it is
+  the sharded step JAX runs under ``use_sharding_rules(mesh,
+  build_rules(mesh, cfg, "prefill", B))``: each rank holds the param
+  blocks the rules place on it (``_bridge.shard_params``), prefills its
+  batch rows and returns their whole-vocab logits, the logits of the
+  one-rank step.  Given a bare mesh shape it is the one-rank step under
+  that binding (the per-shard MoE dispatch of a data axis above 1).
 * ``decode_32k`` / ``long_500k`` → :func:`make_serve_step`: one decode
   step against a cache; ``long_500k`` decodes every global layer within
   the config's ``long_context_window``.
@@ -22,9 +28,12 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.config import (ModelConfig, ShapeConfig, TrainConfig,
                                 WSSLConfig)
 from repro_torch.core import round as rnd
+from repro_torch.launch.mesh import data_axis_size
+from repro_torch.launch.specs import build_rules
 from repro_torch.models import transformer as tf
 
 
@@ -66,19 +75,46 @@ def make_val_step(model_cfg: ModelConfig, wssl_cfg: WSSLConfig,
     return val_step
 
 
-def make_prefill_step(model_cfg: ModelConfig, impl: str = "kernel"
+def make_prefill_step(model_cfg: ModelConfig, impl: str = "kernel",
+                      grid=None
                       ) -> Callable[[dict, Dict[str, torch.Tensor]],
                                     torch.Tensor]:
     """``prefill_step(params, batch) -> logits (B, 1, V)`` fp32 for
     ``batch["tokens"]`` (B, S) and the optional ``batch["embeds"]``
-    (B, F, D), under ``torch.no_grad()``."""
+    (B, F, D), under ``torch.no_grad()``.
+
+    With ``grid`` the step runs under ``use_sharding_rules(grid,
+    specs.build_rules(grid, cfg, "prefill", B))``.  On a ``ProcessGrid`` ``params`` are this rank's blocks
+    (``_bridge.shard_params``), ``batch`` the whole batch, of which the
+    step prefills this rank's rows (``"batch"`` over the data axis, which
+    B must divide); it returns their logits (B / data, 1, V).  On a bare
+    mesh shape ``params`` and ``batch`` are whole."""
+
+    def forward(params, batch):
+        return tf.forward(params, model_cfg, batch["tokens"],
+                          embeds=batch.get("embeds"), impl=impl,
+                          remat=False, last_only=True)[0]
 
     def prefill_step(params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         with torch.no_grad():
-            logits, _ = tf.forward(params, model_cfg, batch["tokens"],
-                                   embeds=batch.get("embeds"), impl=impl,
-                                   remat=False, last_only=True)
-        return logits
+            if grid is None:
+                return forward(params, batch)
+            b = batch["tokens"].shape[0]
+            bound = build_rules(grid, model_cfg, "prefill", b)
+            with sharding.use_sharding_rules(grid, bound):
+                rows = sharding.resolve_spec(grid, bound, ("batch", None),
+                                             batch["tokens"].shape)[0]
+                data = data_axis_size(grid)
+                split = ("data",) if data > 1 else (None, "data")
+                if sharding.current_grid() is not None and rows not in split:
+                    raise ValueError(
+                        f"a batch of {b} rows placed on {rows} on a "
+                        f"{grid.shape} grid: the rows must split over the "
+                        f"data axis (else they are replicated)")
+                local = {k: sharding.shard_activation(
+                    v, "batch", *(None,) * (v.dim() - 1))
+                    for k, v in batch.items()}
+                return forward(params, local)
 
     return prefill_step
 

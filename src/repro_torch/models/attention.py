@@ -35,6 +35,13 @@ by index, as the JAX package's paths do.
 
 KV caches are updated in place (``index_put_``) where the JAX package
 donated its buffers: the functions return the cache they were given.
+
+On a grid (``sharding.current_grid()``; the sharded prefill step),
+:func:`multihead_attention` runs this rank's query heads, split over the
+model axis (``act_heads``), against its kv heads: split with them where
+they divide the axis, else the replicated ones those query heads read
+(Gemma-2B's one kv head on every rank).  ``wo`` is row-parallel, so its
+product is summed over the model group.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, softcap
@@ -460,9 +468,43 @@ def multihead_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     _check_impl(impl)
     if torch.is_grad_enabled():
         check_train_impl(impl)
+    cfg, p, split = _model_heads(cfg, p)
     q, k, v = _project_qkv(cfg, p, x, positions)
-    return _out_proj(p, _full_attention(cfg, q, k, v, positions, window,
-                                        impl, prefill=False))
+    out = _out_proj(p, _full_attention(cfg, q, k, v, positions, window,
+                                       impl, prefill=False))
+    return sharding.model_sum(out) if split else out
+
+
+def _model_heads(cfg: ModelConfig, p: Params
+                 ) -> Tuple[ModelConfig, Params, bool]:
+    """(``cfg`` with this rank's head counts, ``p`` with the kv heads its
+    query heads read, whether ``wo``'s product is a partial sum over the
+    model group).  Query heads split over the model axis are a
+    contiguous block ``[lo, lo + h)``; kv heads split with them give
+    groups of ``G`` as on one rank, replicated ones are cut to those the
+    block reads (heads ``(lo + i) // G``): a slice where the block holds
+    whole groups, else one kv head a query head.  Unsplit heads give
+    ``(cfg, p, False)``."""
+    h = p["wq"].shape[1]
+    lo = None if h == cfg.num_heads else sharding.model_block(
+        cfg.num_heads, h)
+    if lo is None:
+        return cfg, p, False
+    kv = p["wk"].shape[1]
+    if kv == cfg.num_kv_heads and kv > 1:
+        g = cfg.num_heads // cfg.num_kv_heads
+        idx = (slice(lo // g, (lo + h) // g) if h % g == 0 else
+               torch.div(torch.arange(lo, lo + h, device=p["wk"].device), g,
+                         rounding_mode="floor"))
+        p = dict(p)
+        for name, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+            if name in p:
+                t = p[name]
+                p[name] = (t.narrow(dim, idx.start, idx.stop - idx.start)
+                           if isinstance(idx, slice)
+                           else t.index_select(dim, idx))
+        kv = p["wk"].shape[1]
+    return cfg.replace(num_heads=h, num_kv_heads=kv), p, True
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.config import ModelConfig
 
 Params = Dict[str, Any]
@@ -214,7 +215,10 @@ def _act(cfg: ModelConfig, g: torch.Tensor) -> torch.Tensor:
 
 def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """The (gated) MLP; with ``mlp_bias`` the up projection takes ``bu``
-    and the down projection ``bd``, added in the activation dtype."""
+    and the down projection ``bd``, added in the activation dtype.  On a
+    grid whose model axis splits ``ff``, ``wu`` / ``wg`` are this rank's
+    columns and ``wd`` its rows: the down projection is a partial sum,
+    summed over the model group before ``bd``."""
     dtype = x.dtype
     up = x @ p["wu"].to(dtype)
     if cfg.mlp_bias:
@@ -224,6 +228,8 @@ def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     else:
         h = _act(cfg, up)
     out = h @ p["wd"].to(dtype)
+    if p["wd"].shape[0] != cfg.d_ff:
+        out = sharding.model_sum(out)
     if cfg.mlp_bias:
         out = out + p["bd"].to(dtype)
     return out

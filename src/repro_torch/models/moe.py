@@ -22,13 +22,27 @@ Two places where a PyTorch call would not do what the JAX one does:
   The dispatch is a gather too, so the layer is deterministic on the card
   and its backward (a sorted index accumulate) as well.
 
-JAX's data-sharded branch (a ``vmap`` of the dispatch over the token
-shards of a mesh, ``repro/models/moe.py:63-74``) keys on the
-``moe_tokens`` binding of the logical-axis rules, which only a
-data-parallel serving mesh sets: the sharded rounds never do
-(``default_rules`` leaves it None, ``auto_rules`` drops it), so the
-port's client-sharded rounds dispatch per rank as here.  That branch
-waits for the logical-axis rules (ROADMAP Queue 1, item 13b).
+JAX's data-sharded branch (``repro/models/moe.py:63-74``) keys on the
+``moe_tokens`` binding of the logical-axis rules (``sharding.bound_axes``),
+which only a serving step's rules set (``launch/specs.py::build_rules``;
+the rounds never do, so the client-sharded rounds dispatch per rank as
+above).  When it gives ``dp > 1`` shards of ``t // dp >= 8 E`` tokens,
+each shard is dispatched on its own, its capacity reckoned from its own
+tokens, and the aux loss is the shards' mean:
+
+* under a bare mesh shape (one process holding the whole mesh) the
+  shards run in order, as JAX's ``vmap`` runs them;
+* on a grid (``sharding.current_grid()``) each rank's tokens are its
+  data shard's: it runs its own, and the aux mean is summed over the data
+  group.
+
+Otherwise a grid whose data axis splits the tokens gathers them over the
+data group and dispatches the global stream, capacity from all ``t``
+tokens, as JAX does, so an overflow drops the tokens one rank would; each
+rank keeps its rows.  Experts split over the model axis (``expert``): a
+rank runs its ``E / M`` experts on its tokens, which every rank of its
+model group holds, and its combine is a partial sum, summed over the
+model group.
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import _act, dense_param
 
@@ -77,9 +92,36 @@ def _capacity(cfg: ModelConfig, num_tokens: int) -> int:
 def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D), the fp32 aux loss).  The B·S tokens
-    are routed as one batch, so the capacity depends on the call."""
+    are routed as one batch, so the capacity depends on the call, unless
+    the ``moe_tokens`` binding splits them into shards (see the module's
+    docstring).  On a grid ``x`` is this rank's rows."""
     b, s, d = x.shape
-    out, aux = _moe_core(cfg, p, x.reshape(b * s, d))
+    xt = x.reshape(b * s, d)
+    axes, dp = sharding.bound_axes("moe_tokens")
+    grid = sharding.current_grid()
+    nd = 1 if grid is None else grid.data     # shards the tokens arrive in
+    t = b * s * nd
+    per_shard = dp > 1 and t % dp == 0 and t // dp >= 8 * cfg.num_experts
+    if grid is None:
+        if per_shard:
+            outs, auxes = zip(*(_moe_core(cfg, p, xs)
+                                for xs in xt.reshape(dp, t // dp, d)))
+            return (torch.cat(outs).reshape(b, s, d),
+                    torch.stack(auxes).mean())
+        out, aux = _moe_core(cfg, p, xt)
+        return out.reshape(b, s, d), aux
+    if dp > 1 and dp != nd:
+        raise NotImplementedError(
+            f"moe_tokens bound to {axes} ({dp} shards) on a grid whose "
+            f"tokens arrive in {nd}: {sharding.ITEM_UNEXECUTED}")
+    if per_shard:
+        out, aux = _moe_core(cfg, p, xt)
+        return out.reshape(b, s, d), sharding.data_sum(aux) / dp
+    # the global stream: every data rank dispatches all t tokens (its own
+    # when the data axis is 1) and keeps its own rows
+    i = grid.coords["data"]
+    out, aux = _moe_core(cfg, p, sharding.data_gather(xt, 0),
+                         rows=slice(i * b * s, (i + 1) * b * s))
     return out.reshape(b, s, d), aux
 
 
@@ -131,10 +173,14 @@ def route(cfg: ModelConfig, probs: torch.Tensor, cap: int) -> Dispatch:
                     counts, starts)
 
 
-def _moe_core(cfg: ModelConfig, p: Params, xt: torch.Tensor
+def _moe_core(cfg: ModelConfig, p: Params, xt: torch.Tensor,
+              rows: slice = slice(None)
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Route, dispatch, the expert products and the combine over a token
-    batch xt (T, D) -> (out (T, D) in xt's dtype, aux)."""
+    batch xt (T, D) -> (out[rows] (T', D) in xt's dtype, aux).  With the
+    experts split over the model axis (``wu`` holds ``E / M`` of them)
+    this rank runs its own, and ``out`` sums its partial combine over the
+    model group (only ``rows``)."""
     t, d = xt.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     dtype, dev = xt.dtype, xt.device
@@ -151,13 +197,18 @@ def _moe_core(cfg: ModelConfig, p: Params, xt: torch.Tensor
     p_e = probs.mean(0)
     aux = cfg.router_aux_coef * float(e) * torch.sum(f_e * p_e)
 
-    # ---- dispatch: slot (e, c) holds the c-th token sent to expert e ----
+    # ---- dispatch: slot (e, c) holds the c-th token sent to expert e, for
+    # this rank's experts [lo, lo + el) --------------------------------------
+    el = p["wu"].shape[0]
+    lo = None if el == e else sharding.model_block(e, el)
+    mine = slice(None) if lo is None else slice(lo, lo + el)
     a = t * k
     tok_sorted = r.order // k               # assignments are token-major
     g_sorted = gate_vals.reshape(a).to(dtype)[r.order]
     c = torch.arange(cap, device=dev)
-    filled = c[None] < r.counts[:, None]                             # (E, C)
-    src = torch.where(filled, r.starts[:, None] + c[None],
+    counts, starts = r.counts[mine], r.starts[mine]
+    filled = c[None] < counts[:, None]                               # (E, C)
+    src = torch.where(filled, starts[:, None] + c[None],
                       torch.zeros_like(filled, dtype=torch.long))
     xe = torch.where(filled[..., None], xt[tok_sorted[src]],
                      torch.zeros((), dtype=dtype, device=dev))      # (E, C, D)
@@ -172,10 +223,17 @@ def _moe_core(cfg: ModelConfig, p: Params, xt: torch.Tensor
 
     # ---- combine: each token's k contributions in sorted order, added
     # from zero in the activation dtype (XLA's scatter-add order) ---------
-    ye_flat = torch.cat([ye.reshape(e * cap, d),
+    ye_flat = torch.cat([ye.reshape(el * cap, d),
                          torch.zeros((1, d), dtype=dtype, device=dev)])
-    contrib = ye_flat[r.slot] * (g_sorted * r.keep.to(dtype))[:, None]
-    return combine(contrib, r.order, k), aux
+    slot = r.slot
+    if lo is not None:
+        # another rank's expert (or an overflow) reads the zero row
+        slot = slot - lo * cap
+        slot = torch.where(r.keep & (slot >= 0) & (slot < el * cap), slot,
+                           torch.full_like(slot, el * cap))
+    contrib = ye_flat[slot] * (g_sorted * r.keep.to(dtype))[:, None]
+    out = combine(contrib, r.order, k)[rows]
+    return (out if lo is None else sharding.model_sum(out)), aux
 
 
 def combine(contrib: torch.Tensor, order: torch.Tensor, k: int

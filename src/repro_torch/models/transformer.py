@@ -25,6 +25,17 @@ the prefix, as in JAX.  Decode takes the long-context
 ``decode_window_override``: every global layer's cache is then a ring of
 that window, never paged.
 
+On a grid (``sharding.current_grid()``: the sharded prefill step of
+``launch/steps.py``) the full-sequence forward runs on this rank's
+blocks: each layer first gathers its data-placed (FSDP) blocks over the
+data group (:func:`_layer_blocks`), the attention, MLP and MoE layers
+run their model-axis splits and sum over the model group, the embedding
+looks up the vocab rows this rank holds and sums them, and the tied (or
+untied) logits are a vocab slice a rank, gathered over the model group.
+The decode and cache-filling paths and the training stages refuse a grid
+(``sharding.refuse_grid``), as :func:`forward` refuses the bindings no
+slice executes yet (``sharding.check_executable``).
+
 The MoE layers' load-balance aux loss is summed over the layers (fp32) by
 the forward, an edge stage (``stage_forward(with_aux=True)``) and the
 server stage, as in JAX; the client stage (stage 0), prefill and decode
@@ -45,11 +56,14 @@ their plain scans: the kernels have no backward, in either package.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+import functools
+from typing import (Any, Callable, Dict, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from repro_torch.config import (ATTN_GLOBAL, ATTN_LOCAL, MIX_RGLRU, MIX_SSM,
                                 MLP_DENSE, MLP_MOE, MLP_NONE, LayerSpec,
                                 ModelConfig)
@@ -214,6 +228,75 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     return params
 
 
+def init_params_by_layer(cfg: ModelConfig, seed: int, *, device="cuda",
+                         keep: Optional[Callable] = None) -> Params:
+    """Random params drawn a piece at a time, each piece from a generator
+    of its own seeded from ``(seed, piece)``: the embedding, every layer
+    of every super-block slot, the remainder layers, the head and the
+    frontend, through :func:`init_params`' own inits (its scales, dtypes
+    and tree).  ``keep(axes, leaf)`` maps each leaf of a drawn piece (one
+    layer's, unstacked, with its logical axes) to what is kept, e.g. this
+    rank's block (``_bridge.init_shard_params``); by default the leaf
+    itself, so the whole tree.  At most one piece is ever whole, and
+    every rank of a grid and the one-rank reference hold blocks of the
+    same whole tree: the pieces do not depend on the order of the draws,
+    unlike :func:`init_params`' one stream."""
+    device = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+    keep = keep or (lambda axes, leaf: leaf)
+    period_specs, n_full, _ = _superblock_layout(cfg)
+    rem_specs = cfg.layer_specs()[n_full * len(period_specs):]
+    axes = param_axes_tree(cfg)
+    pieces = iter(range(1 << 16))
+
+    def gen():
+        g = torch.Generator(device=device)
+        return g.manual_seed((seed << 16) + next(pieces))
+
+    def kept(ax, tree):
+        return sharding.map_axes(keep, ax, tree)
+
+    def vocab(shape):
+        return dense_param(gen(), shape, scale=cfg.d_model ** -0.5,
+                           dtype=dtype, device=device)
+
+    params: Params = {"embed": kept(axes["embed"], {"tok": vocab(
+        (cfg.vocab_size, cfg.d_model))})}
+    stack = []
+    for spec in period_specs:
+        ax = _layer_axes(cfg, spec, False)
+        stacked = None
+        for i in range(n_full):
+            layer = kept(ax, _layer_init(gen(), cfg, spec, 0, dtype, device))
+            if stacked is None:
+                stacked = sharding.map_axes(
+                    lambda _, t: t.new_empty((n_full,) + tuple(t.shape)),
+                    ax, layer)
+            _copy_layer(stacked, layer, i)
+        stack.append(stacked)
+    params["stack"] = stack
+    params["rem"] = [kept(_layer_axes(cfg, spec, False),
+                          _layer_init(gen(), cfg, spec, 0, dtype, device))
+                     for spec in rem_specs]
+    params["final_norm"] = kept(axes["final_norm"],
+                                _norm_init(cfg, (), dtype, device))
+    if not cfg.tie_embeddings:
+        params["head"] = keep(axes["head"], vocab((cfg.d_model,
+                                                   cfg.vocab_size)))
+    proj = fe.frontend_init(gen(), cfg, dtype=dtype, device=device)
+    if proj:
+        params["frontend"] = kept(axes["frontend"], proj)
+    return params
+
+
+def _copy_layer(stacked: Params, layer: Params, i: int) -> None:
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            _copy_layer(stacked[k], v, i)
+        else:
+            stacked[k][i].copy_(v)
+
+
 def abstract_params(cfg: ModelConfig, *, dtype: Optional[torch.dtype] = None
                     ) -> Tuple[Params, Dict[str, Any]]:
     """(params on the meta device, their logical-axes tree): the shapes
@@ -354,13 +437,44 @@ def cache_axes(cfg: ModelConfig, *, paged: bool = False,
 # ---------------------------------------------------------------------------
 
 
+def _vocab_matrix(cfg: ModelConfig, params: Params, key: str
+                  ) -> Tuple[torch.Tensor, Optional[int]]:
+    """The embedding table (``key="tok"``) or the untied head as this
+    rank computes with it: outside a grid the leaf itself; on a grid its
+    data-placed dim gathered over the data group.  Returns (the matrix,
+    where this rank's vocab block starts, or None when it holds the whole
+    vocab)."""
+    if key == "tok":
+        w, axes, vdim = params["embed"]["tok"], ("vocab", "fsdp"), 0
+        whole = (cfg.vocab_size, cfg.d_model)
+    else:
+        w, axes, vdim = params["head"], ("fsdp", "vocab"), 1
+        whole = (cfg.d_model, cfg.vocab_size)
+    if sharding.current_grid() is None:
+        return w, None
+    w = sharding.gather_data_blocks(
+        w, axes, torch.empty(whole, device="meta"))
+    return w, sharding.model_block(cfg.vocab_size, w.shape[vdim])
+
+
 def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
            embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token embeddings (B, S, D) in ``cfg.dtype``; with a vision frontend
     and ``embeds`` (B, F, D), the projected patches put in front of them
-    (B, F + S, D)."""
+    (B, F + S, D).  On a grid whose model axis splits the vocab, a rank
+    looks up the rows it holds (zeros for the others) and the model group
+    sums them: exactly the one-rank lookup."""
     dtype = torch_dtype(cfg.dtype)
-    x = params["embed"]["tok"].to(dtype)[tokens.long()]
+    tok, lo = _vocab_matrix(cfg, params, "tok")
+    if lo is None:
+        x = tok.to(dtype)[tokens.long()]
+    else:
+        ids = tokens.long() - lo
+        mine = (ids >= 0) & (ids < tok.shape[0])
+        x = tok.to(dtype)[ids.clamp(0, tok.shape[0] - 1)]
+        x = sharding.model_sum(torch.where(
+            mine[..., None], x, torch.zeros((), dtype=dtype,
+                                            device=x.device)))
     if cfg.frontend == "vision" and embeds is not None:
         x = fe.splice_frontend(cfg, params.get("frontend", {}), x,
                                embeds.to(dtype))
@@ -385,12 +499,18 @@ def _positions(cfg: ModelConfig, tokens: torch.Tensor,
 
 def _unembed(cfg: ModelConfig, params: Params, x: torch.Tensor
              ) -> torch.Tensor:
+    """fp32 logits, softcapped.  On a grid whose model axis splits the
+    vocab each rank computes its vocab slice, softcapped as one rank
+    softcaps it, and the model group gathers the slices."""
     dtype = x.dtype
     if cfg.tie_embeddings:
-        logits = x @ params["embed"]["tok"].to(dtype).t()
+        w, lo = _vocab_matrix(cfg, params, "tok")
+        logits = x @ w.to(dtype).t()
     else:
-        logits = x @ params["head"].to(dtype)
-    return softcap(logits.float(), cfg.final_logit_softcap)
+        w, lo = _vocab_matrix(cfg, params, "head")
+        logits = x @ w.to(dtype)
+    logits = softcap(logits.float(), cfg.final_logit_softcap)
+    return logits if lo is None else sharding.model_gather(logits, -1)
 
 
 def _mlp_block(cfg: ModelConfig, spec: LayerSpec, p: Params,
@@ -517,6 +637,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     same override).  ``table`` is the ``(B, nb)`` block table of a paged
     cache (contiguous caches ignore it); ``paged_kernel`` sends paged
     layers through the CUDA block-table kernel instead of the gather."""
+    sharding.refuse_grid("the decode step")
     x = _embed(cfg, params, tokens)
     for spec, lp, lc in _layers(params, cache, cfg):
         x = _decode_layer(cfg, spec, lp, x, lc, pos, table, paged_kernel,
@@ -581,6 +702,7 @@ def stage_decode_step(stage_params: Params, cfg: ModelConfig,
     the final norm and the unembedding, and returns logits (B, 1, V) fp32.
     Chaining every stage (:func:`split_decode_step`) reproduces
     :func:`decode_step` exactly: the cuts only move activations."""
+    sharding.refuse_grid("the decode step")
     period_specs, _, _ = _superblock_layout(cfg)
     if stage_index == 0:
         x = _embed(cfg, stage_params, x)
@@ -656,6 +778,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     unembeds only the final position, which is all the serving path
     reads.  ``impl`` picks the attention layers' path; the recurrent
     blocks run their plain scans, which yield the final state."""
+    sharding.refuse_grid("a prefill into a KV cache")
     attn._check_impl(impl)
     x = _embed(cfg, params, tokens, embeds)
     b, s, _ = x.shape
@@ -683,9 +806,26 @@ def _resolve_span(n_full: int, requested: int) -> int:
     return span
 
 
+def _layer_blocks(cfg: ModelConfig, spec: LayerSpec, p: Params) -> Params:
+    """A layer's params as its computation takes them: on a grid, this
+    rank's blocks with their data-placed dims gathered over the data group
+    just before use (FSDP; nothing else keeps them whole); else ``p``."""
+    if sharding.current_grid() is None:
+        return p
+    return sharding.gather_data_blocks(p, _layer_axes(cfg, spec, False),
+                                       _whole_layer(cfg, spec))
+
+
+@functools.lru_cache(maxsize=64)
+def _whole_layer(cfg: ModelConfig, spec: LayerSpec) -> Params:
+    """One layer's whole params on the meta device (their shapes)."""
+    return _layer_init(None, cfg, spec, 0, torch.float32, "meta")
+
+
 def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Params,
                  x: torch.Tensor, positions: torch.Tensor,
                  impl: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    p = _layer_blocks(cfg, spec, p)
     h = apply_norm(cfg, p["norm1"], x)
     use_kernel = impl in attn._KERNEL_IMPLS
     if _is_attn(spec):
@@ -786,8 +926,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     ``impl="kernel"`` (or ``"pallas"``) runs attention, SSD and RG-LRU
     layers through their kernels; with autograd on, attention raises (no
-    backward kernel)."""
+    backward kernel).  On a grid ``params`` are this rank's blocks and
+    ``tokens`` its rows, and the logits are its rows' whole vocab."""
     attn._check_impl(impl)
+    sharding.check_executable(cfg)
     x = _embed(cfg, params, tokens, embeds)
     if positions is None:
         positions = _positions(cfg, tokens, embeds, x)
@@ -919,6 +1061,7 @@ def client_forward(client_params: Params, cfg: ModelConfig,
     """Client stage: embedding (the patches of ``embeds`` in front, at
     their grid positions) + the client's super-blocks -> the cut
     activation (B, F + S, D) in ``cfg.dtype``."""
+    sharding.refuse_grid("a training stage", sharding.ITEM_SERVER)
     x = _embed(cfg, client_params, tokens, embeds)
     if positions is None:
         positions = _positions(cfg, tokens, embeds, x)
@@ -939,6 +1082,7 @@ def stage_forward(stage_params: Params, cfg: ModelConfig, x: torch.Tensor,
     activation, at text positions over its whole length unless given
     ``positions`` — with patches in front, not the grid positions stage 0
     used, as in JAX (the round passes none)."""
+    sharding.refuse_grid("a training stage", sharding.ITEM_SERVER)
     aux = None
     if stage_index == 0:
         out = client_forward(stage_params, cfg, x, embeds=embeds,
@@ -961,6 +1105,7 @@ def server_hidden(server_params: Params, cfg: ModelConfig,
     """Server stage up to the final norm (before the unembedding) ->
     (x, aux).  Without ``positions``, text positions over the whole
     activation, as in JAX (with patches in front: not their grid)."""
+    sharding.refuse_grid("a training stage", sharding.ITEM_SERVER)
     x = activation
     b, s, _ = x.shape
     if positions is None:

@@ -43,15 +43,40 @@ tuple of per-dimension mesh-axis entries a ``PartitionSpec`` holds, and
 :func:`local_shape` is the block one device holds.  A mesh is its
 axis-name -> size map (``launch/mesh.py``).
 
-Not ported: what runs a model axis across ranks (``use_sharding_rules``,
-``shard_activation``, ``bound_axes``, ``current_mesh``), a model-parallel
-server stage, and JAX's per-shard MoE dispatch (ROADMAP Queue 1, item
-13b).
+**The activations' placement** (``repro/sharding.py:27-124``):
+:func:`use_sharding_rules` binds a mesh and rules in thread-local state
+for the enclosed code and restores the previous binding on exit;
+:func:`current_mesh` and :func:`bound_axes` read it with JAX's contract
+(``(None, 1)`` outside a binding or for an unbound name).  The mesh bound
+is either a bare mesh shape (one process holds the whole mesh's arrays:
+JAX's single-program view, which only changes what keys on
+:func:`bound_axes`, e.g. the per-shard MoE dispatch) or a
+``launch/mesh.py::ProcessGrid`` (one rank a device: every array is the
+rank's block).  :func:`shard_activation` returns ``x`` outside a
+binding, as JAX's does; under a bare shape it checks the axes against
+``x`` and returns it (the one process is every device); under a grid it
+takes a *whole* value every rank holds and returns this rank's block of
+it (the step's batch rows, a leaf's block: :func:`block_slices`).
+
+**The model axis** on a grid: the model code computes on its own blocks
+and adds the collectives GSPMD adds.  :func:`gather_data_blocks` gathers
+a layer's data-placed (FSDP) blocks over the data group just before use;
+:func:`model_sum` / :func:`model_gather` / :func:`data_sum` /
+:func:`data_gather` are the model- and data-group collectives, each
+through the same logged, counted path as the client axis's.
+:func:`check_executable` raises for the bindings no slice executes yet:
+sequence-parallel attention, a decode ``kv_seq``, the recurrent axes on
+a model axis, a vision frontend.
+
+Not ported: the model axis's decode step (``kv_seq`` over ``model``) and
+the rounds' model-parallel server stage (ROADMAP Queue 1, item 13b).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -273,10 +298,10 @@ def all_reduce_sum(tensors: Sequence[torch.Tensor], group) -> None:
                                             group=group)), "all-reduce")
 
 
-def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
-    """Every rank's ``t`` (the same shape on each) concatenated along dim
-    0 in rank order: a shard's ``(N/S, ...)`` rows back to the whole
-    ``(N, ...)``."""
+def all_gather_rows(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``t`` (the same shape on each) concatenated along
+    ``dim`` (0: rows) in rank order: a shard's ``(N/S, ...)`` rows back
+    to the whole ``(N, ...)``."""
     world = _world(group)
     out: List[torch.Tensor] = []
 
@@ -285,7 +310,7 @@ def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
         parts = [torch.empty_like(src) for _ in range(world)]
         if not isinstance(group, MetaGroup):
             dist.all_gather(parts, src, group=group)
-        out.append(torch.cat(parts, dim=0))
+        out.append(torch.cat(parts, dim=dim))
 
     _timed([t], run, "all-gather", world)
     return out[0]
@@ -387,25 +412,41 @@ def local_shape(placement: Placement, shape: Sequence[int],
     return tuple(out)
 
 
-def map_axes(fn, axes_tree, tree):
-    """``fn(axes, leaf)`` at every tensor leaf of ``tree``, ``axes_tree``
-    (the same structure, logical-axes tuples where ``tree`` has tensors)
-    walked beside it.  Dicts, lists, tuples, named tuples and dataclasses
-    recurse; a leaf that is not a tensor (a generator) maps to None."""
+def map_axes(fn, axes_tree, tree, *rest):
+    """``fn(axes, leaf, *rest_leaves)`` at every tensor leaf of ``tree``,
+    ``axes_tree`` (the same structure, logical-axes tuples where ``tree``
+    has tensors) and the trees of ``rest`` walked beside it.  Dicts,
+    lists, tuples, named tuples and dataclasses recurse; a leaf that is
+    not a tensor (a generator) maps to None."""
     if isinstance(tree, torch.Tensor):
-        return fn(axes_tree, tree)
+        return fn(axes_tree, tree, *rest)
     if isinstance(tree, dict):
-        return {k: map_axes(fn, axes_tree[k], v) for k, v in tree.items()}
+        return {k: map_axes(fn, axes_tree[k], v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return type(tree)(**{f.name: map_axes(fn, getattr(axes_tree, f.name),
-                                              getattr(tree, f.name))
-                             for f in dataclasses.fields(tree)})
+        return type(tree)(**{f.name: map_axes(
+            fn, getattr(axes_tree, f.name), getattr(tree, f.name),
+            *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)})
     if isinstance(tree, (list, tuple)):
-        out = [map_axes(fn, a, v) for a, v in zip(axes_tree, tree)]
+        out = [map_axes(fn, a, v, *rs)
+               for a, v, *rs in zip(axes_tree, tree, *rest)]
         if hasattr(tree, "_fields"):
             return type(tree)(*out)
         return type(tree)(out)
     return None
+
+
+def axes_leaves(axes_tree) -> List[Placement]:
+    """An axes tree's logical-axes tuples in ``tree.tree_leaves`` order
+    (dict keys sorted, lists in order): leaf for leaf beside the tensors
+    of the tree it describes."""
+    if isinstance(axes_tree, dict):
+        return [a for k in sorted(axes_tree)
+                for a in axes_leaves(axes_tree[k])]
+    if isinstance(axes_tree, list):
+        return [a for v in axes_tree for a in axes_leaves(v)]
+    return [axes_tree]
 
 
 def placement_tree(mesh, rules: Dict[str, Logical], axes_tree, tree):
@@ -502,3 +543,243 @@ def default_rules(multi_pod: bool = False, *, seq_shard_kv: bool = False,
         "kv_seq": "model" if seq_shard_kv else None,
         "embed": None,
     }
+
+
+# ---------------------------------------------------------------------------
+# The activations' placement: the bound mesh and rules
+# ---------------------------------------------------------------------------
+
+_BOUND = threading.local()
+_DATA_AXES = ("pod", "data")
+# the ROADMAP items that take the bindings a grid does not execute yet
+ITEM_DECODE = "ROADMAP Queue 1, item 13b (a): the model axis's decode step"
+ITEM_SERVER = ("ROADMAP Queue 1, item 13b (b): the rounds' model-parallel "
+               "server stage")
+ITEM_UNEXECUTED = ("ROADMAP Queue 1, item 13b (c): the bindings a grid "
+                   "does not execute yet")
+
+
+def _current() -> Tuple[Any, Dict[str, Logical]]:
+    return getattr(_BOUND, "mesh", None), getattr(_BOUND, "rules", {})
+
+
+@contextlib.contextmanager
+def use_sharding_rules(mesh, rules: Dict[str, Logical]):
+    """Bind logical axis names to mesh axes for the enclosed code.
+    ``mesh`` is a bare mesh shape (``{"data": 2, "model": 1}``: one
+    process holds the whole mesh's arrays) or a
+    ``launch/mesh.py::ProcessGrid`` (this rank holds its blocks).  The
+    previous binding is restored on exit, nested bindings too."""
+    prev = _current()
+    _BOUND.mesh, _BOUND.rules = mesh, dict(rules)
+    try:
+        yield
+    finally:
+        _BOUND.mesh, _BOUND.rules = prev
+
+
+def current_mesh():
+    """The mesh bound by :func:`use_sharding_rules` (None outside one)."""
+    return _current()[0]
+
+
+def _is_grid(mesh) -> bool:
+    return hasattr(mesh, "coords")
+
+
+def current_grid():
+    """The bound ``ProcessGrid`` (this process one rank of a grid), or
+    None: outside a binding, and under a bare mesh shape."""
+    mesh = _current()[0]
+    return mesh if _is_grid(mesh) else None
+
+
+def bound_axes(name: str) -> Tuple[Optional[Logical], int]:
+    """(the mesh axes bound to a logical name, their total size); ``(None,
+    1)`` outside a binding or for an unbound name."""
+    mesh, rules = _current()
+    if mesh is None:
+        return None, 1
+    phys = rules.get(name)
+    if phys is None:
+        return None, 1
+    flat = phys if isinstance(phys, tuple) else (phys,)
+    size = _mesh_axis_size(_mesh_shape(mesh), flat)
+    return (flat if len(flat) > 1 else flat[0]), size
+
+
+def _entry_axes(entry: Logical) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def block_slices(placement: Placement, shape: Sequence[int],
+                 grid) -> Tuple[slice, ...]:
+    """The slices of a whole value of ``shape`` that rank ``grid`` holds
+    under ``placement``: a dim placed on mesh axes ``(a, b, ...)`` is cut
+    into their product of equal blocks, indexed by the rank's coordinates
+    with the first axis the major one, as a ``PartitionSpec`` entry
+    orders its axes."""
+    ms, co = _mesh_shape(grid), grid.coords
+    out = []
+    for i, d in enumerate(shape):
+        n, idx = 1, 0
+        for a in _entry_axes(placement[i] if i < len(placement) else None):
+            idx = idx * ms[a] + co[a]
+            n *= ms[a]
+        if d % n:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not divide "
+                             f"over {n} blocks")
+        k = d // n
+        out.append(slice(idx * k, (idx + 1) * k))
+    return tuple(out)
+
+
+def shard_activation(x: torch.Tensor, *logical_axes: Logical
+                     ) -> torch.Tensor:
+    """JAX's ``shard_activation``: ``x`` outside a binding.  Under a bare
+    mesh shape the axes are checked against ``x`` and ``x`` comes back
+    (the one process holds every device's block).  Under a grid ``x`` is
+    a whole value every rank holds, and the result is the block of it the
+    rules give this rank (a view)."""
+    mesh, rules = _current()
+    if mesh is None:
+        return x
+    if len(logical_axes) != x.dim():
+        raise ValueError(f"shard_activation: {len(logical_axes)} axes for "
+                         f"rank-{x.dim()} array")
+    if not _is_grid(mesh):
+        return x
+    spec = resolve_spec(mesh, rules, logical_axes, x.shape)
+    return x[block_slices(spec, x.shape, mesh)]
+
+
+def gather_data_blocks(tree, axes_tree, whole_tree):
+    """``tree``, this rank's blocks of some params under the bound rules,
+    with every data-placed dim gathered over the data group: each leaf
+    whole along the data axes (FSDP's gather just before use), still its
+    block along the model axis.  ``whole_tree`` holds the whole shapes
+    (meta tensors will do).  A leaf that is not the block the rules give
+    this rank raises.  Outside a grid, ``tree`` itself."""
+    grid = current_grid()
+    if grid is None:
+        return tree
+    rules = _current()[1]
+
+    def one(ax, t, whole):
+        spec = resolve_spec(grid, rules, ax, whole.shape)
+        want = local_shape(spec, whole.shape, grid)
+        if tuple(t.shape) != want:
+            raise ValueError(f"this rank holds {tuple(t.shape)} of a leaf "
+                             f"of {tuple(whole.shape)} placed {spec} on "
+                             f"{grid.shape}; its block is {want}")
+        for i, e in enumerate(spec):
+            axes = _entry_axes(e)
+            if not any(a in _DATA_AXES for a in axes):
+                continue
+            if axes != ("data",):
+                raise NotImplementedError(
+                    f"a param dim placed on {e}: {ITEM_UNEXECUTED}")
+            if grid.data > 1:
+                t = all_gather_rows(t, grid.data_group, dim=i)
+        return t
+
+    return map_axes(one, axes_tree, tree, whole_tree)
+
+
+def model_block(whole: int, local: int) -> Optional[int]:
+    """Where this rank's block of a dim of ``whole`` entries starts when
+    it holds ``local`` of them (split over the model axis), or None when
+    it holds them all."""
+    if local == whole:
+        return None
+    grid = current_grid()
+    if grid is None or local * grid.model != whole:
+        raise ValueError(f"a block of {local} of {whole} entries, on "
+                         f"{getattr(grid, 'shape', None)}")
+    return grid.coords["model"] * local
+
+
+def _group_sum(x: torch.Tensor, axis: str) -> torch.Tensor:
+    grid = current_grid()
+    if grid is None or grid.shape[axis] == 1:
+        return x
+    x = x.contiguous()
+    all_reduce_sum([x], grid.group_of(axis))
+    return x
+
+
+def _group_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    grid = current_grid()
+    if grid is None or grid.shape[axis] == 1:
+        return x
+    return all_gather_rows(x, grid.group_of(axis), dim=dim)
+
+
+def model_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the model group's partial ``x`` (a row-parallel
+    product's), in place; ``x`` outside a grid."""
+    return _group_sum(x, "model")
+
+
+def model_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model group's blocks of ``x`` concatenated along ``dim``."""
+    return _group_gather(x, "model", dim)
+
+
+def data_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the data group, in place."""
+    return _group_sum(x, "data")
+
+
+def data_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The data group's blocks of ``x`` concatenated along ``dim``."""
+    return _group_gather(x, "data", dim)
+
+
+def _on_model(name: str) -> bool:
+    axes, size = bound_axes(name)
+    return size > 1 and "model" in _entry_axes(axes)
+
+
+def refuse_grid(what: str, item: str = ITEM_DECODE) -> None:
+    """Raise where a path that runs no model axis yet is entered under a
+    grid (nothing replicates silently)."""
+    if current_grid() is not None:
+        raise NotImplementedError(f"{what} does not run on a grid yet: "
+                                  f"{item}")
+
+
+def check_executable(cfg) -> None:
+    """Raise, under a grid, for what the bound rules ask of ``cfg`` that
+    no slice executes yet, naming its ROADMAP item: sequence-parallel
+    attention (``attn_seq`` bound, or ``attn_din`` / ``attn_dout`` on the
+    model axis), a ``kv_seq`` binding (decode), the recurrent axes
+    (``lru``, ``ssm_*``) on a model axis above 1, a vision frontend."""
+    grid = current_grid()
+    if grid is None:
+        return
+    from repro_torch.config import MIX_RGLRU, MIX_SSM
+    if cfg.num_heads and bound_axes("attn_seq")[1] > 1:
+        raise NotImplementedError(
+            f"sequence-parallel attention (attn_seq bound to "
+            f"{bound_axes('attn_seq')[0]}): {ITEM_UNEXECUTED}")
+    if cfg.num_heads and (_on_model("attn_din") or _on_model("attn_dout")):
+        raise NotImplementedError(
+            f"attention weights split on d_model over the model axis "
+            f"(attn_din / attn_dout): {ITEM_UNEXECUTED}")
+    if bound_axes("kv_seq")[1] > 1:
+        raise NotImplementedError(
+            f"a KV cache split on its sequence (kv_seq bound to "
+            f"{bound_axes('kv_seq')[0]}): {ITEM_DECODE}")
+    mixers = {s.mixer for s in cfg.layer_specs()}
+    recurrent = {MIX_SSM: ("ssm_inner", "ssm_heads"), MIX_RGLRU: ("lru",)}
+    for mixer, names in recurrent.items():
+        if mixer in mixers and any(map(_on_model, names)):
+            raise NotImplementedError(
+                f"the {mixer} block on a model axis of {grid.model}: "
+                f"{ITEM_UNEXECUTED}")
+    if cfg.frontend == "vision":
+        raise NotImplementedError(f"a vision frontend on a grid: "
+                                  f"{ITEM_UNEXECUTED}")
