@@ -117,9 +117,9 @@ Phases, each printing its lines before the last:
              versions, the same seed and so the same draws: masks, losses,
              trained stages, the aggregate and the residuals bit-exact.
 
-12. family training — 2 WSSL rounds of Mamba-2-370M (full width at 8
-             of its 48 layers, 4 clients, cut 4, seq 256: two SSD
-             chunks) and RecurrentGemma-2B (full width at 13 of its 26
+12. family training — 2 WSSL rounds of Mamba-2-370M (full width at 4
+             of its 48 layers, 4 clients, cut 2, seq 256: two SSD
+             chunks) and RecurrentGemma-2B (full width at 7 of its 26
              layers, 2 clients, cut 3, seq 128)
              through ``launch/train.py``: fp32 params, bf16 activations,
              participation 0.5, fused AdamW, the plain scans (as the JAX
@@ -149,9 +149,9 @@ Phases, each printing its lines before the last:
              ``cudnn.flags(deterministic=True, allow_tf32=False)``:
              selections, losses, accuracies and final params bit-exact.
 
-16. the round under faults — Mamba-2-370M (full width at 16 of its 48
-             layers since PR 24, 8 clients,
-             cut 8, seq 256, batch 2, participation 1.0; fp32 params, bf16
+16. the round under faults — Mamba-2-370M (full width at 8 of its 48
+             layers, 8 clients,
+             cut 4, seq 256, batch 2, participation 1.0; fp32 params, bf16
              activations, fused AdamW, the plain scans), every client on a
              token stream of its own: no scenario against ``clean``, 1
              round each, the whole state bit-exact; then
@@ -226,14 +226,15 @@ Phases, each printing its lines before the last:
              head dim 160 (the tensor-core body pads it to 192 through
              TMA's zero fill) and Qwen's 40 over 8 at 128 (g 5), a ragged
              admission too, graph-timed beside SDPA.  21b: full
-             StableLM-2-12B (40 layers, LayerNorm, bf16, its LayerNorm
+             StableLM-2-12B (20 of its 40 layers, LayerNorm,
+             bf16, its LayerNorm
              scale and bias moved off their init) serving 8 requests
              (prompts 256-1024, 16-32 new) on 2 replicas x 8 slots, chunk
              8, block 16, through flash and paged decode, then the plain
              path teacher-forced on the kernel path's tokens: exact launch
              counts on the tensor-core / split-K bodies, every served token
              equal to the plain path's argmax wherever that path's top-2
-             margin exceeds 0.5.  21c: Qwen2.5-32B at 32 of its 64 layers (65.5 GB
+             margin exceeds 0.5.  21c: Qwen2.5-32B at 16 of its 64 layers (65.5 GB
              whole; qkv biases
              moved off zero) the same way, 4 requests (prompts 512-1024)
              on 1 replica x 8 slots; both print their peak memory.  21d:
@@ -250,7 +251,7 @@ Phases, each printing its lines before the last:
              overflowing experts; OLMoE's full-width MoE layer run twice,
              bit-identical.  22b: full OLMoE-1B-7B (16 layers, 64 experts
              top-8, bf16) serving 8 requests (prompts 256-1024, 16-32
-             new) on 2 x 8 slots; 22c: Phi-3.5-MoE at 8 of its 32
+             new) on 2 x 8 slots; 22c: Phi-3.5-MoE at 4 of its 32
              layers (LayerNorm moved off its init, 16 experts top-2), 8
              requests (prompts 512-1024) on 1 x 8; each kernel path vs the
              plain path as in 21b, the plain path also replaying the kernel
@@ -265,10 +266,11 @@ Phases, each printing its lines before the last:
              MusicGen's 24 query heads over 24 (g 1) at head dim 64 and
              Qwen2-VL's 64 over 8 (g 8) at 128, flash at the vision
              prefill's 2,048 positions and at MusicGen's 6,144-token
-             windowed admission, as in 21a.  23b: full MusicGen-medium (48
-             layers, ungated GELU MLP, LayerNorm moved off its init)
+             windowed admission, as in 21a.  23b: MusicGen-medium at 24
+             of its 48 layers (ungated GELU MLP, LayerNorm
+             moved off its init)
              serving 8 requests (prompts 256-1024) on 2 x 8 slots; 23c:
-             Qwen2-VL-72B at 20 of its 80 layers (M-RoPE, qkv biases moved
+             Qwen2-VL-72B at 10 of its 80 layers (M-RoPE, qkv biases moved
              off zero), 4 text requests (prompts 512-1024) on 1 x 8; each
              as 21b; then Qwen2-VL's prefill step on 1,024 patch
              embeddings before 1,024 text tokens through the kernels
@@ -303,8 +305,8 @@ Phases, each printing its lines before the last:
              1 global), ``tf.loss_fn`` and its gradients at S 4096 with
              nested remat (the span's checkpoint and one a layer inside
              it, counted) and without: every element equal, each peak.
-25. the client axis — phase 16's Mamba-2-370M (full width, 16 layers,
-             cut 8, 8 clients, seq 256) in fp32 activations (in bf16 the
+25. the client axis — phase 16's Mamba-2-370M (full width, 8 layers,
+             cut 4, 8 clients, seq 256) in fp32 activations (in bf16 the
              rounding of the activations, not the sharding, moves the
              validation losses past the bands), participation 0.5, 2
              rounds a case.  The flat kernel-path rounds first
@@ -351,8 +353,9 @@ Phases, each printing its lines before the last:
              ``t_compute`` and ``t_memory``, ``mfu = model_flops /
              (t x peak)`` at bf16, and the meta peak estimate beside
              the ``max_memory_allocated`` of one more call.
-27. the model axis — the sharded prefill step
-             (``make_prefill_step(cfg, "kernel", grid)``) over a ``data x
+27. the model axis — the sharded prefill and decode steps
+             (``make_prefill_step(cfg, "kernel", grid)``,
+             ``make_serve_step(cfg, shape, grid)``) over a ``data x
              model`` grid of processes sharing the card over gloo
              (``launch/mesh.py::spawn_grid``), placed by
              ``build_rules(grid, cfg, "prefill", B)``: 27a full Gemma-2B
@@ -385,6 +388,33 @@ Phases, each printing its lines before the last:
              the warm replayed step's time (CUDA events, each collective
              synchronised for its own timing) and the collectives' share
              of it, and flash against SDPA at the per-rank shapes.
+             Then, in the same spawns and on the same param blocks (their
+             bytes held against ``device_bytes`` under
+             ``build_rules(grid, cfg, "decode", B)``): 27d full Gemma-2B
+             at 1 x 2, B 2, a prompt of 2,048 prefilled into a cache of
+             2,064 (``kv_seq`` on ``model``: 1,032 slots a rank), 16
+             decode steps (``decode_32k``), row 1 8 positions behind; 27e
+             full OLMoE-1B-7B at 2 x 2 (``long_500k``, B 1: ``kv_seq`` on
+             ``data x model``, the rows whole on every rank), a prompt of
+             1,024 into the decode window's ring of 4,096 (1,024 slots a
+             rank, three blocks empty after the prefill; its MoE layers
+             dispatch per shard of whole rows), 4 steps.  The references
+             are the one-rank prefill and greedy steps on the same seeded
+             tree (27e under the bare mesh shape), whose tokens both
+             sides take.  Checks: (1) params and cache held = their
+             ``device_bytes``, each rank's cache blocks against the
+             reference cache's slices (``pos`` bit for bit, 27d's first
+             layer too; fp32 within 1e-4 of max |entry|); (2) flash a
+             rank = the layers in the prefill, no launch in the steps;
+             (3) fp32 at 4 layers, every step's logits within 1e-4 of max
+             |logit|; (4) bf16 at full depth, the greedy tokens equal
+             wherever the reference's top-2 gap exceeds
+             ``MODEL_AXIS_GAP``, 27e under the reference's routing with
+             its flip rate and max|diff| within
+             ``MODEL_AXIS_WITNESS_RATIO`` of the witness's; (5) each
+             rank's collective bytes by kind, ``all-reduce-max`` apart.
+             Prints a rank's warm decode step (CUDA events), the
+             collectives' share and each rank's peak.
 
 Each of phases 12-25 and 27 prints its wall time.  Then one JSON line with
 every kernel's numbers (the nine kernels, then flash and paged decode at
@@ -410,6 +440,7 @@ import hashlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -2043,14 +2074,14 @@ def run_family_serve(torch, ops):
 FAMILY_TRAIN_RUN = dict(device="cuda", reduced=False, rounds=2, val_batch=2,
                         seed=0, parity_seq=128)
 FAMILY_TRAIN = {
-    # full width at 8 of its 48 layers, to make room for phases 23 and 25
-    # (every check as at full depth); sequence 256
+    # full width at 4 of its 48 layers, to make room for phases 23, 25 and
+    # 27d-e (every check as at full depth); sequence 256
     # is two SSD chunks, so the state crosses a chunk boundary
-    "mamba2-370m": dict(layers=8, clients=4, cut=4, seq=256, batch=2,
+    "mamba2-370m": dict(layers=4, clients=4, cut=2, seq=256, batch=2,
                         parity_layers=2, parity_cut=1),
-    # 2 clients; 13 of its 26 layers (71.4 GB of p, m, v and g whole: 16 B
-    # x 4,462,200,320 elements), to make room for phase 25
-    "recurrentgemma-2b": dict(layers=13, clients=2, cut=3, seq=128,
+    # 2 clients; 7 of its 26 layers (two super-blocks and a remainder
+    # layer), to make room for phases 25 and 27d-e
+    "recurrentgemma-2b": dict(layers=7, clients=2, cut=3, seq=128,
                               batch=2, parity_layers=6, parity_cut=3),
 }
 SCAN_KERNELS = ("ssd_scan", "rg_lru_scan", "flash_attention")
@@ -2464,12 +2495,13 @@ def run_paper_parity(torch, ops):
 # ---------------------------------------------------------------------------
 
 # phases 16-17: the round under fault scenarios.  Mamba-2-370M at full
-# width and 16 of its 48 layers (phase 16; cut in depth to make room for
-# phase 24, as phases 12 and 20a were for phase 23) at 8 clients: p, m, v
+# width and 8 of its 48 layers (phase 16; cut in depth to make room for
+# phase 24, as phases 12 and 20a were for phase 23, and again for phase
+# 27d-e) at 8 clients: p, m, v
 # and g in fp32 are 16 B x ~1.14e9 elements at 48 layers, ~18.3 GB
 # (reckoned); the pre-step rows and Krum's (8, D) matrix ~3.3 GB each
 FAULT_RUN = dict(device="cuda", reduced=False, arch="mamba2-370m",
-                 layers=16, clients=8, cut=8, seq=256, batch=2, val_batch=2,
+                 layers=8, clients=8, cut=4, seq=256, batch=2, val_batch=2,
                  seed=0,
                  clean_rounds=1, rounds=1, byzantine_f=2,
                  parity_layers=3, parity_cuts=(1, 2), parity_rounds=1,
@@ -3329,13 +3361,13 @@ def run_gemma3_serve(torch, ops):
 
 # module values, so a CPU rehearsal can shrink them.  20a: phase 16's
 # Mamba-2-370M at full width and 8 clients (FAULT_RUN), its depth cut to 16
-# of 48 layers to make room for phase 23 and to 8 at cut 4 for phase 25
-# (every check as at full depth),
+# of 48 layers to make room for phase 23, to 8 at cut 4 for phase 25 and
+# to 4 at cut 2 for phase 27d-e (every check as at full depth),
 # participation 1.0, under async-stragglers (clients 4-7 at 8x); the buffer
 # adds 8 client stages in fp32, ~3.5 GB (reckoned: the 51.5 M embedding
 # and 8 layers).  20b: phase
 # 17's 3-layer cut; 20c: phase 18's gait FFN at 10 clients.
-ASYNC_RUN = dict(layers=8, cut=4, inf_rounds=2, park_rounds=3, int8_rounds=2,
+ASYNC_RUN = dict(layers=4, cut=2, inf_rounds=2, park_rounds=3, int8_rounds=2,
                  chunk=4,
                  chunk_rounds=1, parity_rounds=3, parity_byz_rounds=4,
                  paper_clients=10, paper_rounds=6, paper_steps=10)
@@ -3571,7 +3603,7 @@ def run_async_train(torch, ops):
                   "sync_importance_gap": fairness.importance_gap(
                       ra[-1]["importance"], strag)}
     print(f"async train: {cfg.name} {cfg.num_layers} layers, {n} clients, "
-          f"cut {FAULT_RUN['cut']}, {sc.name}: deadline inf vs the sync "
+          f"cut {ASYNC_RUN['cut']}, {sc.name}: deadline inf vs the sync "
           f"round, {ASYNC_RUN['inf_rounds']} rounds: {bits} of "
           f"{out['inf']['state_elements']} state elements differ, metrics "
           f"differing {differ} (bit-exact required); sync rounds "
@@ -3890,9 +3922,9 @@ def run_async(torch, ops):
 DENSE_RUN = dict(device="cuda", reduced=False, seed=0, chunk=8,
                  block_size=16, bias_std=0.5, norm_std=0.2)
 DENSE_SERVE = {
-    "stablelm-12b": dict(requests=8, prompts=(256, 1024), gen=(16, 32),
-                         replicas=2, slots=8, flash_s=1536),
-    "qwen2.5-32b": dict(layers=32, requests=4, prompts=(512, 1024),
+    "stablelm-12b": dict(layers=20, requests=8, prompts=(256, 1024),
+                         gen=(16, 32), replicas=2, slots=8, flash_s=1536),
+    "qwen2.5-32b": dict(layers=16, requests=4, prompts=(512, 1024),
                         gen=(16, 32),
                         replicas=1, slots=8, flash_s=1024),
 }
@@ -4150,7 +4182,8 @@ def _serve_models(torch, ops, labels, table, run, after=None):
 
 
 def run_dense_serve(torch, ops):
-    """21b / 21c: StableLM-2-12B and Qwen2.5-32B at full size."""
+    """21b / 21c: StableLM-2-12B and Qwen2.5-32B at full width, at
+    ``DENSE_SERVE``'s depths."""
     return _serve_models(torch, ops, ("21b", "21c"), DENSE_SERVE, DENSE_RUN)
 
 
@@ -4323,7 +4356,7 @@ MOE_RUN = dict(device="cuda", reduced=False, chunk=8, block_size=16)
 MOE_SERVE = {
     "olmoe-1b-7b": dict(layers=None, requests=8, prompts=(256, 1024),
                         gen=(16, 32), replicas=2, slots=8, flash_s=1024),
-    "phi3.5-moe-42b-a6.6b": dict(layers=8, requests=8, prompts=(512, 1024),
+    "phi3.5-moe-42b-a6.6b": dict(layers=4, requests=8, prompts=(512, 1024),
                                  gen=(16, 32), replicas=1, slots=8,
                                  flash_s=1024),
 }
@@ -4434,8 +4467,8 @@ def run_moe_kernels(torch, ops):
 
 
 def run_moe_serve(torch, ops):
-    """22b / 22c: OLMoE-1B-7B whole and Phi-3.5-MoE at 16 layers (Phi's
-    LayerNorm moved off its init first)."""
+    """22b / 22c: OLMoE-1B-7B whole and Phi-3.5-MoE at
+    ``MOE_SERVE``'s depth (Phi's LayerNorm moved off its init first)."""
     return _serve_models(torch, ops, ("22b", "22c"), MOE_SERVE, MOE_RUN)
 
 
@@ -4490,7 +4523,8 @@ def run_moe(torch, ops):
 # module values, so a CPU rehearsal can shrink them.  MusicGen-medium
 # whole (48 layers, 24 query over 24 kv heads at hd 64, an ungated GELU
 # MLP, LayerNorm moved off its init as in phase 21: 2.73 GB in bf16,
-# reckoned) and Qwen2-VL-72B at 20 of its 80 layers (64 over 8 at hd 128,
+# reckoned; 23b serves 24 of its layers) and Qwen2-VL-72B at
+# 10 of its 80 layers (64 over 8 at hd 128,
 # M-RoPE, qkv biases moved off zero: 75.3 GB at the cut, 145.4 GB whole),
 # random weights from seed 0.  ``flash_s`` is the flash check's sequence:
 # an admission for MusicGen, the vision prefill's 1,024 patches before
@@ -4499,10 +4533,10 @@ def run_moe(torch, ops):
 FRONT_RUN = dict(device="cuda", reduced=False, chunk=8, block_size=16,
                  seed=0, patches=1024, text=1024)
 FRONT_SERVE = {
-    "musicgen-medium": dict(layers=None, requests=8, prompts=(256, 1024),
+    "musicgen-medium": dict(layers=24, requests=8, prompts=(256, 1024),
                             gen=(16, 32), replicas=2, slots=8, flash_s=1024,
                             long_s=6144),
-    "qwen2-vl-72b": dict(layers=20, requests=4, prompts=(512, 1024),
+    "qwen2-vl-72b": dict(layers=10, requests=4, prompts=(512, 1024),
                          gen=(16, 32), replicas=1, slots=8, flash_s=2048),
 }
 # 23d: MusicGen at full size, cuts (4, 44) (a client stage of 4 layers, an
@@ -4616,7 +4650,7 @@ def _vision_prefill(label, cfg, params, dev):
 
 
 def run_front_serve(torch, ops):
-    """23b / 23c: MusicGen-medium whole and Qwen2-VL-72B at 40 layers
+    """23b / 23c: MusicGen-medium and Qwen2-VL-72B at ``FRONT_SERVE``'s depths
     through :func:`_serve_vs_plain` (its LayerNorm or qkv biases moved off
     their init first), then Qwen2-VL's vision prefill on the same weights
     (:func:`_vision_prefill`)."""
@@ -5720,9 +5754,16 @@ def run_shards(torch, ops):
 
 MODEL_AXIS_RUN = dict(device="cuda", reduced=False, seed=0, reps=1,
                       fp32_layers=4, timeout=900.0)
-# arch -> its grid (data, model) and prefill shape
-MODEL_AXIS = {"gemma-2b": dict(grid=(1, 2), batch=2, seq=2048),
-              "olmoe-1b-7b": dict(grid=(2, 2), batch=2, seq=1024)}
+# arch -> its grid (data, model), prefill shape, and (27d / 27e) the
+# decode step's: its INPUT_SHAPES entry, the batch, the prompt, the
+# cache's max_len, the steps, and how far each row's position runs behind
+# the row before it
+MODEL_AXIS = {"gemma-2b": dict(grid=(1, 2), batch=2, seq=2048, decode=dict(
+                  shape="decode_32k", batch=2, seq=2048, max_len=2064,
+                  steps=16, behind=8)),
+              "olmoe-1b-7b": dict(grid=(2, 2), batch=2, seq=1024, decode=dict(
+                  shape="long_500k", batch=1, seq=1024, max_len=4096,
+                  steps=4, behind=0))}
 # (iii): fp32 last-position logits, grid vs one rank, in max |logit| of
 # the reference: the grid only reassociates the row-parallel sums
 MODEL_AXIS_FP32_BAND = 1e-4
@@ -5836,12 +5877,14 @@ def _row_parallel_split(torch, model):
         yield
 
 
-def _model_axis_rank(grid, dev, arch, spec, run, routing):
+def _model_axis_rank(grid, dev, arch, spec, run, routing, decode_in):
     """One rank of 27: its blocks and the counted step, in fp32 at 4
     layers and in bf16 at full depth; in bf16 then a step under the
     reference's expert choices for its data shard (``routing``: the
     reference's top-k calls in order, shard by shard within a layer),
-    each collective timed, and the timed warm steps."""
+    each collective timed, and the timed warm steps; then, on the same
+    blocks, 27d / 27e's decode (``decode_in[key]``: the reference's greedy
+    tokens and expert choices)."""
     import torch
     from repro_torch import _bridge, sharding
     from repro_torch.kernels import ops
@@ -5911,8 +5954,14 @@ def _model_axis_rank(grid, dev, arch, spec, run, routing):
                                      f"recorded calls")
             sharding.reset_collective_stats()
         rec["peak_bytes"] = _peak(torch, dev, base)
+        del logits
+        t0 = time.perf_counter()
+        rec["decode"] = _model_axis_decode_rank(torch, ops, grid, dev, spec,
+                                                key, cfg, blocks,
+                                                decode_in[key])
+        rec["decode"]["s"] = time.perf_counter() - t0
         out[key] = rec
-        del blocks, logits
+        del blocks
         _free(torch)
     out["left"] = time.time()
     return out
@@ -5955,9 +6004,194 @@ def _model_axis_reference(torch, ops, arch, spec, key, dev):
         rec["ms"] = _step_ms(torch, dev, lambda: step(whole, batch),
                              MODEL_AXIS_RUN["reps"])
     rec["peak_bytes"] = _peak(torch, dev, base)
-    del whole, logits
+    del logits
+    rec["decode"] = _model_axis_decode_reference(torch, ops, spec, key, cfg,
+                                                 whole, dev)
+    del whole
     _free(torch)
     return rec
+
+
+def _decode_inputs(torch, cfg, dec, dev):
+    """27d / 27e's prompts (B, S) and each row's first decode position,
+    ``behind`` fewer a row (row 1's prompt is read as that much shorter:
+    its entries past its position stay masked until it overwrites them)."""
+    g = torch.Generator().manual_seed(MODEL_AXIS_RUN["seed"] + 2)
+    prompt = torch.randint(0, cfg.vocab_size, (dec["batch"], dec["seq"]),
+                           generator=g, dtype=torch.int32)
+    pos0 = dec["seq"] - dec["behind"] * torch.arange(dec["batch"])
+    return prompt.to(dev), pos0.to(torch.int32).to(dev)
+
+
+def _timed_call(torch, dev, fn):
+    """(fn(), its ms): CUDA events on the card, the host clock elsewhere."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return out, start.elapsed_time(end)
+
+
+def _decode_run(torch, ops, cfg, dec, dev, params, binding, step, *,
+                feed=None, prefill_ctx=None, step_ctx=None):
+    """A prefill of 27d / 27e's prompts into a fresh cache (``impl=
+    "kernel"``; this rank's blocks under a grid's ``binding``), then
+    ``dec["steps"]`` decode steps through ``step``, greedy (``feed`` None)
+    or on ``feed`` (B, steps).  Returns the logits of the prompt's last
+    position and of each step (B, 1 + steps, V) fp32 on the host, the fed
+    tokens, the cache's leaves after the prefill on the host, the
+    prefill's and the steps' launches, each step's ms and collective
+    seconds (after the first, which runs under the op counter: its
+    collective bytes by kind and log), and the peak."""
+    from repro_torch import sharding
+    from repro_torch.launch.specs import decode_window
+    from repro_torch.config import INPUT_SHAPES
+    from repro_torch.models import transformer as tf
+    from repro_torch.roofline import op_cost
+    from repro_torch.tree import tree_leaves
+    prompt, pos0 = _decode_inputs(torch, cfg, dec, dev)
+    override = decode_window(cfg, INPUT_SHAPES[dec["shape"]])
+    base = _peak_reset(torch, dev)
+    out = {}
+    with binding():
+        cache = tf.init_cache(cfg, dec["batch"], dec["max_len"], device=dev,
+                              decode_window_override=override)
+        rows = sharding.shard_activation(prompt, "batch", None)
+    ops.reset_launch_counts()
+    with torch.no_grad(), binding(), prefill_ctx or contextlib.nullcontext():
+        lg, _ = tf.prefill(params, cfg, rows, cache=cache, impl="kernel",
+                           last_only=True)
+    _sync(torch, dev)
+    out.update(prefill_launches=ops.launch_counts(),
+               cache=[t.cpu() for t in tree_leaves(cache)],
+               cache_held_bytes=_tensor_bytes(torch, tree_leaves(cache)))
+    logits, toks, ms, coll_s = [lg[:, -1].float().cpu()], [], [], []
+    ops.reset_launch_counts()
+    with step_ctx or contextlib.nullcontext():
+        for i in range(dec["steps"]):
+            tok = (logits[-1].argmax(-1).to(torch.int32) if feed is None
+                   else feed[:, i].cpu())
+            toks.append(tok)
+            batch = {"tokens": tok[:, None].to(dev), "pos": pos0 + i}
+            if i == 0:
+                sharding.reset_collective_stats()
+                with op_cost.OpCounter() as counter:
+                    lg, _ = step(params, cache, batch)
+                tot = counter.totals()
+                out["coll"] = {k.removeprefix("coll_"): v
+                               for k, v in tot.items()
+                               if k.startswith("coll_")
+                               and k != "coll_weighted"}
+                out["collectives"] = sharding.collective_stats()
+            else:
+                sharding.reset_collective_stats(timing=True)
+                (lg, _), t = _timed_call(torch, dev,
+                                         lambda: step(params, cache, batch))
+                ms.append(t)
+                coll_s.append(sharding.collective_stats()["seconds"])
+            logits.append(lg[:, -1].float().cpu())
+    sharding.reset_collective_stats()
+    out.update(logits=torch.stack(logits, 1), feed=torch.stack(toks, 1),
+               decode_launches=ops.launch_counts(), step_ms=ms,
+               collective_s=coll_s, peak_bytes=_peak(torch, dev, base))
+    del cache
+    return out
+
+
+def _model_axis_decode_reference(torch, ops, spec, key, cfg, whole, dev):
+    """27d / 27e's reference: the one-rank prefill into a whole cache and
+    greedy decode steps (``make_serve_step(cfg, shape)``; the bare mesh
+    shape ``{"data": D, "model": 1}`` bound under the decode rules where D
+    > 1, so MoE dispatches per shard as JAX), the expert choices recorded
+    for prefill and steps apart; for MoE in bf16 also the witness (27b's:
+    the grid's roundings on one rank) on the same tokens under the
+    recorded routing, its own top-k's flips counted."""
+    from repro_torch import sharding
+    from repro_torch.config import INPUT_SHAPES
+    from repro_torch.launch.specs import build_rules
+    from repro_torch.launch.steps import make_serve_step
+    dec = spec["decode"]
+    data, model = spec["grid"]
+    mesh = {"data": data, "model": 1}
+    rules = build_rules(mesh, cfg, "decode", dec["batch"])
+
+    def binding():
+        return (sharding.use_sharding_rules(mesh, rules) if data > 1
+                else contextlib.nullcontext())
+    step = make_serve_step(cfg, INPUT_SHAPES[dec["shape"]])
+    rp, rd = _Routing(), _Routing()
+    rec = _decode_run(torch, ops, cfg, dec, dev, whole, binding, step,
+                      prefill_ctx=rp.record(), step_ctx=rd.record())
+    rec.update(routing_prefill=[ids.cpu() for ids in rp.calls],
+               routing_decode=[ids.cpu() for ids in rd.calls])
+    if key == "bf16" and cfg.num_experts:
+        wp, wd = _Routing(), _Routing()
+        wp.calls, wd.calls = rp.calls, rd.calls
+        with _row_parallel_split(torch, model):
+            w = _decode_run(torch, ops, cfg, dec, dev, whole, binding, step,
+                            feed=rec["feed"], prefill_ctx=wp.replay(),
+                            step_ctx=wd.replay())
+        rec["witness"] = {"flips": [int(wp.flips + wd.flips),
+                                    wp.rows + wd.rows],
+                          "logits": w["logits"]}
+    return rec
+
+
+def _model_axis_decode_rank(torch, ops, grid, dev, spec, key, cfg, blocks,
+                            ref_in):
+    """27d / 27e on one rank, on the param blocks the prefill step used
+    (their bytes held against ``device_bytes`` under the decode rules):
+    this rank's cache blocks, the prefill into them and the decode steps
+    through ``make_serve_step(cfg, shape, grid)`` on the reference's
+    greedy tokens; for MoE in bf16 under the reference's expert choices
+    (this data rank's shards of the prefill's per-shard dispatch, every
+    step's), the flips of its own top-k counted."""
+    from repro_torch import sharding
+    from repro_torch.config import INPUT_SHAPES
+    from repro_torch.launch.specs import build_rules, decode_window
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer as tf
+    dec = spec["decode"]
+    shape = INPUT_SHAPES[dec["shape"]]
+    rules = build_rules(grid, cfg, "decode", dec["batch"])
+    override = decode_window(cfg, shape)
+    whole_cache = tf.init_cache(cfg, dec["batch"], dec["max_len"],
+                                device="meta", decode_window_override=override)
+    ctx = {}
+    if key == "bf16" and cfg.num_experts:
+        d, per = grid.coords["data"], dec["batch"] * dec["seq"] // grid.data
+        shards = grid.data > 1 and per >= 8 * cfg.num_experts
+        rp, rd = _Routing(), _Routing()
+        calls = ref_in["routing_prefill"]
+        rp.calls = [ids.to(dev) for ids in (calls[d::grid.data] if shards
+                                            else calls)]
+        rd.calls = [ids.to(dev) for ids in ref_in["routing_decode"]]
+        ctx = {"prefill_ctx": rp.replay(), "step_ctx": rd.replay()}
+    out = _decode_run(torch, ops, cfg, dec, dev, blocks,
+                      lambda: sharding.use_sharding_rules(grid, rules),
+                      make_serve_step(cfg, shape, grid), feed=ref_in["feed"],
+                      **ctx)
+    out.update(
+        device_bytes=sharding.device_bytes(grid, rules, tf.param_axes_tree(cfg),
+                                           tf.abstract_params(cfg)[0]),
+        cache_device_bytes=sharding.device_bytes(
+            grid, rules, tf.cache_axes(cfg, decode_window_override=override),
+            whole_cache),
+        rules={k: str(v) for k, v in rules.items()})
+    if ctx:
+        for r in (rp, rd):
+            if r.at != len(r.calls):
+                raise AssertionError(f"27 decode: the replay used {r.at} of "
+                                     f"{len(r.calls)} recorded calls")
+        out["flips"] = [int(rp.flips + rd.flips), rp.rows + rd.rows]
+    return out
 
 
 def _model_axis_blocks(arch, key, spec, ranks, ref):
@@ -6050,9 +6284,12 @@ def run_model_axis(torch, ops, ref=None):
         ref_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         spawned = time.time()
+        decode_in = {key: {k: refs[key]["decode"][k] for k in (
+            "feed", "routing_prefill", "routing_decode")}
+            for key in refs}
         ranks = spawn_grid(_model_axis_rank, data, model, arch, spec,
                            dict(MODEL_AXIS_RUN), refs["bf16"]["routing"],
-                           device=dev, backend="gloo",
+                           decode_in, device=dev, backend="gloo",
                            timeout=MODEL_AXIS_RUN["timeout"])
         rec = {"grid": spec["grid"], "batch": spec["batch"],
                "seq": spec["seq"], "reference_s": ref_s,
@@ -6196,6 +6433,8 @@ def run_model_axis(torch, ops, ref=None):
                       f"collectives "
                       f"{', '.join(f'{c:.3f}' for c in krec['collective_share'])}"
                       f" of a timed step", flush=True)
+        rec["decode"] = _check_model_axis_decode(torch, arch, spec, ranks,
+                                                 refs, dev)
         if "moe" in rec:
             m = rec["moe"]
             print(f"  27 {arch}: the {m['branch']} dispatch ran, "
@@ -6237,6 +6476,207 @@ def run_model_axis(torch, ops, ref=None):
                   f"plain {rec['plain_ms']:.4f} ms, SDPA "
                   f"{rec['library_ms']:.4f} ms; {rec['launches']} launches "
                   f"a step", flush=True)
+    return out
+
+
+def _decode_rows(ranks, key, data, model, whole_rows):
+    """27d / 27e's logits (B, 1 + steps, V) in row order: the ranks that
+    hold the same rows (a model group; every rank where the rows are
+    whole) must agree bit for bit."""
+    import torch
+    groups = ([list(range(data * model))] if whole_rows else
+              [[d * model + m for m in range(model)] for d in range(data)])
+    rows = []
+    for g in groups:
+        first = ranks[g[0]][key]["decode"]["logits"]
+        for r in g[1:]:
+            if not torch.equal(ranks[r][key]["decode"]["logits"], first):
+                raise AssertionError(f"27 decode: ranks {g[0]} and {r} "
+                                     f"returned different logits")
+        rows.append(first)
+    return torch.cat(rows)
+
+
+def _check_model_axis_decode(torch, arch, spec, ranks, refs, dev):
+    """27d / 27e's checks, key by key: (1) held bytes of params and cache
+    = ``device_bytes`` under the decode rules, each rank's cache blocks
+    against the reference cache's slices: ``pos`` bit for bit, the first
+    layer's ``k`` / ``v`` too where the rank projects every kv head (the
+    one-rank product; a block of split kv heads is a product of another
+    width), fp32 every layer within ``MODEL_AXIS_FP32_BAND`` (past the
+    first, the residual stream carries the row-parallel sums'
+    reassociation); (2) flash launches a rank = the layers in
+    the prefill, none in the steps, no paged launch; (3) fp32: every
+    step's logits within ``MODEL_AXIS_FP32_BAND``; (4) bf16 on the
+    reference's greedy tokens: the grid's greedy token equal wherever the
+    reference's top-2 gap exceeds ``MODEL_AXIS_GAP``, for MoE under the
+    reference's routing with the flip rate and the logits' max|diff| each
+    within ``MODEL_AXIS_WITNESS_RATIO`` of the witness's; (5) collective
+    bytes by kind (``all-reduce-max`` apart)."""
+    from repro_torch import sharding
+    from repro_torch.config import INPUT_SHAPES
+    from repro_torch.launch.mesh import ProcessGrid
+    from repro_torch.launch.specs import build_rules, decode_window
+    from repro_torch.models import transformer as tf
+    data, model = spec["grid"]
+    dec = spec["decode"]
+    whole_rows = dec["batch"] < data
+    out = {}
+    for key in ("fp32", "bf16"):
+        cfg = _model_axis_cfg(arch, key)
+        ref = refs[key]["decode"]
+        res = [r[key]["decode"] for r in ranks]
+        where = f"27{'d' if arch == 'gemma-2b' else 'e'} {arch} {key}"
+        # (1)
+        for r, (x, held) in enumerate(zip(res, (r[key]["held_bytes"]
+                                                for r in ranks))):
+            if held != x["device_bytes"] or (
+                    x["cache_held_bytes"] != x["cache_device_bytes"]):
+                raise AssertionError(
+                    f"{where}: rank {r} holds {held} / {x['cache_held_bytes']} "
+                    f"bytes of params / cache, device_bytes "
+                    f"{x['device_bytes']} / {x['cache_device_bytes']}")
+        rules = build_rules({"data": data, "model": model}, cfg, "decode",
+                            dec["batch"])
+        axes = sharding.axes_leaves(tf.cache_axes(
+            cfg, decode_window_override=decode_window(
+                cfg, INPUT_SHAPES[dec["shape"]])))
+        cache_err = 0.0
+        kv_whole = model == 1 or cfg.num_kv_heads % model != 0
+        for r, x in enumerate(res):
+            g = ProcessGrid(data, model, r)
+            for i, (ax, whole, got) in enumerate(zip(axes, ref["cache"],
+                                                     x["cache"])):
+                want = whole[sharding.block_slices(sharding.resolve_spec(
+                    g, rules, ax, whole.shape), whole.shape, g)]
+                exact = (not whole.dtype.is_floating_point or not kv_whole
+                         or torch.equal(got[0], want[0]))
+                if got.shape != want.shape or not exact:
+                    raise AssertionError(
+                        f"{where}: rank {r}'s cache leaf {i} "
+                        f"{tuple(got.shape)} is not the reference's slice "
+                        f"{tuple(want.shape)} bit for bit (the first "
+                        f"layer's k / v, every kv head projected)")
+                if not whole.dtype.is_floating_point:
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"{where}: rank {r}'s pos "
+                                             f"differs from the reference's")
+                    continue
+                scale = max(float(whole.float().abs().max()), 1e-30)
+                cache_err = max(cache_err, float(
+                    (got.float() - want.float()).abs().max()) / scale)
+        if key == "fp32" and cache_err > MODEL_AXIS_FP32_BAND:
+            raise AssertionError(f"{where}: cache entries differ by "
+                                 f"{cache_err:.3g} of max|entry|")
+        # (2)
+        flash = [x["prefill_launches"].get("flash_attention", 0)
+                 for x in res]
+        stepped = [{k: v for k, v in x["decode_launches"].items() if v}
+                   for x in res]
+        if (dev.type == "cuda" and flash != [cfg.num_layers] * len(res)) \
+                or any(stepped):
+            raise AssertionError(f"{where}: flash launches {flash} in the "
+                                 f"prefill (want {cfg.num_layers} a rank), "
+                                 f"launches in the steps {stepped}")
+        got = _decode_rows(ranks, key, data, model, whole_rows)
+        want = ref["logits"]
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{where}: logits {tuple(got.shape)}, "
+                                 f"finite {bool(torch.isfinite(got).all())}")
+        diffs = [float((got[:, i] - want[:, i]).abs().max())
+                 for i in range(got.shape[1])]
+        scales = [float(want[:, i].abs().max()) for i in range(got.shape[1])]
+        krec = {"held_bytes": [r[key]["held_bytes"] for r in ranks],
+                "cache_held_bytes": [x["cache_held_bytes"] for x in res],
+                "cache_max_rel_diff": cache_err, "flash": flash,
+                "max_abs_diff": diffs, "max_abs_logit": scales,
+                "peak_bytes": [x["peak_bytes"] for x in res],
+                "reference_peak_bytes": ref["peak_bytes"],
+                "coll": [x["coll"] for x in res],
+                "calls": [x["collectives"]["calls"] for x in res],
+                "step_ms": [x["step_ms"] for x in res],
+                "reference_step_ms": ref["step_ms"],
+                "collective_share": [sum(x["collective_s"]) * 1e3
+                                     / max(sum(x["step_ms"]), 1e-9)
+                                     for x in res],
+                "wall_s": [x["s"] for x in res]}
+        if key == "fp32":
+            # (3)
+            for i, (dd, sc) in enumerate(zip(diffs, scales)):
+                if dd > MODEL_AXIS_FP32_BAND * sc:
+                    raise AssertionError(
+                        f"{where}: step {i} logits differ by {dd:.3g} > "
+                        f"{MODEL_AXIS_FP32_BAND} x {sc:.3g}")
+        else:
+            # (4)
+            top = want.topk(2, dim=-1).values
+            gaps = top[..., 0] - top[..., 1]
+            mine, theirs = got.argmax(-1), want.argmax(-1)
+            bad = (mine != theirs) & (gaps > MODEL_AXIS_GAP)
+            if bad.any():
+                row, i = [int(v) for v in bad.nonzero()[0]]
+                raise AssertionError(
+                    f"{where}: row {row} step {i} greedy {int(mine[row, i])} "
+                    f"vs {int(theirs[row, i])} with top-2 gap "
+                    f"{float(gaps[row, i]):.3f} > {MODEL_AXIS_GAP}")
+            krec.update(tokens_equal=int((mine == theirs).sum()),
+                        tokens=mine.numel(),
+                        min_gap_where_differ=(
+                            float(gaps[mine != theirs].min())
+                            if (mine != theirs).any() else None))
+            if cfg.num_experts:
+                w = ref["witness"]
+                flips = sum(x["flips"][0] for x in res)
+                rows = sum(x["flips"][1] for x in res)
+                wd = float((w["logits"] - want).abs().max())
+                krec["witness"] = {
+                    "flips": w["flips"], "flip_rate": w["flips"][0]
+                    / w["flips"][1], "grid_flip_rate": flips / rows,
+                    "max_abs_diff": wd,
+                    "vs_grid_max_abs_diff": float(
+                        (w["logits"] - got).abs().max())}
+                for what, a, b in (
+                        ("flip rate", flips / rows,
+                         krec["witness"]["flip_rate"]),
+                        ("logits' max|diff|", max(diffs), wd)):
+                    if a > MODEL_AXIS_WITNESS_RATIO * b:
+                        raise AssertionError(
+                            f"{where}: the grid's {what} {a:.4g} > "
+                            f"{MODEL_AXIS_WITNESS_RATIO} x the witness's "
+                            f"{b:.4g}")
+        out[key] = krec
+        c0 = krec["coll"][0]
+        warm = [statistics.median(m) if m else float("nan")
+                for m in krec["step_ms"]]
+        line = (f"  {where} ({data} x {model}, {dec['shape']}, B "
+                f"{dec['batch']}, prompt {dec['seq']}, {dec['steps']} steps): "
+                f"logits max|diff| {max(diffs):.4g} of max|logit| "
+                f"{max(scales):.4g}; held bytes a rank "
+                f"{krec['held_bytes']} params + {krec['cache_held_bytes']} "
+                f"cache = device_bytes; cache max|diff| {cache_err:.3g} of "
+                f"max|entry| (pos{', layer 0' if kv_whole else ''} "
+                f"bit-equal); flash {flash}; step "
+                f"collectives rank 0: {krec['calls'][0]} calls, " + ", ".join(
+                    f"{k} {v / 2**20:.4f} MiB" for k, v in sorted(c0.items())
+                    if v) + f"; warm step "
+                + ", ".join(f"{m:.1f}" for m in warm) + " ms a rank (one rank "
+                + f"{statistics.median(ref['step_ms'] or [float('nan')]):.1f}"
+                + "); collectives " + ", ".join(
+                    f"{c:.3f}" for c in krec["collective_share"])
+                + " of the timed steps; peaks " + ", ".join(
+                    f"{b / 2**30:.2f}" for b in krec["peak_bytes"])
+                + f" GiB (reference {ref['peak_bytes'] / 2**30:.2f}); "
+                f"{max(krec['wall_s']):.1f} s a rank")
+        if key == "bf16":
+            line += (f"; greedy tokens equal {krec['tokens_equal']} of "
+                     f"{krec['tokens']}")
+            if "witness" in krec:
+                w = krec["witness"]
+                line += (f"; flips {w['grid_flip_rate']:.4f} (witness "
+                         f"{w['flip_rate']:.4f}), witness max|diff| "
+                         f"{w['max_abs_diff']:.4g}, from the grid's "
+                         f"{w['vs_grid_max_abs_diff']:.4g}")
+        print(line, flush=True)
     return out
 
 

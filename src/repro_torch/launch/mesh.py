@@ -26,7 +26,8 @@ the mesh's data axis:
 with a ``model`` axis).  :class:`ProcessGrid` is one rank's view of a
 ``data x model`` grid: rank ``d * M + m`` sits at coordinates ``(d, m)``
 and joins two subgroups, its **model group** (the ranks with its ``d``)
-and its **data group** (the ranks with its ``m``).  ``.shape`` is the
+and its **data group** (the ranks with its ``m``); the default group is
+the whole grid (``group_of(("data", "model"))``).  ``.shape`` is the
 axis-size map, so ``launch/specs.py::build_rules`` and
 ``sharding.resolve_spec`` / ``device_bytes`` take a grid as they take a
 mesh shape.  :func:`make_grid` builds it on an initialized default group
@@ -164,7 +165,8 @@ class ProcessGrid:
     """A ``data x model`` grid of ranks as seen from rank ``rank``: its
     coordinates ``(d, m) = divmod(rank, model)``, its model group (the
     ranks ``d * model + 0 .. model - 1``), its data group (the ranks
-    ``0 * model + m .. (data - 1) * model + m``).  Without groups (None)
+    ``0 * model + m .. (data - 1) * model + m``), and the whole grid's
+    group (the default one, in rank order).  Without groups (None)
     it still places blocks (``sharding.block_slices``), and runs no
     collective."""
 
@@ -173,6 +175,7 @@ class ProcessGrid:
     rank: int
     model_group: Any = None
     data_group: Any = None
+    grid_group: Any = None
 
     def __post_init__(self):
         if self.data < 1 or self.model < 1:
@@ -192,9 +195,18 @@ class ProcessGrid:
         d, m = divmod(self.rank, self.model)
         return {"data": d, "model": m}
 
-    def group_of(self, axis: str):
-        """The process group along mesh axis ``axis``."""
-        return {"data": self.data_group, "model": self.model_group}[axis]
+    def group_of(self, axes):
+        """The process group along mesh axis ``axes``, or along a tuple of
+        them: ``("data", "model")`` is the whole grid, whose rank order (``d
+        * M + m``) is a ``PartitionSpec`` entry's (the first axis major);
+        a one-axis tuple is that axis."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        groups = {("data",): self.data_group, ("model",): self.model_group,
+                  ("data", "model"): self.grid_group}
+        if axes not in groups:
+            raise ValueError(f"no process group along {axes} on a "
+                             f"{self.data} x {self.model} grid")
+        return groups[axes]
 
 
 def make_grid(data: int, model: int) -> ProcessGrid:
@@ -217,7 +229,7 @@ def make_grid(data: int, model: int) -> ProcessGrid:
                    for j in range(model)]
     return ProcessGrid(data=data, model=model, rank=rank,
                        model_group=model_groups[d],
-                       data_group=data_groups[m])
+                       data_group=data_groups[m], grid_group=dist.group.WORLD)
 
 
 @contextlib.contextmanager

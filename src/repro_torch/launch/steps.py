@@ -18,7 +18,11 @@
   that binding (the per-shard MoE dispatch of a data axis above 1).
 * ``decode_32k`` / ``long_500k`` → :func:`make_serve_step`: one decode
   step against a cache; ``long_500k`` decodes every global layer within
-  the config's ``long_context_window``.
+  the config's ``long_context_window``.  Given a grid it is the sharded
+  step JAX runs under ``build_rules(mesh, cfg, "decode", B)``: each rank
+  holds its param blocks and its blocks of the caches, split on their
+  sequence over ``kv_seq`` (``model``, or ``data x model`` when B is
+  below the data axis and the rows are then whole on every rank).
 
 """
 
@@ -119,21 +123,45 @@ def make_prefill_step(model_cfg: ModelConfig, impl: str = "kernel",
     return prefill_step
 
 
-def make_serve_step(model_cfg: ModelConfig, shape: ShapeConfig
+def make_serve_step(model_cfg: ModelConfig, shape: ShapeConfig, grid=None
                     ) -> Callable[..., Tuple[torch.Tensor, dict]]:
     """``serve_step(params, cache, batch) -> (logits (B, 1, V), cache)``:
     one decode step of ``batch["tokens"]`` (B, 1) at ``batch["pos"]``
     (B,), the cache updated in place, under ``torch.no_grad()``.  For the
     ``long_500k`` shape every global layer decodes within
     ``model_cfg.long_context_window`` (its cache built by
-    ``tf.init_cache`` with the same ``decode_window_override``)."""
+    ``tf.init_cache`` with the same ``decode_window_override``).
+
+    With ``grid`` the step runs under ``use_sharding_rules(grid,
+    specs.build_rules(grid, cfg, "decode", B))``.  On a ``ProcessGrid``
+    ``params`` are this rank's blocks (``_bridge.shard_params``), ``cache``
+    its cache blocks (``tf.init_cache`` under the same binding, filled by
+    ``tf.prefill``) and ``batch`` the whole batch; it returns the logits
+    of this rank's rows: B / data where ``"batch"`` splits over the data
+    axis, all B where the rules leave it unbound (B below the data axis).
+    A batch the bound data axis does not divide raises."""
     override = (model_cfg.long_context_window
                 if shape.name == "long_500k" else None)
 
+    def decode(params, cache, batch):
+        return tf.decode_step(params, model_cfg, batch["tokens"], cache,
+                              batch["pos"], decode_window_override=override)
+
     def serve_step(params, cache, batch: Dict[str, torch.Tensor]):
         with torch.no_grad():
-            return tf.decode_step(params, model_cfg, batch["tokens"], cache,
-                                  batch["pos"],
-                                  decode_window_override=override)
+            if grid is None:
+                return decode(params, cache, batch)
+            b = batch["tokens"].shape[0]
+            bound = build_rules(grid, model_cfg, "decode", b)
+            with sharding.use_sharding_rules(grid, bound):
+                want, n = sharding.bound_axes("batch")
+                if n > 1 and b % n:
+                    raise ValueError(
+                        f"a batch of {b} rows bound to {want} on a "
+                        f"{grid.shape} grid: the rows must split over it")
+                local = {k: sharding.shard_activation(
+                    v, "batch", *(None,) * (v.dim() - 1))
+                    for k, v in batch.items()}
+                return decode(params, cache, local)
 
     return serve_step

@@ -36,12 +36,30 @@ by index, as the JAX package's paths do.
 KV caches are updated in place (``index_put_``) where the JAX package
 donated its buffers: the functions return the cache they were given.
 
-On a grid (``sharding.current_grid()``; the sharded prefill step),
-:func:`multihead_attention` runs this rank's query heads, split over the
-model axis (``act_heads``), against its kv heads: split with them where
-they divide the axis, else the replicated ones those query heads read
-(Gemma-2B's one kv head on every rank).  ``wo`` is row-parallel, so its
-product is summed over the model group.
+On a grid (``sharding.current_grid()``; the sharded prefill and decode
+steps), :func:`multihead_attention` runs this rank's query heads, split
+over the model axis (``act_heads``), against its kv heads: split with
+them where they divide the axis, else the replicated ones those query
+heads read (Gemma-2B's one kv head on every rank).  ``wo`` is
+row-parallel, so its product is summed over the model group.
+
+A KV cache on a grid is this rank's block (``transformer.init_cache``
+under the binding): split on its sequence over the ``kv_seq`` axes, its
+kv heads whole, ``pos`` whole on every rank (JAX's ``kv_cache_axes``
+under the decode rules).  :func:`prefill_attention` runs flash on the
+rank's heads as above, gathers the new ``k`` / ``v`` over the model group
+where the kv heads split, and writes the entries its block holds.
+:func:`decode_attention` gathers the query heads (and the new entry's kv
+heads) over the model group, writes the entry where the rank's block
+holds its slot, and combines one token's softmax over the sequence's
+blocks: the row max reduced with ``max`` over the ``kv_seq`` group, then
+``exp(s - m)`` summed, ``exp(s - m) / l`` cast where one rank's softmax
+is cast, and the blocks' weighted values summed in fp32 (GSPMD's
+decomposition of the softmax JAX marks with ``kv_seq``).  A block whose
+entries are all masked adds exact zeros.  The rank's heads of the result
+go through ``wo``, summed over the model group.  A paged pool has no
+placement in the JAX package (``kv_cache_axes`` covers ``k``, ``v`` and
+``pos``), so a paged cache on a grid raises (``transformer.py``).
 """
 
 from __future__ import annotations
@@ -475,6 +493,34 @@ def multihead_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return sharding.model_sum(out) if split else out
 
 
+def _query_block(cfg: ModelConfig, p: Params) -> Optional[int]:
+    """Where this rank's block of query heads starts (split over the model
+    axis), or None when it holds them all."""
+    h = p["wq"].shape[1]
+    return None if h == cfg.num_heads else sharding.model_block(
+        cfg.num_heads, h)
+
+
+def _kv_read(cfg: ModelConfig, lo: int, h: int, kv: int, device):
+    """The kv heads query heads ``[lo, lo + h)`` read out of ``kv`` held
+    ones: None where the kv heads split with the query heads (or there is
+    one), else heads ``(lo + i) // G``: a slice where the block holds
+    whole groups, else an index, one kv head a query head."""
+    if kv != cfg.num_kv_heads or kv == 1:
+        return None
+    g = cfg.num_heads // cfg.num_kv_heads
+    if h % g == 0:
+        return slice(lo // g, (lo + h) // g)
+    return torch.div(torch.arange(lo, lo + h, device=device), g,
+                     rounding_mode="floor")
+
+
+def _take(t: torch.Tensor, idx, dim: int) -> torch.Tensor:
+    if isinstance(idx, slice):
+        return t.narrow(dim, idx.start, idx.stop - idx.start)
+    return t.index_select(dim, idx)
+
+
 def _model_heads(cfg: ModelConfig, p: Params
                  ) -> Tuple[ModelConfig, Params, bool]:
     """(``cfg`` with this rank's head counts, ``p`` with the kv heads its
@@ -482,29 +528,47 @@ def _model_heads(cfg: ModelConfig, p: Params
     model group).  Query heads split over the model axis are a
     contiguous block ``[lo, lo + h)``; kv heads split with them give
     groups of ``G`` as on one rank, replicated ones are cut to those the
-    block reads (heads ``(lo + i) // G``): a slice where the block holds
-    whole groups, else one kv head a query head.  Unsplit heads give
-    ``(cfg, p, False)``."""
-    h = p["wq"].shape[1]
-    lo = None if h == cfg.num_heads else sharding.model_block(
-        cfg.num_heads, h)
+    block reads (:func:`_kv_read`).  Unsplit heads give ``(cfg, p,
+    False)``."""
+    lo = _query_block(cfg, p)
     if lo is None:
         return cfg, p, False
-    kv = p["wk"].shape[1]
-    if kv == cfg.num_kv_heads and kv > 1:
-        g = cfg.num_heads // cfg.num_kv_heads
-        idx = (slice(lo // g, (lo + h) // g) if h % g == 0 else
-               torch.div(torch.arange(lo, lo + h, device=p["wk"].device), g,
-                         rounding_mode="floor"))
+    h = p["wq"].shape[1]
+    idx = _kv_read(cfg, lo, h, p["wk"].shape[1], p["wk"].device)
+    if idx is not None:
         p = dict(p)
         for name, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
             if name in p:
-                t = p[name]
-                p[name] = (t.narrow(dim, idx.start, idx.stop - idx.start)
-                           if isinstance(idx, slice)
-                           else t.index_select(dim, idx))
-        kv = p["wk"].shape[1]
-    return cfg.replace(num_heads=h, num_kv_heads=kv), p, True
+                p[name] = _take(p[name], idx, dim)
+    return cfg.replace(num_heads=h, num_kv_heads=p["wk"].shape[1]), p, True
+
+
+def _grid_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              positions: torch.Tensor):
+    """On a grid: (this rank's query-head start or None, q for its query
+    heads, k and v for every kv head, k and v for the kv heads its query
+    heads read).  ``k`` / ``v`` are projected from the rank's own kv block
+    and gathered over the model group where the kv heads split."""
+    lo = _query_block(cfg, p)
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    ka, va = k, v
+    if lo is not None:
+        idx = _kv_read(cfg, lo, q.shape[2], k.shape[2], k.device)
+        if idx is not None:
+            ka, va = _take(k, idx, 2), _take(v, idx, 2)
+        if k.shape[2] != cfg.num_kv_heads:
+            k, v = sharding.model_gather(k, 2), sharding.model_gather(v, 2)
+    return lo, q, k, v, ka, va
+
+
+def _cache_block(cfg: ModelConfig, cache: Params) -> Tuple[int, Tuple]:
+    """(where this rank's block of the cache's sequence starts, the mesh
+    axes it is split over); its kv heads must be whole."""
+    if cache["k"].shape[2] != cfg.num_kv_heads:
+        raise NotImplementedError(
+            f"a KV cache split on its kv heads ({cache['k'].shape[2]} of "
+            f"{cfg.num_kv_heads} a rank): {sharding.ITEM_UNEXECUTED}")
+    return sharding.seq_block(cache["pos"].shape[1], cache["k"].shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -528,7 +592,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 
 def cache_write(cache: Params, k: torch.Tensor, v: torch.Tensor,
-                pos, *, ring: bool = False) -> Params:
+                pos, *, ring: bool = False, start: int = 0) -> Params:
     """Write S new KV entries starting at absolute position ``pos``, in
     place.  ``pos`` is an int (all rows at the same position: prefill) or
     a ``(B,)`` tensor of per-row positions (single-token decode writes,
@@ -537,18 +601,33 @@ def cache_write(cache: Params, k: torch.Tensor, v: torch.Tensor,
 
     A ``ring`` (a local layer's cache) takes entry ``p`` at slot
     ``p % size``; a write of S >= size entries keeps the last ``size``.
-    A global cache raises where the write would run past its end."""
+    A global cache raises where the write would run past its end.
+
+    On a grid the cache's ``k`` / ``v`` may be a block of the sequence,
+    slots ``[start, start + local)`` of the whole ``size`` that ``pos``
+    (never split) spans: only the entries whose slots it holds are
+    written there, and ``pos`` takes every one."""
     b, s = k.shape[0], k.shape[1]
-    size = cache["k"].shape[1]
+    size, local = cache["pos"].shape[1], cache["k"].shape[1]
     if isinstance(pos, torch.Tensor):
         if s != 1:
             raise ValueError("per-row cache writes are single-token only")
         rows = torch.arange(b, device=k.device)
         idx = (pos % size).long()
+        cache["pos"][rows, idx] = pos.to(torch.int32)
+        if local != size:
+            # a row whose slot another rank holds rewrites an entry of its
+            # own with itself (no host read of which rows are whose)
+            mine = (idx >= start) & (idx < start + local)
+            idx = torch.where(mine, idx - start, torch.zeros_like(idx))
+            keep = mine[:, None, None]
+            k = torch.where(keep, k[:, 0], cache["k"][rows, idx])[:, None]
+            v = torch.where(keep, v[:, 0], cache["v"][rows, idx])[:, None]
         cache["k"][rows, idx] = k[:, 0]
         cache["v"][rows, idx] = v[:, 0]
-        cache["pos"][rows, idx] = pos.to(torch.int32)
         return cache
+    if local != size:
+        return _block_write(cache, k, v, pos, ring, start)
     if ring:
         keep = min(s, size)
         newpos = pos + s - keep + torch.arange(keep, dtype=torch.int32,
@@ -567,6 +646,29 @@ def cache_write(cache: Params, k: torch.Tensor, v: torch.Tensor,
     return cache
 
 
+def _block_write(cache: Params, k: torch.Tensor, v: torch.Tensor, pos: int,
+                 ring: bool, start: int) -> Params:
+    """:func:`cache_write` of S entries at ``pos`` into a block of slots
+    ``[start, start + local)``: the whole cache's slots reckoned on the
+    host, the entries landing in the block written there, and every one
+    into the whole ``pos``."""
+    s = k.shape[1]
+    size, local = cache["pos"].shape[1], cache["k"].shape[1]
+    keep = min(s, size) if ring else s
+    if not ring and pos + s > size:
+        raise ValueError(f"{s} entries at position {pos} overflow the cache")
+    src = torch.arange(s - keep, s)
+    newpos = pos + src
+    slots = newpos % size
+    mine = (slots >= start) & (slots < start + local)
+    dev = k.device
+    cache["pos"][:, slots.to(dev)] = newpos.to(device=dev, dtype=torch.int32)
+    dst, src = (slots[mine] - start).to(dev), src[mine].to(dev)
+    cache["k"][:, dst] = k[:, src]
+    cache["v"][:, dst] = v[:, src]
+    return cache
+
+
 def prefill_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
                       positions: torch.Tensor, cache: Params, *,
                       window: Optional[int] = None,
@@ -582,12 +684,32 @@ def prefill_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     windowed ``banded``, ``chunked`` or ``triangular`` layer takes the
     band, ``chunked`` / ``flash`` the online-softmax scan."""
     _check_impl(impl)
+    ring = window is not None or cache["pos"].shape[1] < x.shape[1]
+    if sharding.current_grid() is not None:
+        return _grid_prefill_attention(cfg, p, x, positions, cache, window,
+                                       impl, ring)
     q, k, v = _project_qkv(cfg, p, x, positions)
     out = _full_attention(cfg, q, k, v, positions, window, impl,
                           prefill=True)
-    ring = window is not None or cache["k"].shape[1] < k.shape[1]
     cache = cache_write(cache, k, v, 0, ring=ring)
     return _out_proj(p, out), cache
+
+
+def _grid_prefill_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                            positions: torch.Tensor, cache: Params,
+                            window: Optional[int], impl: str, ring: bool
+                            ) -> Tuple[torch.Tensor, Params]:
+    """:func:`prefill_attention` on a grid: the rank's query heads against
+    the kv heads they read (flash on the card under ``impl="kernel"``),
+    every kv head's entries written where the rank's block of the cache
+    holds their slots, ``wo``'s product summed over the model group."""
+    start, _ = _cache_block(cfg, cache)
+    lo, q, k, v, ka, va = _grid_qkv(cfg, p, x, positions)
+    cfg_l = cfg.replace(num_heads=q.shape[2], num_kv_heads=ka.shape[2])
+    out = _out_proj(p, _full_attention(cfg_l, q, ka, va, positions, window,
+                                       impl, prefill=True))
+    cache = cache_write(cache, k, v, 0, ring=ring, start=start)
+    return (out if lo is None else sharding.model_sum(out)), cache
 
 
 def init_paged_kv_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -663,10 +785,67 @@ def decode_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     tensor of per-row absolute positions (or a scalar one)."""
     b = x.shape[0]
     pos_b = pos.to(torch.int32).expand(b)
+    if sharding.current_grid() is not None:
+        return _grid_decode_attention(cfg, p, x, cache, pos_b, window)
     q, k, v = _project_qkv(cfg, p, x, _one_token_positions(cfg, pos_b))
     cache = cache_write(cache, k, v, pos_b)
-    pc = cache["pos"]
+    return _out_proj(p, _attend_one(cfg, q, cache["k"], cache["v"],
+                                    _decode_valid(cache["pos"], pos_b,
+                                                  window))), cache
+
+
+def _decode_valid(pc: torch.Tensor, pos_b: torch.Tensor,
+                  window: Optional[int]) -> torch.Tensor:
+    """The entries a token at ``pos_b`` (B,) sees among cache positions
+    ``pc`` (B, n): filled, not ahead of it, within ``window``."""
     valid = (pc >= 0) & (pc <= pos_b[:, None])
     if window is not None:
         valid &= (pos_b[:, None] - pc) < window
-    return _out_proj(p, _attend_one(cfg, q, cache["k"], cache["v"], valid)), cache
+    return valid
+
+
+def _grid_decode_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                           cache: Params, pos_b: torch.Tensor,
+                           window: Optional[int]
+                           ) -> Tuple[torch.Tensor, Params]:
+    """:func:`decode_attention` on a grid: every query head (gathered over
+    the model group) against the rank's block of the cache's sequence,
+    the softmax combined over the ``kv_seq`` group
+    (:func:`_attend_split`), the rank's heads of the result through
+    ``wo``, summed over the model group."""
+    start, axes = _cache_block(cfg, cache)
+    lo, q, k, v, _, _ = _grid_qkv(cfg, p, x, _one_token_positions(cfg, pos_b))
+    h = q.shape[2]
+    if lo is not None:
+        q = sharding.model_gather(q, 2)
+    cache = cache_write(cache, k, v, pos_b, start=start)
+    local = cache["k"].shape[1]
+    valid = _decode_valid(cache["pos"][:, start:start + local], pos_b, window)
+    if axes:
+        out = _attend_split(cfg, q, cache["k"], cache["v"], valid, axes)
+    else:
+        out = _attend_one(cfg, q, cache["k"], cache["v"], valid)
+    if lo is None:
+        return _out_proj(p, out), cache
+    return sharding.model_sum(_out_proj(p, out[:, :, lo:lo + h])), cache
+
+
+def _attend_split(cfg: ModelConfig, q, kc, vc, valid, axes) -> torch.Tensor:
+    """:func:`_attend_one` over a cache view split on its sequence across
+    the group along mesh axes ``axes``, this rank holding ``kc`` / ``vc``
+    / ``valid``: the scores as one rank computes them, the row max reduced
+    with ``max``, ``exp(s - m)`` summed, ``pr = exp(s - m) / l`` cast to
+    the activation dtype where one rank casts its softmax, and the blocks'
+    ``pr · v`` summed in fp32, then cast.  Masked scores (``NEG_INF``)
+    give exact zeros beside the group's max, so an empty block adds
+    nothing."""
+    qg = _group(cfg, q)                                   # (B,1,K,G,hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kc) * _scale(cfg)
+    s = softcap(s, cfg.attn_logit_softcap)
+    s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF).float()
+    m = sharding.group_max(s.amax(dim=-1, keepdim=True), axes)
+    e = torch.exp(s - m)
+    l = sharding.group_sum(e.sum(dim=-1, keepdim=True), axes)
+    pr = (e / l).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", pr.float(), vc.float())
+    return sharding.group_sum(out, axes).to(q.dtype).reshape(q.shape)

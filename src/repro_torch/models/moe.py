@@ -32,14 +32,20 @@ tokens, and the aux loss is the shards' mean:
 
 * under a bare mesh shape (one process holding the whole mesh) the
   shards run in order, as JAX's ``vmap`` runs them;
-* on a grid (``sharding.current_grid()``) each rank's tokens are its
-  data shard's: it runs its own, and the aux mean is summed over the data
-  group.
+* on a grid (``sharding.current_grid()``) whose ``batch`` binding splits
+  the rows over the data axis, each rank's tokens are its data shard's:
+  it runs its own, and the aux mean is summed over the data group;
+* on a grid whose rows arrive whole on every rank (``batch`` unbound: the
+  decode rules of a batch below the data axis, ``long_500k``), each data
+  rank dispatches its ``moe_tokens`` shard of them and the outputs are
+  gathered over the data group, the aux the shards' mean: JAX's ``vmap``
+  over an unsplit input.
 
 Otherwise a grid whose data axis splits the tokens gathers them over the
 data group and dispatches the global stream, capacity from all ``t``
 tokens, as JAX does, so an overflow drops the tokens one rank would; each
-rank keeps its rows.  Experts split over the model axis (``expert``): a
+rank keeps its rows.  Rows that arrive whole are the global stream
+already.  Experts split over the model axis (``expert``): a
 rank runs its ``E / M`` experts on its tokens, which every rank of its
 model group holds, and its combine is a partial sum, summed over the
 model group.
@@ -99,7 +105,8 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor
     xt = x.reshape(b * s, d)
     axes, dp = sharding.bound_axes("moe_tokens")
     grid = sharding.current_grid()
-    nd = 1 if grid is None else grid.data     # shards the tokens arrive in
+    # the data shards the rows arrive in: the batch binding's
+    nd = 1 if grid is None else sharding.bound_axes("batch")[1]
     t = b * s * nd
     per_shard = dp > 1 and t % dp == 0 and t // dp >= 8 * cfg.num_experts
     if grid is None:
@@ -110,15 +117,24 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor
                     torch.stack(auxes).mean())
         out, aux = _moe_core(cfg, p, xt)
         return out.reshape(b, s, d), aux
-    if dp > 1 and dp != nd:
+    if dp > 1 and nd not in (1, dp):
         raise NotImplementedError(
             f"moe_tokens bound to {axes} ({dp} shards) on a grid whose "
             f"tokens arrive in {nd}: {sharding.ITEM_UNEXECUTED}")
-    if per_shard:
+    if per_shard and nd == dp:
         out, aux = _moe_core(cfg, p, xt)
         return out.reshape(b, s, d), sharding.data_sum(aux) / dp
-    # the global stream: every data rank dispatches all t tokens (its own
-    # when the data axis is 1) and keeps its own rows
+    if per_shard:
+        # whole rows: this data rank's shard, the shards' outputs gathered
+        i = sharding.block_slices((axes,), (dp,), grid)[0].start
+        out, aux = _moe_core(cfg, p, xt.reshape(dp, t // dp, d)[i])
+        return (sharding.data_gather(out, 0).reshape(b, s, d),
+                sharding.data_sum(aux) / dp)
+    if nd == 1:
+        out, aux = _moe_core(cfg, p, xt)
+        return out.reshape(b, s, d), aux
+    # the global stream: every data rank dispatches all t tokens and keeps
+    # its own rows
     i = grid.coords["data"]
     out, aux = _moe_core(cfg, p, sharding.data_gather(xt, 0),
                          rows=slice(i * b * s, (i + 1) * b * s))

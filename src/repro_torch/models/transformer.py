@@ -25,16 +25,19 @@ the prefix, as in JAX.  Decode takes the long-context
 ``decode_window_override``: every global layer's cache is then a ring of
 that window, never paged.
 
-On a grid (``sharding.current_grid()``: the sharded prefill step of
-``launch/steps.py``) the full-sequence forward runs on this rank's
-blocks: each layer first gathers its data-placed (FSDP) blocks over the
-data group (:func:`_layer_blocks`), the attention, MLP and MoE layers
-run their model-axis splits and sum over the model group, the embedding
-looks up the vocab rows this rank holds and sums them, and the tied (or
-untied) logits are a vocab slice a rank, gathered over the model group.
-The decode and cache-filling paths and the training stages refuse a grid
-(``sharding.refuse_grid``), as :func:`forward` refuses the bindings no
-slice executes yet (``sharding.check_executable``).
+On a grid (``sharding.current_grid()``: the sharded prefill and decode
+steps of ``launch/steps.py``) the forward, the prefill into a cache and
+the decode steps run on this rank's blocks: each layer first gathers its
+data-placed (FSDP) blocks over the data group (:func:`_layer_blocks`),
+the attention, MLP and MoE layers run their model-axis splits and sum
+over the model group, the embedding looks up the vocab rows this rank
+holds and sums them, and the tied (or untied) logits are a vocab slice a
+rank, gathered over the model group.  A cache on a grid is this rank's
+block (:func:`init_cache` under the binding: split on its sequence over
+the ``kv_seq`` axes, ``models/attention.py``).  A paged cache and the
+training stages refuse a grid (the stages through
+``sharding.refuse_grid``), as every step refuses the bindings no slice
+executes yet (``sharding.check_executable``).
 
 The MoE layers' load-balance aux loss is summed over the layers (fp32) by
 the forward, an edge stage (``stage_forward(with_aux=True)``) and the
@@ -573,6 +576,12 @@ def _layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
             for k, v in one.items()}
 
 
+# a paged pool on a grid: the JAX package gives it no placement
+PAGED_ON_GRID = ("a paged KV cache on a grid: the JAX package places no "
+                 "paged pool on a mesh (its kv_cache_axes cover k, v and "
+                 "pos only), so neither does the port")
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                decode_window_override: Optional[int] = None,
                paged: Optional[Tuple[int, int]] = None,
@@ -584,19 +593,37 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     ``min(override, max_len)`` entries too, which never pages.
     ``paged=(num_blocks, block_size)`` pools every other global-attention
     layer's KV into a shared block pool; the decode entry points then need
-    a block ``table``."""
+    a block ``table``.
+
+    Under a grid binding (``sharding.use_sharding_rules(grid, rules)``)
+    it builds only this rank's blocks of the ``batch``-row cache, each
+    leaf's ``sharding.block_shape`` under :func:`cache_axes` (filled as
+    the whole would be: zeros, positions -1), never the whole cache; a
+    paged cache raises there."""
     device = resolve_device(device)
+    grid = sharding.current_grid() is not None
+    if grid and paged is not None:
+        raise NotImplementedError(PAGED_ON_GRID)
     dtype = torch_dtype(cfg.dtype)
     period_specs, n_full, n_rem = _superblock_layout(cfg)
     rem_specs = cfg.layer_specs()[n_full * len(period_specs):]
-    return {
-        "stack": [_layer_cache_init(cfg, spec, batch, max_len, dtype, device,
+    at = "meta" if grid else device
+    cache = {
+        "stack": [_layer_cache_init(cfg, spec, batch, max_len, dtype, at,
                                     paged, n_full, decode_window_override)
                   for spec in period_specs],
-        "rem": [_layer_cache_init(cfg, spec, batch, max_len, dtype, device,
+        "rem": [_layer_cache_init(cfg, spec, batch, max_len, dtype, at,
                                   paged, 0, decode_window_override)
                 for spec in rem_specs],
     }
+    if not grid:
+        return cache
+    return sharding.map_axes(
+        lambda ax, t: torch.full(sharding.block_shape(ax, t.shape),
+                                 0 if t.dtype.is_floating_point else -1,
+                                 dtype=t.dtype, device=device),
+        cache_axes(cfg, decode_window_override=decode_window_override),
+        cache)
 
 
 # ---------------------------------------------------------------------------
@@ -604,10 +631,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 # ---------------------------------------------------------------------------
 
 
+def _check_grid_cache(cfg: ModelConfig, cache: Params) -> None:
+    """Under a grid: the bindings every step refuses, and a paged cache."""
+    sharding.check_executable(cfg)
+    if sharding.current_grid() is not None and any(
+            "pk" in c for c in cache.get("stack", []) + cache.get("rem", [])):
+        raise NotImplementedError(PAGED_ON_GRID)
+
+
 def _decode_layer(cfg: ModelConfig, spec: LayerSpec, p: Params,
                   x: torch.Tensor, cache: Params, pos: torch.Tensor,
                   table: Optional[torch.Tensor], paged_kernel: bool,
                   decode_window_override: Optional[int]) -> torch.Tensor:
+    p = _layer_blocks(cfg, spec, p)
     h = apply_norm(cfg, p["norm1"], x)
     if "pk" in cache:
         mixed, _ = attn.paged_decode_attention(cfg, p["mixer"], h, cache, pos,
@@ -636,8 +672,12 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     that many positions (its cache a ring from :func:`init_cache` with the
     same override).  ``table`` is the ``(B, nb)`` block table of a paged
     cache (contiguous caches ignore it); ``paged_kernel`` sends paged
-    layers through the CUDA block-table kernel instead of the gather."""
-    sharding.refuse_grid("the decode step")
+    layers through the CUDA block-table kernel instead of the gather.
+
+    On a grid ``params`` and ``cache`` are this rank's blocks and
+    ``tokens`` / ``pos`` its rows (all of them where the rules leave the
+    batch unsplit); the logits are its rows' whole vocab."""
+    _check_grid_cache(cfg, cache)
     x = _embed(cfg, params, tokens)
     for spec, lp, lc in _layers(params, cache, cfg):
         x = _decode_layer(cfg, spec, lp, x, lc, pos, table, paged_kernel,
@@ -701,8 +741,10 @@ def stage_decode_step(stage_params: Params, cfg: ModelConfig,
     activation (B, 1, D).  The final stage also runs the remainder layers,
     the final norm and the unembedding, and returns logits (B, 1, V) fp32.
     Chaining every stage (:func:`split_decode_step`) reproduces
-    :func:`decode_step` exactly: the cuts only move activations."""
-    sharding.refuse_grid("the decode step")
+    :func:`decode_step` exactly: the cuts only move activations.  On a
+    grid the stage's params and cache are this rank's blocks, as in
+    :func:`decode_step`."""
+    _check_grid_cache(cfg, cache)
     period_specs, _, _ = _superblock_layout(cfg)
     if stage_index == 0:
         x = _embed(cfg, stage_params, x)
@@ -749,6 +791,7 @@ def split_decode_step(stages: Sequence[Params], cfg: ModelConfig,
 def _prefill_layer(cfg: ModelConfig, spec: LayerSpec, p: Params,
                    x: torch.Tensor, cache: Params, positions: torch.Tensor,
                    impl: str) -> torch.Tensor:
+    p = _layer_blocks(cfg, spec, p)
     h = apply_norm(cfg, p["norm1"], x)
     if _is_attn(spec):
         mixed, _ = attn.prefill_attention(cfg, p["mixer"], h, positions,
@@ -777,9 +820,17 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     each global layer, the prompt attending in full.  ``last_only``
     unembeds only the final position, which is all the serving path
     reads.  ``impl`` picks the attention layers' path; the recurrent
-    blocks run their plain scans, which yield the final state."""
-    sharding.refuse_grid("a prefill into a KV cache")
+    blocks run their plain scans, which yield the final state.
+
+    On a grid ``params`` are this rank's blocks, ``tokens`` its rows and
+    ``cache`` its blocks (:func:`init_cache` under the binding; required
+    there, since the rows do not say the whole batch): each rank fills the
+    entries its block of every cache holds."""
+    sharding.check_executable(cfg)
     attn._check_impl(impl)
+    if cache is None and sharding.current_grid() is not None:
+        raise ValueError("a prefill on a grid fills this rank's cache "
+                         "blocks: pass them (init_cache under the binding)")
     x = _embed(cfg, params, tokens, embeds)
     b, s, _ = x.shape
     if cache is None:

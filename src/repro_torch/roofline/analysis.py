@@ -10,7 +10,8 @@ constants in place of the TPU's.  Its inputs come from
 ``roofline/op_cost.py`` (a step counted op by op, on the meta device by
 the dry run or on the card) instead of compiled HLO.  Collective bytes
 weight an all-reduce 2x (a reduce-scatter and an all-gather), as JAX's
-``collective_bytes`` does.
+``collective_bytes`` does, a max all-reduce (``all-reduce-max``, the
+split decode softmax's) as well.
 
 **The kernels' costs.**  One function a kernel returns ``(flops,
 bytes)`` of one call from its arguments' shapes (and, for paged decode,
@@ -36,8 +37,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # FLOP/s
 HBM_PER_DEVICE = 80e9                                 # bytes
 LINK_BW = 450e9                                       # bytes/s, one way
 
-_COLL_WEIGHT = {"all-reduce": 2, "all-gather": 1, "reduce-scatter": 1,
-                "all-to-all": 1, "collective-permute": 1}
+_COLL_WEIGHT = {"all-reduce": 2, "all-reduce-max": 2, "all-gather": 1,
+                "reduce-scatter": 1, "all-to-all": 1,
+                "collective-permute": 1}
 
 
 def weighted_collective_bytes(coll: Dict[str, float]) -> float:

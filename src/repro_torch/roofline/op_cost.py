@@ -28,7 +28,8 @@ the CPU or the card:
   ``sharding.py``'s transport (:func:`credit_collective`): the one
   per-kind tally of a step's collectives; and by site where a
   :class:`collective_site` labels them (the aggregation tree's);
-  ``coll_weighted`` weights an all-reduce 2x
+  ``coll_weighted`` weights an all-reduce 2x, a max one
+  (``all-reduce-max``, a kind of its own) too
   (``analysis.weighted_collective_bytes``).
 * **Kernels**: the hand-written kernels launch through ctypes, which no
   dispatch mode sees.  Each wrapper of ``kernels/ops.py`` runs inside
@@ -239,7 +240,7 @@ class OpCounter(TorchDispatchMode):
             self.elementwise_ops += cost.flops
 
     def credit_collective(self, kind: str, nbytes: float) -> None:
-        self.coll[kind] += float(nbytes)
+        self.coll[kind] = self.coll.get(kind, 0.0) + float(nbytes)
         if self._site:
             site = self.coll_by_site.setdefault(self._site[-1], {})
             site[kind] = site.get(kind, 0.0) + float(nbytes)

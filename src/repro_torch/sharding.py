@@ -18,7 +18,8 @@ process group (``launch/mesh.py``), one rank a shard:
   ``(index + 1) * N/S - 1``, the block layout of ``P(dp)``; a gather
   concatenates in rank order, which is flat client order.
 * **Transport**: :func:`all_reduce_sum` sums tensors across the group in
-  place, :func:`all_gather_rows` concatenates each rank's rows, on the
+  place (:func:`all_reduce_max` takes their maximum),
+  :func:`all_gather_rows` concatenates each rank's rows, on the
   tensors' own device, over the group's backend: NCCL, or gloo where the
   ranks share one card (NCCL refuses two ranks on one GPU).  Gloo takes
   CUDA tensors itself, copying them through host memory (chip_smoke phase
@@ -29,7 +30,8 @@ process group (``launch/mesh.py``), one rank a shard:
   this rank sends, seconds) and credits its result bytes by op kind to
   an active op counter (``roofline/op_cost.py``) as JAX's
   ``roofline/analysis.py::collective_bytes`` counts them (an all-reduce's
-  result is its input, an all-gather's the world's rows).
+  result is its input, an all-gather's the world's rows); a max
+  all-reduce is its own kind, ``all-reduce-max``.
   :class:`MetaGroup` stands in for a group of ``size`` ranks on the meta
   device (the dry run): its collectives log their bytes and return
   shape-true results without moving anything.
@@ -62,14 +64,20 @@ it (the step's batch rows, a leaf's block: :func:`block_slices`).
 and adds the collectives GSPMD adds.  :func:`gather_data_blocks` gathers
 a layer's data-placed (FSDP) blocks over the data group just before use;
 :func:`model_sum` / :func:`model_gather` / :func:`data_sum` /
-:func:`data_gather` are the model- and data-group collectives, each
+:func:`data_gather` are the model- and data-group collectives, and
+:func:`group_sum` / :func:`group_max` reduce over the group of any
+tuple of mesh axes (``("data", "model")`` is the whole grid), each
 through the same logged, counted path as the client axis's.
+:func:`block_shape` is this rank's block of a whole value under the
+bound rules (a KV cache's, ``transformer.init_cache``), and
+:func:`seq_block` where a block split on its sequence (``kv_seq``: the
+decode step's caches) starts and over which axes it is split.
 :func:`check_executable` raises for the bindings no slice executes yet:
-sequence-parallel attention, a decode ``kv_seq``, the recurrent axes on
-a model axis, a vision frontend.
+sequence-parallel attention, the recurrent axes on a model axis, a
+vision frontend.
 
-Not ported: the model axis's decode step (``kv_seq`` over ``model``) and
-the rounds' model-parallel server stage (ROADMAP Queue 1, item 13b).
+Not ported: the rounds' model-parallel server stage (ROADMAP Queue 1,
+item 13b (b)).
 """
 
 from __future__ import annotations
@@ -286,16 +294,26 @@ def _timed(tensors: Sequence[torch.Tensor], fn, kind: str,
     _STATS["seconds"] += time.perf_counter() - t0
 
 
-def all_reduce_sum(tensors: Sequence[torch.Tensor], group) -> None:
-    """Sum each tensor across the group's ranks, in place (a contiguous
-    tensor each)."""
+def _all_reduce(tensors: Sequence[torch.Tensor], group, op,
+                kind: str) -> None:
     meta = isinstance(group, MetaGroup)
     for t in tensors:
         if meta and not t.is_meta:
             raise ValueError("a MetaGroup reduces meta tensors only")
         _timed([t], (lambda: None) if meta else
-               (lambda t=t: dist.all_reduce(t, op=dist.ReduceOp.SUM,
-                                            group=group)), "all-reduce")
+               (lambda t=t: dist.all_reduce(t, op=op, group=group)), kind)
+
+
+def all_reduce_sum(tensors: Sequence[torch.Tensor], group) -> None:
+    """Sum each tensor across the group's ranks, in place (a contiguous
+    tensor each)."""
+    _all_reduce(tensors, group, dist.ReduceOp.SUM, "all-reduce")
+
+
+def all_reduce_max(tensors: Sequence[torch.Tensor], group) -> None:
+    """Each tensor's elementwise maximum across the group's ranks, in place
+    (a contiguous tensor each); logged and counted as ``all-reduce-max``."""
+    _all_reduce(tensors, group, dist.ReduceOp.MAX, "all-reduce-max")
 
 
 def all_gather_rows(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -552,7 +570,6 @@ def default_rules(multi_pod: bool = False, *, seq_shard_kv: bool = False,
 _BOUND = threading.local()
 _DATA_AXES = ("pod", "data")
 # the ROADMAP items that take the bindings a grid does not execute yet
-ITEM_DECODE = "ROADMAP Queue 1, item 13b (a): the model axis's decode step"
 ITEM_SERVER = ("ROADMAP Queue 1, item 13b (b): the rounds' model-parallel "
                "server stage")
 ITEM_UNEXECUTED = ("ROADMAP Queue 1, item 13b (c): the bindings a grid "
@@ -701,13 +718,66 @@ def model_block(whole: int, local: int) -> Optional[int]:
     return grid.coords["model"] * local
 
 
-def _group_sum(x: torch.Tensor, axis: str) -> torch.Tensor:
+def block_shape(logical_axes: Sequence[Logical], shape: Sequence[int]
+                ) -> Tuple[int, ...]:
+    """The shape of this rank's block of a whole value of ``shape`` placed
+    by ``logical_axes`` under the bound rules; ``shape`` itself outside a
+    grid (and under a bare mesh shape, whose one process holds the
+    whole)."""
     grid = current_grid()
-    if grid is None or grid.shape[axis] == 1:
+    if grid is None:
+        return tuple(shape)
+    spec = resolve_spec(grid, _current()[1], logical_axes, shape)
+    return local_shape(spec, shape, grid)
+
+
+def seq_block(whole: int, local: int, name: str = "kv_seq"
+              ) -> Tuple[int, Tuple[str, ...]]:
+    """(where this rank's block starts, the mesh axes it is split over)
+    for a dim of ``whole`` entries placed on logical axis ``name`` of which
+    it holds ``local``: the axes are the longest prefix of ``name``'s
+    binding whose sizes multiply to ``whole / local`` (``resolve_spec``'s
+    prefix rule), the block index the rank's coordinates along them, the
+    first axis the major one.  ``(0, ())`` when it holds them all."""
+    if local == whole:
+        return 0, ()
+    grid = current_grid()
+    axes: List[str] = []
+    n, idx = 1, 0
+    for a in _entry_axes(bound_axes(name)[0]):
+        if n * local == whole:
+            break
+        n *= grid.shape[a]
+        idx = idx * grid.shape[a] + grid.coords[a]
+        axes.append(a)
+    if grid is None or n * local != whole:
+        raise ValueError(f"a block of {local} of {whole} entries on "
+                         f"{name} ({bound_axes(name)[0]}) on "
+                         f"{getattr(grid, 'shape', None)}")
+    return idx * local, tuple(axes)
+
+
+def _group_reduce(x: torch.Tensor, axes: Logical, reduce) -> torch.Tensor:
+    grid = current_grid()
+    axes = _entry_axes(axes)
+    if grid is None or _mesh_axis_size(grid.shape, axes) == 1:
         return x
     x = x.contiguous()
-    all_reduce_sum([x], grid.group_of(axis))
+    reduce([x], grid.group_of(axes))
     return x
+
+
+def group_sum(x: torch.Tensor, axes: Logical) -> torch.Tensor:
+    """The sum of ``x`` over the group along mesh axes ``axes`` (a name or
+    a tuple of them; ``("data", "model")`` is the whole grid), in place;
+    ``x`` outside a grid or over a group of one."""
+    return _group_reduce(x, axes, all_reduce_sum)
+
+
+def group_max(x: torch.Tensor, axes: Logical) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the group along ``axes``, in
+    place (``all-reduce-max``); ``x`` outside a grid or over one rank."""
+    return _group_reduce(x, axes, all_reduce_max)
 
 
 def _group_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
@@ -720,7 +790,7 @@ def _group_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
 def model_sum(x: torch.Tensor) -> torch.Tensor:
     """The sum of the model group's partial ``x`` (a row-parallel
     product's), in place; ``x`` outside a grid."""
-    return _group_sum(x, "model")
+    return group_sum(x, "model")
 
 
 def model_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -730,7 +800,7 @@ def model_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 def data_sum(x: torch.Tensor) -> torch.Tensor:
     """The sum of ``x`` over the data group, in place."""
-    return _group_sum(x, "data")
+    return group_sum(x, "data")
 
 
 def data_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -743,7 +813,7 @@ def _on_model(name: str) -> bool:
     return size > 1 and "model" in _entry_axes(axes)
 
 
-def refuse_grid(what: str, item: str = ITEM_DECODE) -> None:
+def refuse_grid(what: str, item: str) -> None:
     """Raise where a path that runs no model axis yet is entered under a
     grid (nothing replicates silently)."""
     if current_grid() is not None:
@@ -755,8 +825,8 @@ def check_executable(cfg) -> None:
     """Raise, under a grid, for what the bound rules ask of ``cfg`` that
     no slice executes yet, naming its ROADMAP item: sequence-parallel
     attention (``attn_seq`` bound, or ``attn_din`` / ``attn_dout`` on the
-    model axis), a ``kv_seq`` binding (decode), the recurrent axes
-    (``lru``, ``ssm_*``) on a model axis above 1, a vision frontend."""
+    model axis), the recurrent axes (``lru``, ``ssm_*``) on a model axis
+    above 1, a vision frontend."""
     grid = current_grid()
     if grid is None:
         return
@@ -769,10 +839,6 @@ def check_executable(cfg) -> None:
         raise NotImplementedError(
             f"attention weights split on d_model over the model axis "
             f"(attn_din / attn_dout): {ITEM_UNEXECUTED}")
-    if bound_axes("kv_seq")[1] > 1:
-        raise NotImplementedError(
-            f"a KV cache split on its sequence (kv_seq bound to "
-            f"{bound_axes('kv_seq')[0]}): {ITEM_DECODE}")
     mixers = {s.mixer for s in cfg.layer_specs()}
     recurrent = {MIX_SSM: ("ssm_inner", "ssm_heads"), MIX_RGLRU: ("lru",)}
     for mixer, names in recurrent.items():

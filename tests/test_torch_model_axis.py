@@ -393,8 +393,6 @@ REFUSED = {
     "attn_din": (lambda: _refused("gemma", (1, 2), {"attn_din": "model"}),
                  r"13b \(c\)"),
     "heads-not-dividing": (lambda: _refused("gemma", (1, 3)), r"13b \(c\)"),
-    "kv_seq": (lambda: _refused("gemma", (1, 2), {"kv_seq": "model"}),
-               r"13b \(a\)"),
     "ssm": (lambda: _refused(None, (1, 2), cfg=reduced(get_arch(
         "mamba2-370m"))), r"13b \(c\)"),
     "lru": (lambda: _refused(None, (1, 2), cfg=reduced(get_arch(
@@ -415,16 +413,16 @@ def test_decode_and_training_refuse_a_grid():
     cfg = _setup("gemma")[0]
     params = tf.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
-    cache = tf.init_cache(cfg, 2, 16, device="cpu")
+    cache = tf.init_cache(cfg, 2, 16, paged=(4, 8), device="cpu")
+    table = torch.arange(4, dtype=torch.int32).view(2, 2)
     tokens = torch.zeros((2, 1), dtype=torch.int32)
     grid = ProcessGrid(1, 2, 0)
     with sharding.use_sharding_rules(grid, build_rules(grid, cfg, "decode",
                                                        2)):
-        with pytest.raises(NotImplementedError, match=r"13b \(a\)"):
+        # a paged pool has no placement in the JAX package
+        with pytest.raises(NotImplementedError, match="no paged pool"):
             tf.decode_step(params, cfg, tokens, cache,
-                           torch.zeros(2, dtype=torch.int32))
-        with pytest.raises(NotImplementedError, match=r"13b \(a\)"):
-            tf.prefill(params, cfg, tokens)
+                           torch.zeros(2, dtype=torch.int32), table=table)
         with pytest.raises(NotImplementedError, match=r"13b \(b\)"):
             tf.client_forward(params, cfg, tokens)
     # a batch that does not divide the data axis would be replicated
