@@ -165,8 +165,7 @@ class ProcessGrid:
     """A ``data x model`` grid of ranks as seen from rank ``rank``: its
     coordinates ``(d, m) = divmod(rank, model)``, its model group (the
     ranks ``d * model + 0 .. model - 1``), its data group (the ranks
-    ``0 * model + m .. (data - 1) * model + m``), and the whole grid's
-    group (the default one, in rank order).  Without groups (None)
+    ``0 * model + m .. (data - 1) * model + m``).  Without groups (None)
     it still places blocks (``sharding.block_slices``), and runs no
     collective."""
 
@@ -175,7 +174,6 @@ class ProcessGrid:
     rank: int
     model_group: Any = None
     data_group: Any = None
-    grid_group: Any = None
 
     def __post_init__(self):
         if self.data < 1 or self.model < 1:
@@ -202,7 +200,7 @@ class ProcessGrid:
         a one-axis tuple is that axis."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         groups = {("data",): self.data_group, ("model",): self.model_group,
-                  ("data", "model"): self.grid_group}
+                  ("data", "model"): dist.group.WORLD}
         if axes not in groups:
             raise ValueError(f"no process group along {axes} on a "
                              f"{self.data} x {self.model} grid")
@@ -229,7 +227,7 @@ def make_grid(data: int, model: int) -> ProcessGrid:
                    for j in range(model)]
     return ProcessGrid(data=data, model=model, rank=rank,
                        model_group=model_groups[d],
-                       data_group=data_groups[m], grid_group=dist.group.WORLD)
+                       data_group=data_groups[m])
 
 
 @contextlib.contextmanager

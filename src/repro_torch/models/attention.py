@@ -543,12 +543,13 @@ def _model_heads(cfg: ModelConfig, p: Params
     return cfg.replace(num_heads=h, num_kv_heads=p["wk"].shape[1]), p, True
 
 
-def _grid_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
+def _rank_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
               positions: torch.Tensor):
-    """On a grid: (this rank's query-head start or None, q for its query
-    heads, k and v for every kv head, k and v for the kv heads its query
-    heads read).  ``k`` / ``v`` are projected from the rank's own kv block
-    and gathered over the model group where the kv heads split."""
+    """(this rank's query-head start, None where it holds every query
+    head; q for its query heads; k and v for every kv head; k and v for
+    the kv heads its query heads read).  On a grid ``k`` / ``v`` are
+    projected from the rank's own kv block and gathered over the model
+    group where the kv heads split."""
     lo = _query_block(cfg, p)
     q, k, v = _project_qkv(cfg, p, x, positions)
     ka, va = k, v
@@ -682,31 +683,19 @@ def prefill_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     are (B,S,3) and mask every path but the kernel as in
     :func:`multihead_attention`.  ``impl`` routes as JAX's prefill does: a
     windowed ``banded``, ``chunked`` or ``triangular`` layer takes the
-    band, ``chunked`` / ``flash`` the online-softmax scan."""
+    band, ``chunked`` / ``flash`` the online-softmax scan.
+
+    On a grid the rank's query heads attend to the kv heads they read
+    (flash on the card under ``impl="kernel"``), every kv head's entries
+    are written where the rank's block of the cache holds their slots,
+    and ``wo``'s product is summed over the model group."""
     _check_impl(impl)
     ring = window is not None or cache["pos"].shape[1] < x.shape[1]
-    if sharding.current_grid() is not None:
-        return _grid_prefill_attention(cfg, p, x, positions, cache, window,
-                                       impl, ring)
-    q, k, v = _project_qkv(cfg, p, x, positions)
-    out = _full_attention(cfg, q, k, v, positions, window, impl,
-                          prefill=True)
-    cache = cache_write(cache, k, v, 0, ring=ring)
-    return _out_proj(p, out), cache
-
-
-def _grid_prefill_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                            positions: torch.Tensor, cache: Params,
-                            window: Optional[int], impl: str, ring: bool
-                            ) -> Tuple[torch.Tensor, Params]:
-    """:func:`prefill_attention` on a grid: the rank's query heads against
-    the kv heads they read (flash on the card under ``impl="kernel"``),
-    every kv head's entries written where the rank's block of the cache
-    holds their slots, ``wo``'s product summed over the model group."""
     start, _ = _cache_block(cfg, cache)
-    lo, q, k, v, ka, va = _grid_qkv(cfg, p, x, positions)
-    cfg_l = cfg.replace(num_heads=q.shape[2], num_kv_heads=ka.shape[2])
-    out = _out_proj(p, _full_attention(cfg_l, q, ka, va, positions, window,
+    lo, q, k, v, ka, va = _rank_qkv(cfg, p, x, positions)
+    if lo is not None:
+        cfg = cfg.replace(num_heads=q.shape[2], num_kv_heads=ka.shape[2])
+    out = _out_proj(p, _full_attention(cfg, q, ka, va, positions, window,
                                        impl, prefill=True))
     cache = cache_write(cache, k, v, 0, ring=ring, start=start)
     return (out if lo is None else sharding.model_sum(out)), cache
@@ -782,39 +771,16 @@ def decode_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """One-token attention against a contiguous cache or a ring: a local
     layer's, or a global layer's under the decode-window override
     (``window`` is then the override).  x: (B,1,D); ``pos`` is a ``(B,)``
-    tensor of per-row absolute positions (or a scalar one)."""
+    tensor of per-row absolute positions (or a scalar one).
+
+    On a grid every query head (gathered over the model group) attends to
+    the rank's block of the cache's sequence, the softmax combined over
+    the ``kv_seq`` group (:func:`_attend_split`), and the rank's heads of
+    the result go through ``wo``, summed over the model group."""
     b = x.shape[0]
     pos_b = pos.to(torch.int32).expand(b)
-    if sharding.current_grid() is not None:
-        return _grid_decode_attention(cfg, p, x, cache, pos_b, window)
-    q, k, v = _project_qkv(cfg, p, x, _one_token_positions(cfg, pos_b))
-    cache = cache_write(cache, k, v, pos_b)
-    return _out_proj(p, _attend_one(cfg, q, cache["k"], cache["v"],
-                                    _decode_valid(cache["pos"], pos_b,
-                                                  window))), cache
-
-
-def _decode_valid(pc: torch.Tensor, pos_b: torch.Tensor,
-                  window: Optional[int]) -> torch.Tensor:
-    """The entries a token at ``pos_b`` (B,) sees among cache positions
-    ``pc`` (B, n): filled, not ahead of it, within ``window``."""
-    valid = (pc >= 0) & (pc <= pos_b[:, None])
-    if window is not None:
-        valid &= (pos_b[:, None] - pc) < window
-    return valid
-
-
-def _grid_decode_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                           cache: Params, pos_b: torch.Tensor,
-                           window: Optional[int]
-                           ) -> Tuple[torch.Tensor, Params]:
-    """:func:`decode_attention` on a grid: every query head (gathered over
-    the model group) against the rank's block of the cache's sequence,
-    the softmax combined over the ``kv_seq`` group
-    (:func:`_attend_split`), the rank's heads of the result through
-    ``wo``, summed over the model group."""
     start, axes = _cache_block(cfg, cache)
-    lo, q, k, v, _, _ = _grid_qkv(cfg, p, x, _one_token_positions(cfg, pos_b))
+    lo, q, k, v, _, _ = _rank_qkv(cfg, p, x, _one_token_positions(cfg, pos_b))
     h = q.shape[2]
     if lo is not None:
         q = sharding.model_gather(q, 2)
@@ -828,6 +794,16 @@ def _grid_decode_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     if lo is None:
         return _out_proj(p, out), cache
     return sharding.model_sum(_out_proj(p, out[:, :, lo:lo + h])), cache
+
+
+def _decode_valid(pc: torch.Tensor, pos_b: torch.Tensor,
+                  window: Optional[int]) -> torch.Tensor:
+    """The entries a token at ``pos_b`` (B,) sees among cache positions
+    ``pc`` (B, n): filled, not ahead of it, within ``window``."""
+    valid = (pc >= 0) & (pc <= pos_b[:, None])
+    if window is not None:
+        valid &= (pos_b[:, None] - pc) < window
+    return valid
 
 
 def _attend_split(cfg: ModelConfig, q, kc, vc, valid, axes) -> torch.Tensor:

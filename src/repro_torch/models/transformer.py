@@ -580,6 +580,19 @@ def _layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
 PAGED_ON_GRID = ("a paged KV cache on a grid: the JAX package places no "
                  "paged pool on a mesh (its kv_cache_axes cover k, v and "
                  "pos only), so neither does the port")
+# a recurrent block's state on a grid: no case holds it against JAX yet
+RECURRENT_ON_GRID = ("an SSD or RG-LRU block's decode cache on a grid: "
+                     + sharding.ITEM_UNEXECUTED)
+
+
+def _refuse_grid_cache(cfg: ModelConfig, paged: bool) -> None:
+    """Under a grid: a recurrent block's cache, and a paged one."""
+    if sharding.current_grid() is None:
+        return
+    if {s.mixer for s in cfg.layer_specs()} & {MIX_SSM, MIX_RGLRU}:
+        raise NotImplementedError(RECURRENT_ON_GRID)
+    if paged:
+        raise NotImplementedError(PAGED_ON_GRID)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -599,11 +612,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     it builds only this rank's blocks of the ``batch``-row cache, each
     leaf's ``sharding.block_shape`` under :func:`cache_axes` (filled as
     the whole would be: zeros, positions -1), never the whole cache; a
-    paged cache raises there."""
+    paged cache, or a recurrent block's, raises there."""
     device = resolve_device(device)
     grid = sharding.current_grid() is not None
-    if grid and paged is not None:
-        raise NotImplementedError(PAGED_ON_GRID)
+    _refuse_grid_cache(cfg, paged is not None)
     dtype = torch_dtype(cfg.dtype)
     period_specs, n_full, n_rem = _superblock_layout(cfg)
     rem_specs = cfg.layer_specs()[n_full * len(period_specs):]
@@ -632,11 +644,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def _check_grid_cache(cfg: ModelConfig, cache: Params) -> None:
-    """Under a grid: the bindings every step refuses, and a paged cache."""
+    """Under a grid: the bindings every step refuses, a recurrent block's
+    cache and a paged one."""
     sharding.check_executable(cfg)
-    if sharding.current_grid() is not None and any(
-            "pk" in c for c in cache.get("stack", []) + cache.get("rem", [])):
-        raise NotImplementedError(PAGED_ON_GRID)
+    _refuse_grid_cache(cfg, any(
+        "pk" in c for c in cache.get("stack", []) + cache.get("rem", [])))
 
 
 def _decode_layer(cfg: ModelConfig, spec: LayerSpec, p: Params,
@@ -826,7 +838,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``cache`` its blocks (:func:`init_cache` under the binding; required
     there, since the rows do not say the whole batch): each rank fills the
     entries its block of every cache holds."""
-    sharding.check_executable(cfg)
+    _check_grid_cache(cfg, cache or {})
     attn._check_impl(impl)
     if cache is None and sharding.current_grid() is not None:
         raise ValueError("a prefill on a grid fills this rank's cache "

@@ -44,7 +44,9 @@ one-rank step.
   shards and the aux mean; 8 a shard, the global stream, against JAX's
   unsharded layer, drops included (bands of ``tests/test_torch_moe.py``).
 * In process: a paged cache on a grid raises, naming the JAX package's
-  missing placement.
+  missing placement; so does an SSD or RG-LRU block's cache (Mamba-2,
+  RecurrentGemma) on a data-only grid, naming ROADMAP 13b (c), in
+  ``init_cache``, ``decode_step`` and ``prefill``.
 """
 
 import concurrent.futures
@@ -483,6 +485,27 @@ def test_paged_cache_on_a_grid_raises(where):
             tf.decode_step(params, cfg, torch.zeros((2, 1), dtype=torch.int32),
                            paged, torch.zeros(2, dtype=torch.int32),
                            table=table)
+
+
+@pytest.mark.parametrize("where", ("init_cache", "decode_step", "prefill"))
+@pytest.mark.parametrize("arch", ("mamba2-370m", "recurrentgemma-2b"))
+def test_recurrent_cache_on_a_grid_raises(arch, where):
+    cfg = reduced(get_arch(arch))
+    grid = ProcessGrid(2, 1, 0)
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    cache = tf.init_cache(cfg, 2, 16, device="cpu")
+    tokens = torch.zeros((2, 1), dtype=torch.int32)
+    with sharding.use_sharding_rules(grid, build_rules(grid, cfg, "decode",
+                                                       2)), \
+            pytest.raises(NotImplementedError, match=r"RG-LRU.*13b \(c\)"):
+        if where == "init_cache":
+            tf.init_cache(cfg, 2, 16, device="cpu")
+        elif where == "decode_step":
+            tf.decode_step(params, cfg, tokens, cache,
+                           torch.zeros(2, dtype=torch.int32))
+        else:
+            tf.prefill(params, cfg, tokens, cache=cache)
 
 
 def test_prefill_on_a_grid_needs_its_cache_blocks():
